@@ -1,0 +1,284 @@
+"""The tower megakernel (kernels/megakernel.py) and the encoder backward
+(kernels/mlp.py) against the JAX package's Pallas kernels, and the pieces of
+their CUDA route that run without a card.
+
+On the CPU the port's wrappers run their plain twins; the JAX side runs its
+Pallas kernels in interpret mode, as its own tests do, with the same ε
+injected. Tolerances: fp32 rtol = atol = 1e-5 (gradients summed over the
+batch: atol = 1e-5 × max|want|); bf16 2e-2 (an activation rounded to bf16
+between layers can land on the other side of a rounding boundary).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from vae_assoc_tpu.kernels import megakernel as jmk
+from vae_assoc_tpu.kernels import mlp as jmlp
+from vae_assoc_tpu.models import networks as jnet
+from vae_assoc_tpu_torch import configs as tcfg
+from vae_assoc_tpu_torch import convert
+from vae_assoc_tpu_torch.kernels import _launches
+from vae_assoc_tpu_torch.kernels import megakernel as tmk
+from vae_assoc_tpu_torch.kernels import mlp as tmlp
+from vae_assoc_tpu_torch.models import networks as tnet
+from vae_assoc_tpu_torch.ops.sampling import philox_normal
+
+TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+ARCH = dict(n_input=24, n_z=4, n_hidden_recog_1=16, n_hidden_recog_2=12,
+            n_hidden_gener_1=12, n_hidden_gener_2=16)
+CASES = [(kind, n_cond, cd) for kind in ("bernoulli", "gaussian")
+         for n_cond in (0, 3) for cd in sorted(TOL)]
+
+
+def _pair(arch=ARCH, n_cond=0, seed=0):
+    jp = jnet.init_mlp_vae_params(jax.random.PRNGKey(seed), arch, n_cond=n_cond)
+    cfg = tcfg.AssocConfig([tcfg.ModalityConfig("m", arch, n_cond=n_cond)])
+    model = convert.from_jax_numpy({"modalities": (jax.tree.map(np.asarray, jp),)}, cfg, "cpu")
+    return jp, model.modalities[0]
+
+
+def _inputs(kind, n_cond, batch, seed=1):
+    r = np.random.default_rng(seed)
+    x = (r.uniform(0, 1, (batch, ARCH["n_input"])) if kind == "bernoulli"
+         else r.normal(size=(batch, ARCH["n_input"]))).astype(np.float32)
+    cond = (np.eye(n_cond, dtype=np.float32)[r.integers(0, n_cond, batch)]
+            if n_cond else None)
+    eps = r.normal(size=(batch, ARCH["n_z"])).astype(np.float32)
+    cts = [r.normal(size=(batch, ARCH["n_z"])).astype(np.float32) for _ in range(2)]
+    cts += [r.uniform(0.5, 1.5, batch).astype(np.float32) / batch for _ in range(2)]
+    return x, cond, eps, cts
+
+
+def _j(a):
+    return None if a is None else jnp.asarray(a)
+
+
+def _t(a):
+    return None if a is None else torch.from_numpy(a)
+
+
+def _assert_grads(got, want, tol):
+    for g, w in zip(got, want):
+        w = np.asarray(w)
+        np.testing.assert_allclose(g, w, rtol=tol, atol=tol * max(np.abs(w).max(), 1e-30))
+
+
+@pytest.mark.parametrize("kind,n_cond,cd", CASES)
+@torch.no_grad()
+def test_tower_forward_matches_pallas(kind, n_cond, cd):
+    jp, tp = _pair(n_cond=n_cond)
+    x, cond, eps, _ = _inputs(kind, n_cond, 37)
+    want = jmk.vae_tower_fused(jp, _j(x), kind=kind, eps=_j(eps), compute_dtype=jnp.dtype(cd),
+                               cond=_j(cond))
+    got = tmk.vae_tower_fused(tp, _t(x), kind=kind, eps=_t(eps), compute_dtype=cd, cond=_t(cond))
+    assert set(got) == set(want)
+    for k in want:
+        assert got[k].dtype == torch.float32 and tuple(got[k].shape) == want[k].shape
+        np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]), rtol=TOL[cd], atol=TOL[cd])
+
+
+def _loss_jax(jp, x, cond, eps, cts, kind, cd):
+    o = jmk.vae_tower_fused(jp, _j(x), kind=kind, eps=_j(eps), compute_dtype=jnp.dtype(cd),
+                            cond=_j(cond))
+    return sum(jnp.sum(o[k] * c) for k, c in zip(("mu", "lv", "recon_term", "kl_term"), cts))
+
+
+def _loss_port(tp, x, cond, eps, cts, kind, cd, forward=tmk.vae_tower_fused):
+    o = forward(tp, _t(x), kind=kind, eps=_t(eps), compute_dtype=cd, cond=_t(cond))
+    return sum((o[k] * torch.from_numpy(c)).sum()
+               for k, c in zip(("mu", "lv", "recon_term", "kl_term"), cts))
+
+
+def _port_grads(tp):
+    return [p.grad.numpy().copy() for p in tmk.flatten(tp)]
+
+
+@pytest.mark.parametrize("kind,n_cond,cd", CASES)
+def test_tower_grads_match_jax(kind, n_cond, cd):
+    # The 14 weight grads of rows 9 + stage 2 + row 3 against jax.grad
+    # through the Pallas tower, for the same upstream cotangents.
+    jp, tp = _pair(n_cond=n_cond)
+    x, cond, eps, cts = _inputs(kind, n_cond, 37)
+    jg = jax.grad(_loss_jax)(jp, x, cond, eps, cts, kind, cd)
+    _loss_port(tp, x, cond, eps, cts, kind, cd).backward()
+    want = [np.asarray(g) for g in jmk._flatten(jg)]
+    want = [w[0] if i % 2 else w for i, w in enumerate(want)]  # biases [1, n] → [n]
+    _assert_grads(_port_grads(tp), want, TOL[cd])
+
+
+def _autograd_forward(tp, x, *, kind, eps, compute_dtype, cond):
+    """Autograd of the forward twin: the plain path's rounding."""
+    x = x if cond is None else torch.cat([x, cond], 1)
+    mu, lv, e, rec, kl = tmk.tower_fwd_plain(tmk.flatten(tp), x, eps, kind=kind,
+                                             compute_dtype=compute_dtype)
+    return {"mu": mu, "lv": lv, "eps": e, "recon_term": rec, "kl_term": kl}
+
+
+@pytest.mark.parametrize("cd", sorted(TOL))
+def test_explicit_bf16_backward_is_not_autograd_of_the_twin(cd):
+    # The reference rounds both operands of each backward product; autograd
+    # through .bfloat16().float() rounds each product's result instead. In
+    # fp32 the two are the same function.
+    kind = "bernoulli"
+    jp, tp = _pair()
+    x, cond, eps, cts = _inputs(kind, 0, 37)
+    _loss_port(tp, x, cond, eps, cts, kind, cd).backward()
+    explicit = _port_grads(tp)
+    tp.zero_grad()
+    _loss_port(tp, x, cond, eps, cts, kind, cd, forward=_autograd_forward).backward()
+    auto = _port_grads(tp)
+    rel = max(np.abs(a - b).max() / np.abs(b).max() for a, b in zip(explicit, auto))
+    if cd == "float32":
+        assert rel < 1e-5
+    else:
+        assert rel > 1e-4
+
+
+@pytest.mark.parametrize("depth,n_cond,cd", [(1, 0, "float32"), (2, 3, "float32"),
+                                             (3, 0, "bfloat16"), (2, 0, "bfloat16")])
+def test_encoder_backward_twin_matches_jax_vjp(depth, n_cond, cd):
+    arch = dict(n_input=24, n_z=4, **{f"n_hidden_{n}_{k}": 12 + 4 * k
+                                      for n in ("recog", "gener") for k in range(1, depth + 1)})
+    jp, tp = _pair(arch, n_cond)
+    r = np.random.default_rng(depth)
+    x = r.uniform(0, 1, (21, 24 + n_cond)).astype(np.float32)
+    dmu, dlv = (r.normal(size=(21, 4)).astype(np.float32) for _ in range(2))
+    (_, vjp) = jax.vjp(lambda p, xx: jmlp.encode_mlp_fused(p, xx, compute_dtype=jnp.dtype(cd)),
+                       jp, jnp.asarray(x))
+    jg, jdx = vjp((jnp.asarray(dmu), jnp.asarray(dlv)))
+    r_ = tp.recog
+    hidden = tnet.hidden_layers(r_)
+    grads, dx = tmlp.encode_bwd_plain(hidden, [r_["out_mean"], r_["out_logvar"]],
+                                      torch.from_numpy(x), torch.from_numpy(dmu),
+                                      torch.from_numpy(dlv), compute_dtype=cd)
+    want, got = [], []
+    names = [f"h{i + 1}" for i in range(depth)] + ["out_mean", "out_logvar"]
+    for name, (dw, db) in zip(names, grads):
+        want += [jg["recog"][name]["w"], jg["recog"][name]["b"]]
+        got += [dw.numpy(), db.numpy()]
+    _assert_grads(got, want, TOL[cd])
+    np.testing.assert_allclose(dx.numpy(), np.asarray(jdx), rtol=TOL[cd], atol=TOL[cd])
+    # The same through encode_mlp_fused's autograd Function.
+    xt = torch.from_numpy(x).requires_grad_()
+    mu, lv = tmlp.encode_mlp_fused(tp, xt, compute_dtype=cd)
+    ((mu * torch.from_numpy(dmu)).sum() + (lv * torch.from_numpy(dlv)).sum()).backward()
+    np.testing.assert_allclose(xt.grad.numpy(), np.asarray(jdx), rtol=TOL[cd], atol=TOL[cd])
+    _assert_grads([p.grad.numpy() for p in hidden[0].parameters()],
+                  [jg["recog"]["h1"]["w"], jg["recog"]["h1"]["b"]], TOL[cd])
+
+
+@pytest.mark.parametrize("cd", sorted(TOL))
+def test_weight_grads_twin(cd):
+    r = np.random.default_rng(0)
+    a, d = r.normal(size=(9, 5)).astype(np.float32), r.normal(size=(9, 3)).astype(np.float32)
+    dw, db = tmlp.weight_grads(torch.from_numpy(a), torch.from_numpy(d), compute_dtype=cd)
+    rnd = (lambda v: v) if cd == "float32" else (
+        lambda v: torch.from_numpy(v).bfloat16().float().numpy())
+    np.testing.assert_allclose(dw.numpy(), rnd(a).T @ rnd(d), rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(db.numpy(), d.sum(0), rtol=1e-6, atol=1e-6)
+
+
+@torch.no_grad()
+def test_seeded_eps_is_the_counter_stream():
+    _, tp = _pair()
+    x = torch.rand(13, 24)
+    out = tmk.vae_tower_fused(tp, x, kind="bernoulli", seed=77)
+    assert torch.equal(out["eps"], philox_normal(77, 13, 4, "cpu"))
+    again = tmk.vae_tower_fused(tp, x, kind="bernoulli", seed=77)
+    assert torch.equal(again["recon_term"], out["recon_term"])
+    with pytest.raises(ValueError, match="seed"):
+        tmk.vae_tower_fused(tp, x, kind="bernoulli")
+
+
+def test_tower_refuses_an_input_that_requires_grad():
+    _, tp = _pair()
+    with pytest.raises(ValueError, match="weights only"):
+        tmk.vae_tower_fused(tp, torch.rand(3, 24, requires_grad=True), kind="gaussian", seed=0)
+
+
+def test_cpu_training_path_launches_nothing():
+    _, tp = _pair()
+    tmlp.reset_launches()
+    out = tmk.vae_tower_fused(tp, torch.rand(5, 24), kind="bernoulli", seed=1)
+    (out["recon_term"].sum() + out["mu"].sum()).backward()
+    assert _launches.snapshot() == {k: 0 for k in _launches.snapshot()}
+
+
+def test_non_cpu_tensors_never_take_the_plain_path():
+    # A tensor that is not on the CPU launches the kernel or raises; a meta
+    # tensor can do neither, so every training wrapper must raise.
+    m = tnet.MLPVAE(ARCH, device="meta")
+    flat = [t.detach() for t in tmk.flatten(m)]
+    x = torch.zeros(3, 24, device="meta")
+    with pytest.raises(ValueError, match="runs on CUDA"):
+        tmk.tower_fwd(flat, x, kind="bernoulli", seed=0)
+    with pytest.raises(ValueError, match="runs on CUDA"):
+        tmk.dec_loss_bwd(x, torch.zeros(3, 4, device="meta"), flat[8:],
+                         torch.zeros(3, device="meta"), kind="bernoulli")
+    layers = tmlp._pairs(flat[:8])
+    with pytest.raises(ValueError, match="runs on CUDA"):
+        tmlp.encode_bwd(layers[:2], layers[2:], x, torch.zeros(3, 4, device="meta"),
+                        torch.zeros(3, 4, device="meta"))
+    with pytest.raises(ValueError, match="runs on CUDA"):
+        tmlp.weight_grads(x, x)
+
+
+def test_unflatten_grads_mirrors_the_module_tree():
+    _, tp = _pair()
+    flat = tmk.flatten(tp)
+    tree = tmk.unflatten_grads(flat)
+    assert tree["recog"]["out_logvar"]["b"] is tp.recog["out_logvar"].b
+    assert tree["gener"]["out"]["w"] is tp.gener["out"].w
+    assert len(flat) == 14
+
+
+@pytest.mark.parametrize("dims,batch,want", [
+    ((784, 500, 500, 20, 0, 500, 500, 784), 16384, (32, 784)),
+    ((794, 500, 500, 20, 10, 500, 500, 784), 16384, (32, 796)),
+    ((784, 500, 500, 20, 0, 500, 500, 784), 1024, (8, 784)),
+    ((200, 500, 500, 20, 0, 500, 500, 200), 7, (1, 500)),
+])
+def test_forward_tile_plan(dims, batch, want):
+    tile, stride = tmk.fwd_plan(dims, batch, n_sm=132)
+    assert (tile, stride) == want
+    assert tile * 4 * (2 * stride + 2 * dims[3]) <= tmlp.SMEM_BYTES
+
+
+@pytest.mark.parametrize("dims,batch,want", [
+    ((784, 20, 500, 500), 16384, (16, 784, 500)),
+    ((784, 30, 500, 500), 4096, (16, 784, 500)),
+    ((200, 20, 500, 500), 257, (2, 200, 500)),
+    ((784, 20, 500, 500), 1, (1, 784, 500)),
+])
+def test_backward_tile_plan(dims, batch, want):
+    tile, wide, hid = tmk.dec_bwd_plan(*dims, batch, n_sm=132)
+    assert (tile, wide, hid) == want
+    assert tile * 4 * (wide + 4 * hid) <= tmlp.SMEM_BYTES
+
+
+def test_tile_plans_lower_the_rows_and_raise_only_past_one_row():
+    # 16 rows of 784 + 4 × 500 floats fit (178,176 B); 3000-wide hidden
+    # layers fit 4 rows; past one row the plan raises instead of falling back.
+    assert tmk.dec_bwd_plan(784, 20, 3000, 3000, 16384, 132)[0] == 4
+    assert tmk.dec_bwd_plan(784, 20, 14000, 14000, 16384, 132)[0] == 1
+    with pytest.raises(ValueError, match="shared memory"):
+        tmk.dec_bwd_plan(784, 20, 14600, 14600, 16384, 132)
+    assert tmlp.enc_bwd_plan(784, [500, 500], 20, 16384, 132) == (32, 784)
+    assert tmlp.enc_bwd_plan(20, [29056], 20, 4096, 132) == (1, 29056)
+    with pytest.raises(ValueError, match="shared memory"):
+        tmlp.enc_bwd_plan(20, [29057], 20, 64, 132)
+
+
+@pytest.mark.parametrize("batch,m,n,want", [
+    (16384, 500, 784, (5472, 3)),  # 104 tiles: 3 chunks fill two waves
+    (64, 500, 784, (64, 1)),        # too few rows to split
+    (16384, 500, 20, (512, 32)),    # 8 tiles: chunks of the minimum rows
+    (16383, 784, 500, (5472, 3)),   # a ragged batch: the last chunk is short
+])
+def test_wgrad_plan(batch, m, n, want):
+    rows, chunks = tmlp.wgrad_plan(batch, m, n, n_sm=132)
+    assert (rows, chunks) == want
+    assert rows % tmlp.WGRAD_SLICE == 0 and rows * chunks >= batch > rows * (chunks - 1)

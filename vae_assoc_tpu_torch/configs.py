@@ -27,8 +27,8 @@ import torch.nn.functional as F
 
 from vae_assoc_tpu_torch.models.networks import dtype_name, softplus
 
-# The association forms of the joint objective (vae_assoc_tpu/ops/losses.py
-# ASSOC_FORMS). Serving never evaluates them; configs validate against them.
+# The association forms of the joint objective (ops/losses.py::assoc_loss;
+# vae_assoc_tpu/ops/losses.py ASSOC_FORMS).
 ASSOC_FORMS = ("mean_l2", "sample_l2", "sym_kl", "infonce")
 
 
@@ -315,11 +315,13 @@ class AssocConfig:
 class TrainConfig:
     """Training and runtime options; the fields of the JAX package's TrainConfig.
 
-    Serving reads ``compute_dtype`` ("float32", or "bfloat16": bf16 matmul
-    operands with fp32 accumulation) and ``use_pallas`` (truthy = the
-    hand-written CUDA MLP kernels). The other fields are carried so that a
-    ``model_config.json`` round-trips unchanged; the training step that
-    reads them is a later port item.
+    ``compute_dtype`` is "float32", or "bfloat16": bf16 matmul operands with
+    fp32 accumulation. ``use_pallas`` selects the hand-written CUDA kernels:
+    truthy for serving's forward stacks; in training, "mega" runs the tower
+    megakernel, False the plain path, and True (the composable kernels) is
+    not ported yet. The train step (train/step.py) reads every other field
+    except ``data_axis``, which is carried so that a ``model_config.json``
+    round-trips unchanged.
     """
 
     learning_rate: float = 1e-3

@@ -1,11 +1,12 @@
 """Build the port's CUDA sources into one shared library and load it with ctypes.
 
 Every ``csrc/*.cu`` file has a plain C interface, so ``nvcc`` builds them
-into one library in seconds, with no PyTorch headers. The build runs at
-first use, from the sources in this package only, into
-``kernels/build/<hash>/`` (``build/`` is git-ignored); the hash covers the
-sources and the command, so an edited source rebuilds and an unchanged one
-is loaded as it is. A missing ``nvcc`` raises: nothing falls back.
+into one library with no PyTorch headers. The build runs at first use, from
+the sources in this package only, into ``kernels/build/<hash>/``
+(``build/`` is git-ignored): one ``nvcc -c`` per source, all started
+together, then one link. The hash covers the sources, the headers and the
+command, so an edited file rebuilds and an unchanged one is loaded as it
+is. A missing ``nvcc`` raises: nothing falls back.
 """
 
 from __future__ import annotations
@@ -31,13 +32,28 @@ def sources() -> list:
     return sorted(CSRC.glob("*.cu"))
 
 
+_ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+_FLAGS = ["-std=c++17", "-O3"]
+_PIC = ["-Xcompiler", "-fPIC", "-Xptxas=-v"]
+
+
 def nvcc_command(nvcc: str = "nvcc", out: str = LIB_NAME) -> list:
-    """The one nvcc command line that builds the library at ``out``."""
+    """The one nvcc command line equivalent to the build of the library at
+    ``out``; :func:`build` runs it as one compile per source and a link."""
     return [
-        nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-        "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v", "-o", str(out),
+        nvcc, *_ARCH, *_FLAGS, "-shared", *_PIC, "-o", str(out),
         *(str(s) for s in sources()),
     ]
+
+
+def compile_command(nvcc: str, src: Path, obj: Path) -> list:
+    """Compile one source to a relocatable object (the build's first step)."""
+    return [nvcc, *_ARCH, *_FLAGS, *_PIC, "-c", "-o", str(obj), str(src)]
+
+
+def link_command(nvcc: str, objs: list, out: Path) -> list:
+    """Link the objects into the shared library (the build's second step)."""
+    return [nvcc, *_ARCH, "-shared", "-o", str(out), *(str(o) for o in objs)]
 
 
 def find_nvcc() -> str:
@@ -63,20 +79,36 @@ def build() -> Path:
     kernel) is kept beside the library as ``build.log``."""
     nvcc = find_nvcc()
     h = hashlib.sha256(" ".join(nvcc_command()).encode())
-    for src in sources():
+    for src in sources() + sorted(CSRC.glob("*.cuh")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     out = BUILD_DIR / h.hexdigest()[:16] / LIB_NAME
     if out.exists():
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{LIB_NAME}.{os.getpid()}.tmp")
-    proc = subprocess.run(nvcc_command(nvcc, tmp), capture_output=True, text=True)
-    (out.parent / "build.log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed with exit code {proc.returncode}:\n{proc.stderr}"
-        )
+    tag = os.getpid()
+    objs = [out.with_name(f"{s.stem}.{tag}.o") for s in sources()]
+    procs = [
+        subprocess.Popen(compile_command(nvcc, s, o), stdout=subprocess.PIPE,
+                         stderr=subprocess.STDOUT, text=True)
+        for s, o in zip(sources(), objs)
+    ]
+    logs = [(s.name, p.communicate()[0], p.returncode)
+            for s, p in zip(sources(), procs)]
+    tmp = out.with_name(f"{LIB_NAME}.{tag}.tmp")
+    if all(rc == 0 for _, _, rc in logs):
+        link = subprocess.run(link_command(nvcc, objs, tmp),
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True)
+        logs.append((LIB_NAME, link.stdout, link.returncode))
+    (out.parent / "build.log").write_text(
+        "".join(f"== {name} (exit {rc})\n{text}" for name, text, rc in logs))
+    for o in objs:
+        o.unlink(missing_ok=True)
+    failed = [(name, text, rc) for name, text, rc in logs if rc != 0]
+    if failed:
+        name, text, rc = failed[0]
+        raise RuntimeError(f"nvcc failed on {name} with exit code {rc}:\n{text}")
     os.replace(tmp, out)
     return out
 
@@ -92,6 +124,26 @@ def load() -> ctypes.CDLL:
                 ptr, i32, i32, ptr, i32, i32, ptr, ptr, i32, i32, i32, ptr,
             ]
             lib.vae_mlp_stack_fwd.restype = i32
+            u64 = ctypes.c_ulonglong
+            lib.vae_mega_fwd.argtypes = [
+                ptr, i32, ptr, ptr, i32, ptr, u64, ptr, ptr, ptr, ptr, ptr,
+                i32, i32, i32, ptr,
+            ]
+            lib.vae_mega_dec_loss_bwd.argtypes = [
+                ptr, ptr, ptr, i32, ptr, ptr, ptr, i32, ptr, i32, i32, i32,
+                i32, ptr,
+            ]
+            lib.vae_mlp_enc_bwd.argtypes = [
+                ptr, i32, i32, ptr, i32, ptr, i32, ptr, ptr, ptr, i32, i32,
+                i32, ptr,
+            ]
+            lib.vae_wgrad.argtypes = [
+                ptr, i32, ptr, i32, i32, i32, i32, i32, i32, ptr, ptr, ptr,
+                i32, ptr,
+            ]
+            for fn in (lib.vae_mega_fwd, lib.vae_mega_dec_loss_bwd,
+                       lib.vae_mlp_enc_bwd, lib.vae_wgrad):
+                fn.restype = i32
             lib.vae_cuda_error_string.argtypes = [i32]
             lib.vae_cuda_error_string.restype = ctypes.c_char_p
             _lib = lib

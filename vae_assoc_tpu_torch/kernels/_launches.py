@@ -1,0 +1,36 @@
+"""Launch counters of the hand-written kernels.
+
+Each wrapper adds one to its kernel's count where it launches it, and
+nowhere else, so a run can show that its main path went through the
+kernels. ``SERVING`` holds the forward stacks (kernels/mlp.py),
+``TRAINING`` the kernels of the training step (kernels/megakernel.py and
+the encoder backward in kernels/mlp.py).
+"""
+
+from __future__ import annotations
+
+import threading
+
+SERVING = {"enc_fwd": 0, "dec_fwd": 0}
+TRAINING = {"mega_fwd": 0, "mega_dec_loss_bwd": 0, "enc_bwd": 0, "wgrad": 0}
+
+_lock = threading.Lock()
+
+
+def count(table: dict, name: str) -> None:
+    with _lock:
+        table[name] += 1
+
+
+def reset() -> None:
+    """Set every count to zero."""
+    with _lock:
+        for table in (SERVING, TRAINING):
+            for k in table:
+                table[k] = 0
+
+
+def snapshot() -> dict:
+    """Every kernel's count, by name."""
+    with _lock:
+        return {**SERVING, **TRAINING}

@@ -1,0 +1,348 @@
+"""The VAE tower megakernel for training: hand-written CUDA kernels and their plain twins.
+
+Counterpart of vae_assoc_tpu/kernels/megakernel.py. ``vae_tower_fused``
+runs one modality's whole depth-2 softplus tower — encoder → ε → z →
+decoder → per-row reconstruction and KL terms — in one forward launch
+(``csrc/mega.cu::mega_fwd``, replacing the Pallas ``_fwd_kernel``); the
+decoder output never leaves the chip. Its backward, a
+``torch.autograd.Function``, runs in three stages as the reference does:
+
+1. the fused decoder+loss backward (``mega_dec_loss_bwd``, replacing the
+   Pallas ``_dec_loss_bwd_kernel``): dz and the decoder's weight grads;
+2. the reparameterization and KL glue into (dμ, dlogσ²), elementwise
+   torch on [B, n_z] (XLA elementwise in the reference);
+3. the encoder-stack backward (kernels/mlp.py::encode_bwd, replacing the
+   Pallas ``_enc_bwd_kernel``).
+
+The weight grads of stages 1 and 3 are sums over all rows, which the TPU
+kernels accumulate tile after tile; here the per-row kernels write their
+operands to scratch and ``mlp.weight_grads`` adds them deterministically.
+
+This is the training step's engine (``use_pallas="mega"``), differentiable
+with respect to the weights only: the reference returns a zero cotangent
+for x (its closed-world invariant), and the port refuses an x that
+requires grad instead of returning a silent zero. ε is the draw the
+in-kernel decoder consumed — from ``seed`` by a counter-based Philox
+indexed by (row, column), so it does not depend on the tile height, or
+injected — and carries no gradient.
+
+Dispatch is by the device of the input, and only by it: a CPU tensor goes
+to the plain twins in this module (the CPU tests' path); a CUDA tensor
+launches the kernels or raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from vae_assoc_tpu_torch.kernels import _build, _launches
+from vae_assoc_tpu_torch.kernels import mlp as kmlp
+from vae_assoc_tpu_torch.models import networks
+from vae_assoc_tpu_torch.ops.sampling import philox_normal
+
+LAUNCHES = _launches.TRAINING
+"""Launches of the training kernels (``mega_fwd``, ``mega_dec_loss_bwd``,
+``enc_bwd``, ``wgrad``) since the last ``kernels.reset_launches()``."""
+
+KINDS = ("bernoulli", "gaussian")
+_MASK64 = (1 << 64) - 1
+BWD_MAX_ROWS = 16
+
+
+def flatten(params) -> list:
+    """The 14 weight tensors of one modality's towers, in the reference's
+    order: w1 b1 w2 b2 wm bm wl bl (encoder), d1 c1 d2 c2 do co (decoder)."""
+    r, g = params.recog, params.gener
+    layers = (r["h1"], r["h2"], r["out_mean"], r["out_logvar"],
+              g["h1"], g["h2"], g["out"])
+    return [t for l in layers for t in (l.w, l.b)]
+
+
+def unflatten_grads(flat_grads) -> dict:
+    """Inverse of :func:`flatten` for the 14 gradients: a nested dict with
+    the module tree's names (``["recog"]["h1"]["w"]``)."""
+    names = (("recog", "h1"), ("recog", "h2"), ("recog", "out_mean"),
+             ("recog", "out_logvar"), ("gener", "h1"), ("gener", "h2"),
+             ("gener", "out"))
+    out: dict = {"recog": {}, "gener": {}}
+    for i, (net, layer) in enumerate(names):
+        out[net][layer] = {"w": flat_grads[2 * i], "b": flat_grads[2 * i + 1]}
+    return out
+
+
+def _dims(flat, x):
+    """(n_in, h1e, h2e, n_z, n_cond, h1d, h2d, n_x) of a tower on x."""
+    n_in = x.shape[1]
+    n_z = flat[4].shape[1]
+    n_cond = flat[8].shape[0] - n_z
+    n_x = flat[12].shape[1]
+    if n_in != n_x + n_cond:
+        raise ValueError(
+            f"x has {n_in} columns; the tower takes {n_x} data columns and "
+            f"{n_cond} cond columns"
+        )
+    return (n_in, flat[0].shape[1], flat[2].shape[1], n_z, n_cond,
+            flat[8].shape[1], flat[10].shape[1], n_x)
+
+
+def _mm(a, w, cd):
+    return networks.round_operand(a, cd) @ networks.round_operand(w, cd)
+
+
+# ---------------------------------------------------------------------------
+# Plain twins
+# ---------------------------------------------------------------------------
+
+
+def tower_fwd_plain(flat, x, eps, *, kind, compute_dtype="float32"):
+    """Plain twin of the forward kernel: (μ, logσ², ε, recon [B], kl [B])."""
+    cd = networks.dtype_name(compute_dtype)
+    w1, b1, w2, b2, wm, bm, wl, bl, d1, c1, d2, c2, do, co = flat
+    _, _, _, n_z, n_cond, _, _, n_x = _dims(flat, x)
+    sp = networks.softplus
+    h1 = sp(_mm(x, w1, cd) + b1)
+    h2 = sp(_mm(h1, w2, cd) + b2)
+    mu = _mm(h2, wm, cd) + bm
+    lv = _mm(h2, wl, cd) + bl
+    z = mu + torch.exp(0.5 * lv) * eps
+    z_in = torch.cat([z, x[:, n_x:]], dim=1) if n_cond else z
+    g1 = sp(_mm(z_in, d1, cd) + c1)
+    g2 = sp(_mm(g1, d2, cd) + c2)
+    r = _mm(g2, do, cd) + co
+    xd = x[:, :n_x]
+    if kind == "bernoulli":
+        rec = (torch.clamp_min(r, 0.0) - r * xd + torch.log1p(torch.exp(-torch.abs(r)))).sum(-1)
+    else:
+        rec = ((xd - r) ** 2).sum(-1)
+    kl = -0.5 * (1.0 + lv - mu * mu - torch.exp(lv)).sum(-1)
+    return mu, lv, eps, rec, kl
+
+
+def dec_loss_bwd_plain(x, z, dec_flat, grec, *, kind, compute_dtype="float32"):
+    """Plain twin of the decoder+loss backward and its weight grads:
+    (dz [B, n_z], [dd1, dc1, dd2, dc2, ddo, dco]). Explicit formulas with
+    each product's operands rounded under the bf16 policy, as
+    megakernel.py::_dec_loss_bwd_kernel (autograd of the forward twin would
+    round each product's result instead)."""
+    cd = networks.dtype_name(compute_dtype)
+    d1, c1, d2, c2, do, co = (t.detach() for t in dec_flat)
+    n_z = z.shape[1]
+    n_cond = d1.shape[0] - n_z
+    if n_cond:
+        n_x = x.shape[1] - n_cond
+        z = torch.cat([z, x[:, n_x:]], dim=1)
+        x = x[:, :n_x]
+    b1d = _mm(z, d1, cd) + c1
+    g1 = networks.softplus(b1d)
+    b2d = _mm(g1, d2, cd) + c2
+    g2 = networks.softplus(b2d)
+    r = _mm(g2, do, cd) + co
+    if kind == "bernoulli":
+        dr = (torch.sigmoid(r) - x) * grec[:, None]
+    else:
+        dr = 2.0 * (r - x) * grec[:, None]
+    db2d = _mm(dr, do.T, cd) * torch.sigmoid(b2d)
+    db1d = _mm(db2d, d2.T, cd) * torch.sigmoid(b1d)
+    dz = _mm(db1d, d1.T, cd)[:, :n_z]
+    grads = []
+    for a, d in ((z, db1d), (g1, db2d), (g2, dr)):
+        grads += list(kmlp.weight_grads_plain(a, d, compute_dtype=cd))
+    return dz, grads
+
+
+# ---------------------------------------------------------------------------
+# Kernels
+# ---------------------------------------------------------------------------
+
+
+def fwd_plan(dims, batch: int, n_sm: int):
+    """(tile_rows, stride) for the forward kernel: two ping-pong buffers of
+    ``stride`` floats per row, covering every on-chip width (the decoder
+    output's per-element loss included), plus μ and logσ² rows."""
+    n_in, h1e, h2e, n_z, n_cond, h1d, h2d, n_x = dims
+    stride = kmlp._pad4(max(n_in, h1e, h2e, n_z + n_cond, h1d, h2d, n_x))
+    per_row = 4 * (2 * stride + 2 * n_z)
+    return kmlp.rows_plan(per_row, batch, n_sm, what="tower forward"), stride
+
+
+def dec_bwd_plan(n_x: int, n_in_dec: int, h1d: int, h2d: int, batch: int, n_sm: int):
+    """(tile_rows, wide, hid) for the decoder+loss backward kernel: per row
+    one wide buffer (the decoder input of ``n_in_dec`` = n_z + n_cond
+    columns, then dr) and four hidden-width buffers (two activations, two
+    sigmoids); at most 16 rows."""
+    wide = kmlp._pad4(max(n_x, n_in_dec))
+    hid = kmlp._pad4(max(h1d, h2d))
+    tile = kmlp.rows_plan(4 * (wide + 4 * hid), batch, n_sm,
+                          max_rows=BWD_MAX_ROWS, what="decoder+loss backward")
+    return tile, wide, hid
+
+
+def _ptrs(tensors):
+    return (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
+
+
+def _check_flat(flat, x):
+    for i, t in enumerate(flat):
+        kmlp._check_f32(t, x.device, f"tower weight {i}")
+
+
+def _launch_fwd(flat, x, eps, seed, kind, cd):
+    dev = x.device
+    dims = _dims(flat, x)
+    batch, n_z = x.shape[0], dims[3]
+    kmlp._check_f32(x, dev, "x")
+    _check_flat(flat, x)
+    if eps is not None:
+        kmlp._check_f32(eps, dev, "eps", (batch, n_z))
+    outs = [torch.empty(batch, n_z, dtype=torch.float32, device=dev) for _ in range(3)]
+    outs += [torch.empty(batch, dtype=torch.float32, device=dev) for _ in range(2)]
+    if batch == 0:
+        return outs
+    lib = _build.load()
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    tile, stride = fwd_plan(dims, batch, n_sm)
+    with torch.cuda.device(dev):
+        err = lib.vae_mega_fwd(
+            x.data_ptr(), batch, _ptrs(flat), (ctypes.c_int * 8)(*dims),
+            int(kind == "bernoulli"), eps.data_ptr() if eps is not None else None,
+            (seed or 0) & _MASK64, *(o.data_ptr() for o in outs), stride, tile,
+            int(cd == "bfloat16"), kmlp._stream(x),
+        )
+    _build.check(lib, err, "tower forward kernel launch")
+    _launches.count(LAUNCHES, "mega_fwd")
+    return outs
+
+
+def _launch_dec_loss_bwd(x, z, dec_flat, grec, kind, cd):
+    dev = x.device
+    n_z = z.shape[1]
+    d1, c1, d2, c2, do, co = (t.detach() for t in dec_flat)
+    batch, n_in = x.shape
+    n_cond = d1.shape[0] - n_z
+    n_x, h1d, h2d = do.shape[1], d1.shape[1], d2.shape[1]
+    if n_in != n_x + n_cond:
+        raise ValueError(f"x has {n_in} columns, the decoder {n_x} + {n_cond}")
+    kmlp._check_f32(x, dev, "x")
+    kmlp._check_f32(z, dev, "z", (batch, n_z))
+    kmlp._check_f32(grec, dev, "grec", (batch,))
+    for i, t in enumerate((d1, c1, d2, c2, do, co)):
+        kmlp._check_f32(t, dev, f"decoder weight {i}")
+    weights = [d1, c1, d2, c2, do, co, d1.t().contiguous(), d2.t().contiguous(),
+               do.t().contiguous()]
+
+    def buf(n):
+        return torch.empty(batch, n, dtype=torch.float32, device=dev)
+
+    zin, g1, g2, dr, db2d, db1d = (buf(n) for n in (n_z + n_cond, h1d, h2d, n_x, h2d, h1d))
+    dz = buf(n_z)
+    if batch:
+        lib = _build.load()
+        n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+        tile, wide, hid = dec_bwd_plan(n_x, n_z + n_cond, h1d, h2d, batch, n_sm)
+        with torch.cuda.device(dev):
+            err = lib.vae_mega_dec_loss_bwd(
+                x.data_ptr(), z.data_ptr(), grec.data_ptr(), batch, _ptrs(weights),
+                _ptrs([zin, g1, g2, dr, db2d, db1d]),
+                (ctypes.c_int * 6)(n_in, n_z, n_cond, h1d, h2d, n_x),
+                int(kind == "bernoulli"), dz.data_ptr(), wide, hid, tile,
+                int(cd == "bfloat16"), kmlp._stream(x),
+            )
+        _build.check(lib, err, "decoder+loss backward kernel launch")
+        _launches.count(LAUNCHES, "mega_dec_loss_bwd")
+    grads = []
+    for a, d in ((zin, db1d), (g1, db2d), (g2, dr)):
+        grads += list(kmlp.weight_grads(a, d, compute_dtype=cd))
+    return dz, grads
+
+
+def tower_fwd(flat, x, *, kind, eps=None, seed=None, compute_dtype="float32"):
+    """The forward kernel on a CUDA tensor, its twin on the CPU:
+    (μ, logσ², ε, recon [B], kl [B]) with ε injected or drawn from ``seed``."""
+    cd = networks.dtype_name(compute_dtype)
+    if kind not in KINDS:
+        raise ValueError(f"kind must be one of {KINDS}, got {kind!r}")
+    if eps is None and seed is None:
+        raise ValueError("vae_tower_fused needs `seed` or `eps`")
+    if x.device.type == "cpu":
+        if eps is None:
+            eps = philox_normal(seed, x.shape[0], flat[4].shape[1], x.device)
+        return tower_fwd_plain(flat, x, eps.float(), kind=kind, compute_dtype=cd)
+    if x.device.type != "cuda":
+        raise ValueError(f"the tower kernel runs on CUDA, got {x.device}")
+    return _launch_fwd(flat, x, eps, seed, kind, cd)
+
+
+def dec_loss_bwd(x, z, dec_flat, grec, *, kind, compute_dtype="float32"):
+    """The decoder+loss backward kernel and its weight grads on a CUDA
+    tensor, the twin on the CPU; result as :func:`dec_loss_bwd_plain`."""
+    cd = networks.dtype_name(compute_dtype)
+    if x.device.type == "cpu":
+        return dec_loss_bwd_plain(x, z, dec_flat, grec, kind=kind, compute_dtype=cd)
+    if x.device.type != "cuda":
+        raise ValueError(f"the tower kernel runs on CUDA, got {x.device}")
+    return _launch_dec_loss_bwd(x, z.contiguous(), dec_flat, grec.contiguous(), kind, cd)
+
+
+class _Tower(torch.autograd.Function):
+    """Inputs: kind, compute dtype, seed, x, ε (or None), the 14 weights."""
+
+    @staticmethod
+    def forward(ctx, kind, cd, seed, x, eps, *flat):
+        if ctx.needs_input_grad[3] or ctx.needs_input_grad[4]:
+            raise ValueError(
+                "vae_tower_fused is differentiable with respect to the weights "
+                "only; x and eps must not require grad (the reference returns a "
+                "zero input gradient here)"
+            )
+        mu, lv, eps_out, rec, kl = tower_fwd(flat, x, kind=kind, eps=eps, seed=seed,
+                                             compute_dtype=cd)
+        ctx.kind, ctx.cd = kind, cd
+        ctx.save_for_backward(x, mu, lv, eps_out, *flat)
+        ctx.mark_non_differentiable(eps_out)
+        return mu, lv, eps_out, rec, kl
+
+    @staticmethod
+    def backward(ctx, g_mu, g_lv, g_eps, g_rec, g_kl):
+        # g_eps is unused: ε is the noise draw itself and depends on no
+        # weight; consumers' z = μ + σ·ε reach the weights through g_mu, g_lv.
+        x, mu, lv, eps, *flat = ctx.saved_tensors
+        sig = torch.exp(0.5 * lv)
+        z = mu + sig * eps
+        # Stage 1: decoder + loss.
+        dz, dec_grads = dec_loss_bwd(x, z, flat[8:], g_rec, kind=ctx.kind,
+                                     compute_dtype=ctx.cd)
+        # Stage 2: reparameterization and KL, elementwise.
+        gkl = g_kl[:, None]
+        dmu = dz + g_mu + mu * gkl
+        dlv = g_lv + 0.5 * (torch.exp(lv) - 1.0) * gkl + 0.5 * dz * sig * eps
+        # Stage 3: the encoder stack; its dx is dropped (weights only).
+        layers = kmlp._pairs(flat[:8])
+        enc_grads, _dx = kmlp.encode_bwd(layers[:2], layers[2:], x, dmu, dlv,
+                                         compute_dtype=ctx.cd)
+        return (None, None, None, None, None,
+                *(g for pair in enc_grads for g in pair), *dec_grads)
+
+
+def vae_tower_fused(params, x, *, kind, seed=None, eps=None,
+                    compute_dtype="float32", cond=None):
+    """Whole VAE tower and its per-sample loss terms in one forward launch.
+
+    Returns dict(mu [B, n_z], lv [B, n_z], eps [B, n_z], recon_term [B],
+    kl_term [B]). ε is drawn from ``seed`` (an int) or injected as ``eps``;
+    the returned ε is exactly the draw the decoder consumed, so
+    ``mu + exp(0.5·lv)·eps`` is the decoder's z. ``cond`` [B, n_cond]
+    (already encoded, models/vae.prepare_cond) widens the encoder input;
+    the kernel re-reads its columns at the decoder's input and compares the
+    loss against the data columns only."""
+    x = x.float()
+    if cond is not None:
+        x = torch.cat([x, cond.float()], dim=1)
+    x = x.contiguous()
+    if eps is not None:
+        eps = eps.float().contiguous()
+    mu, lv, eps_out, rec, kl = _Tower.apply(
+        kind, networks.dtype_name(compute_dtype), seed, x, eps, *flatten(params)
+    )
+    return {"mu": mu, "lv": lv, "eps": eps_out, "recon_term": rec, "kl_term": kl}

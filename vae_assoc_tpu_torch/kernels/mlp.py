@@ -1,11 +1,20 @@
 """Fused MLP encoder/decoder stacks: hand-written CUDA kernels and their plain twins.
 
-Counterpart of the forward half of vae_assoc_tpu/kernels/mlp.py. Each
-wrapper runs a whole recognition stack (x → h1 → … → hL → μ, logσ²) or
-generator stack (z → h1 → … → hL → out) in one launch of
-``csrc/mlp_fwd.cu``, with the hidden activations kept in shared memory.
-``encode_mlp_fused`` / ``decode_mlp_fused`` keep the signatures of
-``networks.encode_mlp`` / ``networks.decode_mlp``; softplus only.
+Counterpart of vae_assoc_tpu/kernels/mlp.py. Each forward wrapper runs a
+whole recognition stack (x → h1 → … → hL → μ, logσ²) or generator stack
+(z → h1 → … → hL → out) in one launch of ``csrc/mlp_fwd.cu``, with the
+hidden activations kept in shared memory. ``encode_mlp_fused`` /
+``decode_mlp_fused`` keep the signatures of ``networks.encode_mlp`` /
+``networks.decode_mlp``; softplus only.
+
+The encoder has a gradient: under autograd ``encode_mlp_fused`` is a
+``torch.autograd.Function`` whose backward is the encoder-backward kernel
+(``csrc/mlp_bwd.cu``, replacing the Pallas ``_enc_bwd_kernel``) followed by
+the weight-gradient kernel ``weight_grads``; the tower megakernel's
+backward uses the same two (kernels/megakernel.py). The decoder's backward
+(the Pallas ``_dec_bwd_kernel``) belongs to the composable training path,
+which is not ported yet: ``decode_mlp_fused`` under autograd on a CUDA
+tensor raises.
 
 Dispatch is by the device of the input, and only by it: a CPU tensor goes
 to the plain twin in this module (the CPU tests' path); a CUDA tensor
@@ -15,18 +24,18 @@ the tile height adapts down to one row, and a width beyond even that raises.
 
 from __future__ import annotations
 
-import threading
+import ctypes
 
 import torch
 
-from vae_assoc_tpu_torch.kernels import _build
+from vae_assoc_tpu_torch.kernels import _build, _launches
 from vae_assoc_tpu_torch.models import networks
 
-LAUNCHES = {"enc_fwd": 0, "dec_fwd": 0}
-"""Kernel launches per wrapper since the last reset_launches(); each wrapper
-adds one where it launches its kernel, and nowhere else."""
+LAUNCHES = _launches.SERVING
+"""Kernel launches per forward wrapper since the last reset_launches(); each
+wrapper adds one where it launches its kernel, and nowhere else. The
+training kernels count in ``_launches.TRAINING``."""
 
-_launch_lock = threading.Lock()
 _tables: dict = {}
 
 SMEM_BYTES = 232448
@@ -36,14 +45,12 @@ MAX_TILE_ROWS = 32
 
 
 def reset_launches() -> None:
-    with _launch_lock:
-        for k in LAUNCHES:
-            LAUNCHES[k] = 0
+    """Set every kernel's launch count (serving and training) to zero."""
+    _launches.reset()
 
 
 def _count(name: str) -> None:
-    with _launch_lock:
-        LAUNCHES[name] += 1
+    _launches.count(LAUNCHES, name)
 
 
 def encode_mlp_plain(params, x, *, compute_dtype="float32"):
@@ -69,19 +76,8 @@ def tile_plan(n_in: int, hidden_widths, batch: int, n_sm: int):
     largest power of two ≤ 32 whose two ping-pong buffers fit
     ``SMEM_BYTES``, lowered further so that a small batch still spreads
     over ``n_sm`` blocks."""
-    stride = -(-max(n_in, *hidden_widths) // 4) * 4
-    cap = MAX_TILE_ROWS
-    while cap > 1 and 2 * cap * stride * 4 > SMEM_BYTES:
-        cap //= 2
-    if 2 * cap * stride * 4 > SMEM_BYTES:
-        raise ValueError(
-            f"layer width {stride} exceeds the fused MLP kernel's shared "
-            f"memory even at one row per block ({SMEM_BYTES} bytes)"
-        )
-    want = 1
-    while want * n_sm < batch and want < cap:
-        want *= 2
-    return min(cap, want), stride
+    stride = _pad4(max(n_in, *hidden_widths))
+    return rows_plan(2 * stride * 4, batch, n_sm, what="fused MLP kernel"), stride
 
 
 def _layer_table(layers, device) -> torch.Tensor:
@@ -160,13 +156,24 @@ def _launch(name, x, hidden, heads, compute_dtype):
     return outs
 
 
+def _grad_needed(params, x) -> bool:
+    return torch.is_grad_enabled() and (
+        x.requires_grad or any(p.requires_grad for p in params.parameters())
+    )
+
+
 def encode_mlp_fused(params, x, *, compute_dtype="float32", transfer=None):
     """Drop-in for `networks.encode_mlp`, fused on the GPU. softplus only.
 
-    x [B, n_in] → (z_mean, z_logvar), fp32 [B, n_z]."""
+    x [B, n_in] → (z_mean, z_logvar), fp32 [B, n_z]. Under autograd the
+    backward is the encoder-backward kernel (or its plain twin on the CPU)."""
+    r = params.recog
+    if _grad_needed(params, x):
+        layers = networks.hidden_layers(r) + [r["out_mean"], r["out_logvar"]]
+        flat = [t for l in layers for t in (l.w, l.b)]
+        return _EncodeFused.apply(networks.dtype_name(compute_dtype), x, *flat)
     if x.device.type == "cpu":
         return encode_mlp_plain(params, x, compute_dtype=compute_dtype)
-    r = params.recog
     mu, lv = _launch(
         "enc_fwd", x, networks.hidden_layers(r),
         [r["out_mean"], r["out_logvar"]], compute_dtype,
@@ -177,11 +184,264 @@ def encode_mlp_fused(params, x, *, compute_dtype="float32", transfer=None):
 def decode_mlp_fused(params, z, *, compute_dtype="float32", transfer=None):
     """Drop-in for `networks.decode_mlp`, fused on the GPU. softplus only.
 
-    z [B, n_z] → decoder output before its activation, fp32 [B, n_input]."""
+    z [B, n_z] → decoder output before its activation, fp32 [B, n_input].
+    Forward only: its backward kernel belongs to the composable training
+    path (ROADMAP), so autograd through it on a CUDA tensor raises."""
     if z.device.type == "cpu":
         return decode_mlp_plain(params, z, compute_dtype=compute_dtype)
+    if z.device.type == "cuda" and _grad_needed(params, z):
+        raise NotImplementedError(
+            "decode_mlp_fused has no backward kernel yet (the decoder "
+            "backward belongs to the composable training path, ROADMAP "
+            "slice C); train with use_pallas='mega' or False"
+        )
     g = params.gener
     (out,) = _launch(
         "dec_fwd", z, networks.hidden_layers(g), [g["out"]], compute_dtype
     )
     return out
+
+
+# ---------------------------------------------------------------------------
+# Backward: the encoder stack (Pallas _enc_bwd_kernel) and the weight grads.
+# ---------------------------------------------------------------------------
+
+
+class _Layer:
+    """A (w, b) pair of tensors with the attribute names of networks.Linear."""
+
+    __slots__ = ("w", "b")
+
+    def __init__(self, w, b):
+        self.w, self.b = w, b
+
+
+def _pairs(flat) -> list:
+    return [_Layer(flat[i], flat[i + 1]) for i in range(0, len(flat), 2)]
+
+
+class _EncodeFused(torch.autograd.Function):
+    """The encoder stack with the backward of the Pallas ``_encode_fused``
+    custom VJP. Inputs: compute dtype, x, then (w, b) of every hidden layer,
+    out_mean and out_logvar."""
+
+    @staticmethod
+    def forward(ctx, cd, x, *flat):
+        layers = _pairs(flat)
+        if x.device.type == "cpu":
+            h = x
+            for l in layers[:-2]:
+                h = networks.softplus(networks.linear(l, h, cd))
+            mu, lv = (networks.linear(l, h, cd) for l in layers[-2:])
+        else:
+            mu, lv = _launch("enc_fwd", x, layers[:-2], layers[-2:], cd)
+        ctx.cd = cd
+        ctx.save_for_backward(x, *flat)
+        return mu, lv
+
+    @staticmethod
+    def backward(ctx, dmu, dlv):
+        x, *flat = ctx.saved_tensors
+        layers = _pairs(flat)
+        grads, dx = encode_bwd(layers[:-2], layers[-2:], x, dmu, dlv,
+                               compute_dtype=ctx.cd)
+        return (None, dx if ctx.needs_input_grad[1] else None,
+                *(g for pair in grads for g in pair))
+
+
+def encode_bwd_plain(hidden, heads, x, dmu, dlv, *, compute_dtype="float32"):
+    """Plain twin of the encoder-backward kernel and its weight grads.
+
+    ``hidden``: the hidden layers and ``heads``: (out_mean, out_logvar), each
+    with ``w`` [in, out] and ``b``; x [B, n_in]; dmu, dlv [B, n_z]. Returns
+    ([(dw, db) per hidden layer, then out_mean, out_logvar], dx). Written
+    as the reference kernel's explicit formulas, with each operand of each
+    product rounded under the bf16 policy (mlp.py::_enc_bwd_kernel, _mm_nt,
+    _mm_tn): autograd of the forward twin would round each product's result
+    instead."""
+    cd = networks.dtype_name(compute_dtype)
+
+    def mm(a, b):
+        return networks.round_operand(a, cd) @ networks.round_operand(b, cd)
+
+    hw = [(l.w.detach(), l.b.detach()) for l in hidden]
+    (wm, _), (wl, _) = ((l.w.detach(), l.b) for l in heads)
+    x, dmu, dlv = x.detach().float(), dmu.float(), dlv.float()
+    acts, pres = [x], []
+    for w, b in hw:
+        a = mm(acts[-1], w) + b
+        pres.append(a)
+        acts.append(networks.softplus(a))
+    dh = mm(dmu, wm.T) + mm(dlv, wl.T)
+    grads = [None] * len(hw) + [
+        (mm(acts[-1].T, dmu), dmu.sum(0)),
+        (mm(acts[-1].T, dlv), dlv.sum(0)),
+    ]
+    for i in reversed(range(len(hw))):
+        da = dh * torch.sigmoid(pres[i])
+        grads[i] = (mm(acts[i].T, da), da.sum(0))
+        dh = mm(da, hw[i][0].T)
+    return grads, dh
+
+
+def weight_grads_plain(a, d, *, compute_dtype="float32"):
+    """Plain twin of the weight-gradient kernel: (round(a)ᵀ·round(d), Σ_rows d)."""
+    cd = networks.dtype_name(compute_dtype)
+    return (networks.round_operand(a, cd).T @ networks.round_operand(d, cd),
+            d.sum(0))
+
+
+def rows_plan(per_row_bytes: int, batch: int, n_sm: int, *, max_rows: int = MAX_TILE_ROWS,
+              what: str = "kernel") -> int:
+    """Rows per block for a kernel that keeps ``per_row_bytes`` of shared
+    memory per row: the largest power of two ≤ ``max_rows`` that fits
+    ``SMEM_BYTES``, lowered so that a small batch still spreads over
+    ``n_sm`` blocks. Raises when even one row does not fit."""
+    if per_row_bytes > SMEM_BYTES:
+        raise ValueError(
+            f"the {what} needs {per_row_bytes} bytes of shared memory per row, "
+            f"more than a block has ({SMEM_BYTES} bytes)"
+        )
+    cap = max_rows
+    while cap > 1 and cap * per_row_bytes > SMEM_BYTES:
+        cap //= 2
+    want = 1
+    while want * n_sm < batch and want < cap:
+        want *= 2
+    return min(cap, want)
+
+
+def _pad4(n: int) -> int:
+    return -(-n // 4) * 4
+
+
+def enc_bwd_plan(n_in: int, hidden_widths, n_z: int, batch: int, n_sm: int):
+    """(tile_rows, stride) for the encoder-backward kernel: two ping-pong
+    buffers of ``stride`` floats per row, stride covering the input, every
+    hidden width and the stacked head cotangents [dμ, dlogσ²]."""
+    stride = _pad4(max(n_in, *hidden_widths, 2 * n_z))
+    tile = rows_plan(2 * stride * 4, batch, n_sm, what="encoder backward")
+    return tile, stride
+
+
+ENC_BWD_MAX_HIDDEN = 16
+"""Hidden layers the encoder-backward kernel's by-value layer table holds
+(``kMaxHidden`` in csrc/mlp_bwd.cu)."""
+
+WGRAD_TILE = 64
+WGRAD_SLICE = 16
+WGRAD_MIN_ROWS = 512
+
+
+def wgrad_plan(batch: int, m: int, n: int, n_sm: int):
+    """(rows_per_chunk, chunks) for dW = Aᵀ·D with A [batch, m], D [batch, n].
+
+    The kernel has one block per 64×64 tile of dW (plus one row of blocks
+    for db); when those cannot fill two waves of ``n_sm`` blocks, the rows
+    split into chunks of at least ``WGRAD_MIN_ROWS`` (a multiple of the
+    16-row slice) whose partial tiles a second launch adds in order."""
+    tiles = -(-m // WGRAD_TILE) * -(-n // WGRAD_TILE)
+    chunks = max(1, min(-(-2 * n_sm // tiles), batch // WGRAD_MIN_ROWS))
+    rows = -(-batch // chunks)
+    rows = -(-rows // WGRAD_SLICE) * WGRAD_SLICE
+    return rows, -(-batch // rows)
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _check_f32(t: torch.Tensor, device, name: str, shape=None):
+    if t.device != device or t.dtype != torch.float32 or not t.is_contiguous():
+        raise ValueError(
+            f"{name}: expected a contiguous float32 tensor on {device}, got "
+            f"{t.dtype} on {t.device}"
+        )
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
+
+
+def weight_grads(a, d, *, compute_dtype="float32"):
+    """(dW, db) = (Aᵀ·D, Σ_rows D) summed over every row of A [B, M] and
+    D [B, N]: the weight-gradient kernel on a CUDA tensor, its twin on the
+    CPU. Deterministic: each output is added in a fixed row order."""
+    cd = networks.dtype_name(compute_dtype)
+    if a.device.type == "cpu":
+        return weight_grads_plain(a, d, compute_dtype=cd)
+    if a.device.type != "cuda":
+        raise ValueError(f"the weight-gradient kernel runs on CUDA, got {a.device}")
+    batch, m = a.shape
+    n = d.shape[1]
+    _check_f32(a, a.device, "A")
+    _check_f32(d, a.device, "D", (batch, n))
+    dw = torch.empty(m, n, dtype=torch.float32, device=a.device)
+    db = torch.empty(n, dtype=torch.float32, device=a.device)
+    if batch == 0:
+        return dw.zero_(), db.zero_()
+    lib = _build.load()
+    n_sm = torch.cuda.get_device_properties(a.device).multi_processor_count
+    rows, chunks = wgrad_plan(batch, m, n, n_sm)
+    partial = (torch.empty(chunks * (m + 1) * n, dtype=torch.float32, device=a.device)
+               if chunks > 1 else None)
+    with torch.cuda.device(a.device):
+        err = lib.vae_wgrad(
+            a.data_ptr(), m, d.data_ptr(), n, batch, m, n, rows, chunks,
+            dw.data_ptr(), db.data_ptr(),
+            partial.data_ptr() if partial is not None else None,
+            int(cd == "bfloat16"), _stream(a),
+        )
+    _build.check(lib, err, "weight-gradient kernel launch")
+    _launches.count(_launches.TRAINING, "wgrad")
+    return dw, db
+
+
+def encode_bwd(hidden, heads, x, dmu, dlv, *, compute_dtype="float32"):
+    """Encoder-stack backward: the kernel on a CUDA tensor, its twin on the
+    CPU. Arguments and result as :func:`encode_bwd_plain`."""
+    cd = networks.dtype_name(compute_dtype)
+    if x.device.type == "cpu":
+        return encode_bwd_plain(hidden, heads, x, dmu, dlv, compute_dtype=cd)
+    if x.device.type != "cuda":
+        raise ValueError(f"the encoder-backward kernel runs on CUDA, got {x.device}")
+    dev = x.device
+    x, dmu, dlv = (t.detach().float().contiguous() for t in (x, dmu, dlv))
+    batch, n_in = x.shape
+    n_z = heads[0].w.shape[1]
+    if len(hidden) > ENC_BWD_MAX_HIDDEN:
+        raise ValueError(
+            f"the encoder-backward kernel takes at most {ENC_BWD_MAX_HIDDEN} "
+            f"hidden layers, got {len(hidden)}"
+        )
+    _check_f32(x, dev, "x")
+    for name, t in (("dmu", dmu), ("dlogvar", dlv)):
+        _check_f32(t, dev, name, (batch, n_z))
+    _check_stack(x, hidden, heads)
+    widths = [l.w.shape[1] for l in hidden]
+    scratch = [[torch.empty(batch, w, dtype=torch.float32, device=dev)
+                for _ in range(3)] for w in widths]  # act, sig, da per layer
+    w_t = [l.w.detach().t().contiguous() for l in hidden]
+    head_t = torch.cat([heads[0].w.detach().t(), heads[1].w.detach().t()]).contiguous()
+    dx = torch.empty(batch, n_in, dtype=torch.float32, device=dev)
+    rows = []
+    for l, wt, (act, sig, da) in zip(hidden, w_t, scratch):
+        rows += [l.w.data_ptr(), l.b.data_ptr(), wt.data_ptr(), act.data_ptr(),
+                 sig.data_ptr(), da.data_ptr(), l.w.shape[0], l.w.shape[1]]
+    table = (ctypes.c_longlong * len(rows))(*rows)
+    if batch:
+        lib = _build.load()
+        n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+        tile, stride = enc_bwd_plan(n_in, widths, n_z, batch, n_sm)
+        with torch.cuda.device(dev):
+            err = lib.vae_mlp_enc_bwd(
+                x.data_ptr(), batch, n_in, table, len(hidden), head_t.data_ptr(),
+                n_z, dmu.data_ptr(), dlv.data_ptr(), dx.data_ptr(), stride, tile,
+                int(cd == "bfloat16"), _stream(x),
+            )
+        _build.check(lib, err, "encoder-backward kernel launch")
+        _launches.count(_launches.TRAINING, "enc_bwd")
+    top = scratch[-1][0]
+    grads = [weight_grads(a, s[2], compute_dtype=cd)
+             for a, s in zip([x] + [s[0] for s in scratch[:-1]], scratch)]
+    grads += [weight_grads(top, dmu, compute_dtype=cd),
+              weight_grads(top, dlv, compute_dtype=cd)]
+    return grads, dx

@@ -1,6 +1,10 @@
-"""Joint associative multi-modal VAE: the serving half of vae_assoc_tpu/models/assoc.py.
+"""Joint associative multi-modal VAE (counterpart of vae_assoc_tpu/models/assoc.py).
 
-K per-modality VAEs share one latent space. Cross-modal generation encodes
+K per-modality VAEs trained under one objective,
+
+    cost = Σ_k mean[recon_k + KL_k] + λ · Σ_{i<j} mean ‖μ_i − μ_j‖²
+
+(`assoc_loss_fn`), sharing one latent space. Cross-modal generation encodes
 with modality i's recognition net and decodes with modality j's generator
 net (`cross_generate`): image→trajectory writes a character that was only
 seen; trajectory→image renders what a motion looks like.
@@ -17,8 +21,18 @@ from typing import Sequence
 import torch
 from torch import nn
 
-from vae_assoc_tpu_torch.configs import AssocConfig
+from torch.utils.checkpoint import checkpoint
+
+from vae_assoc_tpu_torch.configs import AssocConfig, gener_widths, recog_widths
 from vae_assoc_tpu_torch.models import vae as vae_mod
+from vae_assoc_tpu_torch.ops import losses
+from vae_assoc_tpu_torch.ops.sampling import fold_in
+
+NOT_PORTED = (
+    "the composable training kernels (use_pallas=True: the decoder backward, "
+    "the fused sampler and the fused loss) are not ported yet; see ROADMAP.md "
+    "§1, the next slice"
+)
 
 
 class AssocVAE(nn.Module):
@@ -67,6 +81,156 @@ def split_cond(xs: Sequence, cfg: AssocConfig, cond=None):
     if cond is not None:
         raise ValueError("model is unconditional (n_cond=0) but cond given")
     return list(xs), None
+
+
+def modality_seeds(seed: int, k: int) -> list:
+    """One ε seed per modality from the step's ``seed``."""
+    return [fold_in(seed, i) for i in range(k)]
+
+
+def assoc_forward(params: AssocVAE, xs, cfg: AssocConfig, *, seed=None, eps=None,
+                  compute_dtype="float32", use_pallas=False, cond=None,
+                  remat: bool = False):
+    """Run all K modality VAEs; ε per modality from ``seed`` or the ``eps`` list.
+
+    ``remat=True`` recomputes each tower in the backward instead of keeping
+    its activations (activation checkpointing); the recompute replays the
+    same ε."""
+    xs, cond = split_cond(xs, cfg, cond)
+    k = len(cfg.modalities)
+    if eps is None:
+        if seed is None:
+            raise ValueError("assoc_forward needs `seed` or `eps`")
+        eps = [vae_mod.draw_eps(s, x.shape[0], m, x.device)
+               for s, x, m in zip(modality_seeds(seed, k), xs, cfg.modalities)]
+
+    def fwd(p, x, m, e):
+        def f(x, e):
+            return vae_mod.vae_forward(p, x, m, eps=e, compute_dtype=compute_dtype,
+                                       use_pallas=use_pallas, cond=cond)
+
+        return checkpoint(f, x, e, use_reentrant=False) if remat else f(x, e)
+
+    return tuple(fwd(p, x, m, e)
+                 for p, x, m, e in zip(params.modalities, xs, cfg.modalities, eps))
+
+
+def mega_fallback_reason(cfg: AssocConfig):
+    """Why ``use_pallas="mega"`` cannot run this config on the tower
+    megakernel, or None when it can. The reasons are the math the kernel
+    implements (a depth-2 softplus MLP tower, ε surfaced for sample-coupled
+    forms); the reference's VMEM capacity reason has no counterpart, since
+    the Hopper kernels size their row tiles to shared memory themselves."""
+    if cfg.assoc_form == "sample_l2" and any(
+        m.encoder in ("conv", "conv_pallas") for m in cfg.modalities
+    ):
+        return (
+            "assoc_form='sample_l2' couples the sampled z and a conv "
+            "modality's tower does not surface its ε draw"
+        )
+    for m in cfg.modalities:
+        if m.transfer != "softplus":
+            return f"modality {m.name!r} uses transfer={m.transfer!r}"
+        if m.encoder == "mlp" and (
+            len(recog_widths(m.arch)) != 2 or len(gener_widths(m.arch)) != 2
+        ):
+            return f"modality {m.name!r} has a non-depth-2 arch dict"
+    return None
+
+
+def assoc_loss_fn(params: AssocVAE, xs, cfg: AssocConfig, *, seed=None, eps=None,
+                  compute_dtype="float32", parity_mode: bool = False,
+                  use_pallas=False, cond=None, remat: bool = False):
+    """Joint objective → (total, metrics dict): total, ``recon_<m>``,
+    ``kl_<m>`` per modality, and ``assoc``.
+
+    ``use_pallas``: False is the plain torch path (autograd through the
+    towers and losses; the oracle of the others); "mega" runs each tower
+    in the megakernel (kernels/megakernel.py), differentiable with respect
+    to the weights only. The reference falls back from "mega" to its
+    composable kernels (use_pallas=True) for configs the megakernel does not
+    implement and in parity mode; those are not ported yet, so such a
+    config, and use_pallas=True, raise NotImplementedError with the reason.
+    ``remat`` applies to the plain path; the megakernel recomputes its
+    decoder in the backward anyway."""
+    xs, cond = split_cond(xs, cfg, cond)
+    if use_pallas == "mega" and not parity_mode:
+        reason = mega_fallback_reason(cfg)
+        if reason is not None:
+            raise NotImplementedError(
+                f"use_pallas='mega' cannot run this config: {reason}. The "
+                f"reference falls back to its composable kernels here, and {NOT_PORTED}"
+            )
+        return _assoc_loss_mega(params, xs, cfg, seed=seed, eps=eps,
+                                compute_dtype=compute_dtype, cond=cond)
+    if use_pallas:
+        what = "parity_mode with use_pallas='mega'" if use_pallas == "mega" else "use_pallas=True"
+        raise NotImplementedError(f"{what} trains on the composable kernels, and {NOT_PORTED}")
+    outs = assoc_forward(params, xs, cfg, seed=seed, eps=eps, compute_dtype=compute_dtype,
+                         cond=cond, remat=remat)
+    metrics = {}
+    total = torch.zeros((), dtype=torch.float32, device=xs[0].device)
+    for m, x, out in zip(cfg.modalities, xs, outs):
+        terms = vae_mod.vae_loss(out, x, m, parity_mode=parity_mode)
+        metrics[f"recon_{m.name}"] = terms["recon"]
+        metrics[f"kl_{m.name}"] = terms["kl"]
+        total = total + terms["recon"] + terms["kl"]
+    per_sample = losses.assoc_loss(
+        [o.z_mean for o in outs], z_logvars=[o.z_logvar for o in outs],
+        zs=[o.z for o in outs], form=cfg.assoc_form, temp=cfg.assoc_temp,
+        ordered=parity_mode, negatives=cfg.assoc_negatives,
+    )
+    mean = losses.ordered_mean if parity_mode else torch.mean
+    assoc = mean(per_sample)
+    metrics["assoc"] = assoc
+    total = total + cfg.assoc_lambda * assoc
+    metrics["total"] = total
+    return total, metrics
+
+
+def _assoc_loss_mega(params, xs, cfg, *, seed=None, eps=None, compute_dtype, cond=None):
+    """Joint objective through one tower megakernel per modality, plus the
+    small association term in torch on the surfaced μ, logσ² (and ε)."""
+    from vae_assoc_tpu_torch.kernels.megakernel import vae_tower_fused
+
+    k = len(cfg.modalities)
+    if len(xs) != k:
+        raise ValueError(f"expected {k} modality inputs, got {len(xs)}")
+    if eps is None:
+        if seed is None:
+            raise ValueError("assoc_loss_fn needs `seed` or `eps`")
+        seeds, eps = modality_seeds(seed, k), [None] * k
+    else:
+        seeds = [None] * k
+    metrics = {}
+    total = torch.zeros((), dtype=torch.float32, device=xs[0].device)
+    mus, lvs, zs = [], [], []
+    for p, x, m, s, e in zip(params.modalities, xs, cfg.modalities, seeds, eps):
+        vae_mod._check_width(x, m.arch["n_input"], m.name, "input")
+        if m.encoder != "mlp":
+            raise NotImplementedError(
+                f"modality {m.name!r}: encoder={m.encoder!r} towers are not "
+                "ported yet; the port runs encoder='mlp'"
+            )
+        out = vae_tower_fused(
+            p, x, kind=m.recon, seed=s, eps=e, compute_dtype=compute_dtype,
+            cond=vae_mod.prepare_cond(cond, m, x.shape[0], device=x.device),
+        )
+        metrics[f"recon_{m.name}"] = torch.mean(out["recon_term"])
+        metrics[f"kl_{m.name}"] = torch.mean(out["kl_term"])
+        total = total + metrics[f"recon_{m.name}"] + metrics[f"kl_{m.name}"]
+        mus.append(out["mu"])
+        lvs.append(out["lv"])
+        if cfg.assoc_form == "sample_l2":
+            zs.append(out["mu"] + torch.exp(0.5 * out["lv"]) * out["eps"])
+    assoc = torch.mean(losses.assoc_loss(
+        mus, z_logvars=lvs, zs=zs or None, form=cfg.assoc_form,
+        temp=cfg.assoc_temp, negatives=cfg.assoc_negatives,
+    ))
+    metrics["assoc"] = assoc
+    total = total + cfg.assoc_lambda * assoc
+    metrics["total"] = total
+    return total, metrics
 
 
 def transform(params: AssocVAE, xs, cfg: AssocConfig, *, compute_dtype="float32",

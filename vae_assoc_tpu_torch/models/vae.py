@@ -1,20 +1,30 @@
-"""Single-modality VAE: the serving half of vae_assoc_tpu/models/vae.py.
+"""Single-modality VAE (counterpart of vae_assoc_tpu/models/vae.py).
 
-``transform`` runs the recognition net to the latent mean; ``generate`` runs
-the generator net and applies the output activation. A conditional modality
-concatenates its condition to the encoder input and to z at the call
-boundary, so the fused kernels run unchanged on the widened first layers.
-The sampler, the forward pass with ε and the losses belong to training, a
-later port item.
+``vae_forward`` runs encoder → reparameterized sample → decoder and
+``vae_loss`` adds the per-modality objective (training); ``transform`` runs
+the recognition net to the latent mean and ``generate`` the generator net
+with its output activation (serving). A conditional modality concatenates
+its condition to the encoder input and to z at the call boundary, so the
+fused kernels run unchanged on the widened first layers.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
 
 from vae_assoc_tpu_torch.configs import TRANSFER_FNS, ModalityConfig
 from vae_assoc_tpu_torch.models import networks
+from vae_assoc_tpu_torch.ops import losses, sampling
+
+
+class VAEOutputs(NamedTuple):
+    z_mean: torch.Tensor  # [B, n_z] fp32
+    z_logvar: torch.Tensor  # [B, n_z] fp32
+    z: torch.Tensor  # [B, n_z] sampled latent
+    recon: torch.Tensor  # [B, n_input] decoder pre-activation (logits / linear)
 
 
 def _net_fns(cfg: ModalityConfig, use_pallas=False):
@@ -112,3 +122,55 @@ def transform(params, x, cfg: ModalityConfig, *, compute_dtype="float32",
         params, x, compute_dtype=compute_dtype, transfer=TRANSFER_FNS[cfg.transfer]
     )
     return z_mean
+
+
+def draw_eps(seed: int, batch: int, cfg: ModalityConfig, device) -> torch.Tensor:
+    """The modality's ε [batch, n_z] for ``seed``: the counter-based stream
+    that the tower kernel draws in place (ops/sampling.philox_normal), so the
+    plain and the kernel path see the same noise for the same seed."""
+    return sampling.philox_normal(seed, batch, cfg.arch["n_z"], device)
+
+
+def vae_forward(params, x, cfg: ModalityConfig, *, seed=None, eps=None,
+                compute_dtype="float32", use_pallas=False, cond=None) -> VAEOutputs:
+    """Encoder → reparameterized sample → decoder. ε from ``seed`` or explicit.
+
+    ``cond``: the condition of a conditional modality, concatenated to the
+    encoder input and to the sampled latent."""
+    _check_width(x, cfg.arch["n_input"], cfg.name, "input")
+    cond = prepare_cond(cond, cfg, x.shape[0], device=x.device)
+    _, encode, decode = _net_fns(cfg, use_pallas)
+    transfer = TRANSFER_FNS[cfg.transfer]
+    x_in = x if cond is None else torch.cat([x.float(), cond], dim=1)
+    z_mean, z_logvar = encode(params, x_in, compute_dtype=compute_dtype, transfer=transfer)
+    if eps is None:
+        if seed is None:
+            raise ValueError("vae_forward needs `seed` or `eps`")
+        eps = draw_eps(seed, x.shape[0], cfg, x.device)
+    z = sampling.reparameterize(z_mean, z_logvar, eps=eps)
+    z_in = z if cond is None else torch.cat([z, cond], dim=1)
+    recon = decode(params, z_in, compute_dtype=compute_dtype, transfer=transfer)
+    return VAEOutputs(z_mean, z_logvar, z, recon)
+
+
+def vae_loss(out: VAEOutputs, x, cfg: ModalityConfig, *, parity_mode: bool = False):
+    """Per-modality loss terms, each a mean-over-batch fp32 scalar:
+    dict(recon=..., kl=...). In parity mode every reduction runs in the
+    pinned left-to-right order of the numpy oracle."""
+    if cfg.recon == "bernoulli":
+        recon = losses.bernoulli_recon(x, logits=out.recon, parity_mode=parity_mode)
+    else:
+        recon = losses.gaussian_recon(x, out.recon, ordered=parity_mode)
+    kl = losses.kl_divergence(out.z_mean, out.z_logvar, ordered=parity_mode)
+    mean = losses.ordered_mean if parity_mode else torch.mean
+    return {"recon": mean(recon), "kl": mean(kl)}
+
+
+def reconstruct(params, x, cfg: ModalityConfig, *, seed=None, eps=None,
+                compute_dtype="float32", cond=None):
+    """x → x̂ in data space through a sampled z (sigmoid for Bernoulli)."""
+    out = vae_forward(params, x, cfg, seed=seed, eps=eps,
+                      compute_dtype=compute_dtype, cond=cond)
+    if cfg.recon == "bernoulli":
+        return torch.sigmoid(out.recon)
+    return out.recon
