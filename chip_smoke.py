@@ -27,19 +27,40 @@ Phases, each of which raises on failure (nothing is caught):
    conditional image tower (n_cond=10), batches 1 to 16384, fp32
    (rtol = atol = 1e-4) and bf16 (2e-2); a gradient summed over the batch
    takes atol = tol × max|want|.
+6b. The composable training path's kernels against their twins on the
+   card: the decoder backward (image, trajectory, conditional and depth-3
+   decoders, fp32 and bf16), the sampler (ε at rtol = atol = 1e-6, z) and
+   the joint loss forward and backward (kinds bernoulli + gaussian, with
+   and without the association column), batches 1 to 16384.
 7. Training, the port's second main path: config 3 at full width from
    seed 0, trained through train_loop on the kernels (use_pallas="mega")
    and on the plain path. Step-0 gradients agree within phase 6's
    tolerances, the per-step total over 20 steps within rtol 1e-3, the loss
    falls over 200 steps, and the training kernels' launch counts are reset
-   just before the kernel-path run and must all be positive after it.
-8. Times: train_loop_fused samples/s on both paths, interleaved
-   plain–kernel–kernel–plain, at batch 16384 bf16 (steps_per_call=4) and
-   batch 64 fp32 on 65,536 synthetic pairs featurized on the card; and the
-   device ms per launch of each training kernel against its twin.
+   just before the kernel-path run and must all be positive after it;
+   decode_mlp_fused's backward on the card matches its twin.
+7b. Training, the third main path: config 5 on one card through
+   train_loop on the composable kernels (use_pallas=True), the megakernel
+   and the plain path, from one seed (so one ε). bf16 step-0 totals and
+   gradients agree within phase 6's bf16 tolerances; config 5 as it is
+   trains 200 steps with exactly the per-step launch counts of
+   COMPOSABLE_PER_STEP (counts reset just before) and its loss falls; the
+   20-step per-step totals agree within rtol 1e-3 in fp32 (config 5 at
+   fp32, and config 3); a depth-3 image tower under "mega" warns
+   MegaFallbackWarning and trains on the composable kernels.
+8. Times: train_loop_fused samples/s, interleaved plain first and last, at
+   batch 16384 bf16 (steps_per_call=4) and batch 64 fp32 (mega and plain
+   paths), and at config 5's settings (all three paths), on 65,536
+   synthetic pairs featurized on the card; and each training kernel's
+   time per call against its twin's (and, for the weight-gradient kernel,
+   torch.matmul's): CUDA events around the calls, and the device's busy
+   time from torch.profiler, which leaves out the device waiting for the
+   host (what the JSON record reports where the profiler measured it).
 
-The line before the last is the kernel record as JSON; the last line is
-{"ok": true, "device": {...}}. Without a CUDA device, or without the
+The line before the last is the kernel record as JSON, each kernel with
+its bound: the larger of the bytes it must move over 3.35 TB/s and its
+operations over 67 TFLOP/s (fp32, no tensor cores), the H100 SXM data
+sheet's rates. The last line is {"ok": true, "device": {...}}. Without a CUDA device, or without the
 package beside this file, the script exits non-zero and prints no result.
 """
 
@@ -61,9 +82,16 @@ TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 BUCKETS = (1, 64, 256, 1024, 4096)
 TIMED_BATCH = 1024  # the shape of the JSON kernel record (ModelServer's max_batch)
 SOURCE = "vae_assoc_tpu_torch/kernels/csrc/mlp_fwd.cu"
-TRAIN_BATCHES = (1, 7, 64, 257, 4096, 16383, 16384)
+TRAIN_BATCHES = (1, 7, 64, 257, 1024, 4096, 16383, 16384)
 TRAIN_TIMED = (1024, 16384)
 CSRC = "vae_assoc_tpu_torch/kernels/csrc/"
+EPS_TOL = 1e-6  # the sampler against its twin: the same integers, then expf/logf/cosf
+COMPOSABLE_PER_STEP = {"enc_fwd": 2, "reparam": 2, "dec_fwd": 2, "loss_fwd": 1,
+                       "loss_bwd": 1, "dec_bwd": 2, "enc_bwd": 2, "wgrad": 14}
+"""Hand-written launches per step of the composable path on two depth-2
+towers: 3 weight-gradient launches per decoder, 4 per encoder."""
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOPS_PER_S = 67e12
 
 
 def _card() -> str:
@@ -135,6 +163,34 @@ def _close(got, want, tol, summed=False):
     return float(diff.max()) if diff.numel() else 0.0, ok
 
 
+def _recorder(errs, failed):
+    """record(key, [(name, got, want, summed), ...], tol): stores the worst
+    max abs err in errs[key] and returns it; each disagreement goes to
+    ``failed``."""
+    def record(key, pairs, tol):
+        worst = 0.0
+        for name, got, want, summed in pairs:
+            err, ok = _close(got, want, tol, summed)
+            worst = max(worst, err)
+            if not ok:
+                failed.append(f"{key} {name} err={err:.3e}")
+        errs[key] = worst
+        return worst
+
+    return record
+
+
+def _grads_close(names, got, want, tol):
+    """(max abs err, disagreeing tensors) of two lists of batch-summed grads."""
+    worst, bad = 0.0, []
+    for key, g, w in zip(names, got, want):
+        err, ok = _close(g, w, tol, summed=True)
+        worst = max(worst, err)
+        if not ok:
+            bad.append(f"{key} err={err:.3e}")
+    return worst, bad
+
+
 def train_archs():
     from vae_assoc_tpu_torch.configs import default_image_arch, default_traj_arch
 
@@ -154,17 +210,7 @@ def check_train_kernels(rng, batches=TRAIN_BATCHES):
     from vae_assoc_tpu_torch.ops.sampling import philox_normal
 
     errs, failed = {}, []
-
-    def record(key, pairs, tol):
-        worst = 0.0
-        for name, got, want, summed in pairs:
-            err, ok = _close(got, want, tol, summed)
-            worst = max(worst, err)
-            if not ok:
-                failed.append(f"{key} {name} err={err:.3e}")
-        errs[key] = worst
-        return worst
-
+    record = _recorder(errs, failed)
     for tower, (arch, n_cond, kind) in train_archs().items():
         gen = torch.Generator().manual_seed(2)
         m = init_mlp_vae_params(gen, arch, device="cuda", n_cond=n_cond)
@@ -233,6 +279,93 @@ def check_train_kernels(rng, batches=TRAIN_BATCHES):
     return errs
 
 
+LOSS_KINDS = ("bernoulli", "gaussian")
+
+
+def _loss_inputs(rng, b, widths=(784, 200), n_z=20):
+    """Config-3-shaped joint-loss inputs on the card: xs, recons, μs, logσ²s."""
+    def t(a):
+        return torch.from_numpy(a.astype(np.float32)).cuda()
+
+    xs = [t(rng.uniform(0, 1, (b, widths[0]))), t(rng.normal(size=(b, widths[1])))]
+    recons = [t(3 * rng.normal(size=(b, w))) for w in widths]
+    mus = [t(rng.normal(size=(b, n_z))) for _ in widths]
+    lvs = [t(0.5 * rng.normal(size=(b, n_z))) for _ in widths]
+    return xs, recons, mus, lvs
+
+
+@torch.no_grad()
+def check_composable_kernels(rng, batches=TRAIN_BATCHES):
+    """Phase 6b; returns {(kernel, case, batch, dtype): max_abs_err}."""
+    from vae_assoc_tpu_torch.configs import default_image_arch
+    from vae_assoc_tpu_torch.kernels import loss as kloss
+    from vae_assoc_tpu_torch.kernels import mlp as kmlp
+    from vae_assoc_tpu_torch.kernels import sampling as ksamp
+    from vae_assoc_tpu_torch.models.networks import hidden_layers, init_mlp_vae_params
+
+    errs, failed = {}, []
+    record = _recorder(errs, failed)
+    towers = dict(train_archs())
+    towers["image_depth3"] = (default_image_arch(depth=3), 0, "bernoulli")
+    for tower, (arch, n_cond, _) in towers.items():
+        m = init_mlp_vae_params(torch.Generator().manual_seed(3), arch, device="cuda",
+                                n_cond=n_cond)
+        hidden, head = hidden_layers(m.gener), m.gener["out"]
+        n_in, n_out = arch["n_z"] + n_cond, arch["n_input"]
+        for cd, tol in TOL.items():
+            line = []
+            for b in batches:
+                z = torch.from_numpy(rng.normal(size=(b, n_in)).astype(np.float32)).cuda()
+                dout = torch.from_numpy(rng.normal(size=(b, n_out)).astype(np.float32)).cuda() / b
+                got = kmlp.decode_bwd(hidden, head, z, dout, compute_dtype=cd)
+                want = kmlp.decode_bwd_plain(hidden, head, z, dout, compute_dtype=cd)
+                torch.cuda.synchronize()
+                pairs = [("dz", got[1], want[1], False)]
+                for i, (g, w) in enumerate(zip(got[0], want[0])):
+                    pairs += [(f"dw{i}", g[0], w[0], True), (f"db{i}", g[1], w[1], True)]
+                line.append(record(("dec_bwd", tower, b, cd), pairs, tol))
+            print(f"check {tower} dec_bwd {cd} (tol {tol}): " + " ".join(
+                f"B={b}:{e:.2e}" for b, e in zip(batches, line)), flush=True)
+
+    line = {"reparam": [], "loss_fwd": [], "loss_bwd": []}
+    for b in batches:
+        mu = torch.from_numpy(rng.normal(size=(b, 20)).astype(np.float32)).cuda()
+        lv = torch.from_numpy(0.5 * rng.normal(size=(b, 20)).astype(np.float32)).cuda()
+        got = ksamp.reparameterize_kernel(mu, lv, 7000 + b)
+        want = ksamp.reparameterize_plain(mu, lv, 7000 + b)
+        torch.cuda.synchronize()
+        line["reparam"].append(record(("reparam", "n_z=20", b, "float32"),
+                                      [("z", got[0], want[0], False),
+                                       ("eps", got[1], want[1], False)], EPS_TOL))
+        for with_assoc in (True, False):
+            args = _loss_inputs(rng, b)
+            case = f"assoc={with_assoc}"
+            got = kloss.loss_terms(LOSS_KINDS, *args, with_assoc=with_assoc)
+            want = kloss.loss_terms_plain(LOSS_KINDS, *args, with_assoc=with_assoc)
+            torch.cuda.synchronize()
+            line["loss_fwd"].append(record(("loss_fwd", case, b, "float32"),
+                                           [("terms", got, want, False)], TOL["float32"]))
+            g = torch.from_numpy(rng.uniform(0.5, 1.5, (b, 4 + with_assoc))
+                                 .astype(np.float32)).cuda() / b
+            got = kloss.loss_terms_bwd(LOSS_KINDS, g, *args, with_assoc=with_assoc)
+            want = kloss.loss_terms_bwd_plain(LOSS_KINDS, g, *args, with_assoc=with_assoc)
+            torch.cuda.synchronize()
+            pairs = [(f"{n}{i}", gg, ww, False) for n, gs, ws in zip(("drecon", "dmu", "dlv"),
+                                                                     got, want)
+                     for i, (gg, ww) in enumerate(zip(gs, ws))]
+            line["loss_bwd"].append(record(("loss_bwd", case, b, "float32"), pairs,
+                                           TOL["float32"]))
+    for k, v in line.items():
+        print(f"check {k} float32: " + " ".join(f"{e:.2e}" for e in v)
+              + f" (B = {', '.join(map(str, batches))}"
+              + ("; with and without the association column)" if k != "reparam" else ")"),
+              flush=True)
+    if failed:
+        raise AssertionError("composable-path kernel disagrees with its plain twin: "
+                             + "; ".join(failed[:20]))
+    return errs
+
+
 def train_and_check(card):
     """Phase 7; returns the training kernels' launch counts of the main path
     and its per-step totals."""
@@ -243,6 +376,7 @@ def train_and_check(card):
     from vae_assoc_tpu_torch.kernels import launch_counts, reset_launches
     from vae_assoc_tpu_torch.kernels import mlp as kmlp
     from vae_assoc_tpu_torch.models import assoc as assoc_mod
+    from vae_assoc_tpu_torch.models.networks import hidden_layers
     from vae_assoc_tpu_torch.train import init_train_state, train_loop
 
     cfg, tc = baseline_config(3)
@@ -262,21 +396,26 @@ def train_and_check(card):
         total, _ = assoc_mod.assoc_loss_fn(model, data, cfg, seed=123, use_pallas=t.use_pallas)
         grads[name] = torch.autograd.grad(total, list(model.parameters()))
     torch.cuda.synchronize()
-    worst, bad = 0.0, []
-    for (key, _), g, w in zip(model.named_parameters(), grads["kernel"], grads["plain"]):
-        err, ok = _close(g, w, tol, summed=True)
-        worst = max(worst, err)
-        if not ok:
-            bad.append(f"{key} err={err:.3e}")
+    names = [key for key, _ in model.named_parameters()]
+    worst, bad = _grads_close(names, grads["kernel"], grads["plain"], tol)
     print(f"step-0 grads, kernel vs plain path: {len(grads['plain'])} tensors, max abs "
           f"err {worst:.3e} (rtol {tol}, atol {tol} x max|want|)", flush=True)
     assert not bad, "step-0 grads disagree: " + "; ".join(bad)
-    try:
-        kmlp.decode_mlp_fused(model.modalities[0], torch.zeros(2, 20, device="cuda"))
-    except NotImplementedError:
-        pass
-    else:
-        raise AssertionError("decode_mlp_fused ran under autograd without a backward kernel")
+    # decode_mlp_fused has a backward on the card: its gradients against the twin's.
+    img = model.modalities[0]
+    z = torch.randn(5, 20, device="cuda", requires_grad=True)
+    (kmlp.decode_mlp_fused(img, z, compute_dtype=tc.compute_dtype) ** 2).sum().backward()
+    with torch.no_grad():
+        g_out = 2 * kmlp.decode_mlp_plain(img, z, compute_dtype=tc.compute_dtype)
+        want_grads, want_dz = kmlp.decode_bwd_plain(
+            hidden_layers(img.gener), img.gener["out"], z, g_out,
+            compute_dtype=tc.compute_dtype)
+    err, ok = _close(z.grad, want_dz, tol)
+    err_w, ok_w = _close(img.gener["h1"].w.grad, want_grads[0][0], tol, summed=True)
+    print(f"decode_mlp_fused backward on the card vs twin: dz {err:.3e}, dW1 {err_w:.3e}",
+          flush=True)
+    assert ok and ok_w, "decode_mlp_fused's backward disagrees with its twin"
+    model.zero_grad(set_to_none=True)
 
     hist, launches = {}, None
     for name in ("plain", "kernel"):
@@ -309,8 +448,114 @@ def train_and_check(card):
     return launches
 
 
+PATHS = {"composable": True, "mega": "mega", "plain": False}
+
+
+def _curves(cfg, tc, data, steps=20):
+    """Per-step totals of ``steps`` steps of train_loop from tc.seed's state
+    on each path; ``data`` is one batch, so an epoch is one step."""
+    import dataclasses
+
+    from vae_assoc_tpu_torch.train import train_loop
+
+    out = {}
+    for name, up in PATHS.items():
+        t = dataclasses.replace(tc, use_pallas=up, steps_per_call=1)
+        _, h = train_loop(cfg, t, data, epochs=steps, device="cuda")
+        out[name] = np.array([e["total"] for e in h])
+    return out
+
+
+def _compare_curves(label, curves, against):
+    c = curves["composable"]
+    assert np.isfinite(c).all(), f"{label}: the composable path's loss is not finite"
+    print(f"{label}, per-step total, composable path: " + " ".join(f"{v:.4f}" for v in c),
+          flush=True)
+    for other in against:
+        rel = float(np.max(np.abs(c - curves[other]) / np.abs(curves[other])))
+        print(f"{label}: 20-step curve of the composable path vs {other}: max rel err "
+              f"{rel:.3e} (rtol 1e-3)", flush=True)
+        assert rel <= 1e-3, f"{label}: composable and {other} loss curves disagree"
+
+
+def train_composable_and_check(card):
+    """Phase 7b; returns the composable path's launch counts over config 5's
+    200 steps."""
+    import dataclasses
+    import warnings
+
+    from vae_assoc_tpu_torch.configs import baseline_config, default_image_arch
+    from vae_assoc_tpu_torch.data import PairedDataset
+    from vae_assoc_tpu_torch.kernels import launch_counts, reset_launches
+    from vae_assoc_tpu_torch.models import assoc as assoc_mod
+    from vae_assoc_tpu_torch.train import init_train_state, train_loop
+
+    cfg, tc = baseline_config(5)
+    bs, spc = tc.batch_size, tc.steps_per_call
+    print(f"training: baseline config 5 on one card, batch {bs}, steps_per_call {spc}, "
+          f"compute_dtype={tc.compute_dtype}, use_pallas={tc.use_pallas}", flush=True)
+    batch = list(PairedDataset.from_synthetic(bs, seed=0, device="cuda").features())
+    model = assoc_mod.init_assoc(0, cfg, device="cuda")
+    params = list(model.parameters())
+    tol = TOL[tc.compute_dtype]
+    grads, totals = {}, {}
+    for name, up in PATHS.items():
+        total, _ = assoc_mod.assoc_loss_fn(model, batch, cfg, seed=123,
+                                           compute_dtype=tc.compute_dtype, use_pallas=up)
+        grads[name] = torch.autograd.grad(total, params)
+        totals[name] = float(total.detach())
+    torch.cuda.synchronize()
+    names = [key for key, _ in model.named_parameters()]
+    for other in ("plain", "mega"):
+        worst, bad = _grads_close(names, grads["composable"], grads[other], tol)
+        rel = abs(totals["composable"] - totals[other]) / abs(totals[other])
+        print(f"config 5 bf16 step 0, composable vs {other}: total {totals['composable']:.4f} "
+              f"vs {totals[other]:.4f} (rel {rel:.3e}); {len(params)} grads, max abs err "
+              f"{worst:.3e} (rtol {tol}, atol {tol} x max|want|)", flush=True)
+        assert rel <= tol and not bad, f"step-0 composable vs {other}: " + "; ".join(bad)
+
+    # Config 5 as it is, 200 steps: the exact launches per step, and the loss falls.
+    data = list(PairedDataset.from_synthetic(bs * spc, seed=1, device="cuda").features())
+    state = init_train_state(cfg, tc, device="cuda")
+    reset_launches()
+    state, h = train_loop(cfg, tc, data, epochs=20, state=state)
+    launches = launch_counts()
+    steps = state.step
+    print(f"launches during config 5's {steps} composable-path steps: {launches}", flush=True)
+    want = {k: COMPOSABLE_PER_STEP.get(k, 0) * steps for k in launches}
+    assert launches == want, f"launch counts {launches} != {want}"
+    print(f"config 5 composable path: total {h[0]['total']:.4f} over steps 1-{spc}, "
+          f"{h[-1]['total']:.4f} over steps {steps - spc + 1}-{steps}", flush=True)
+    assert steps == 200 and h[-1]["total"] < h[0]["total"], "the loss did not fall"
+
+    # fp32 curves: config 5 at fp32 against plain and mega; config 3 against plain.
+    f32 = dataclasses.replace(tc, compute_dtype="float32")
+    _compare_curves("config 5 fp32", _curves(cfg, f32, batch), ("plain", "mega"))
+    cfg3, tc3 = baseline_config(3)
+    batch3 = list(PairedDataset.from_synthetic(tc3.batch_size, seed=0, device="cuda").features())
+    _compare_curves("config 3 fp32 batch 64", _curves(cfg3, tc3, batch3), ("plain",))
+
+    # A depth-3 image tower under "mega" falls back to the composable kernels.
+    img = dataclasses.replace(cfg3.modalities[0], arch=default_image_arch(depth=3))
+    cfg_d3 = dataclasses.replace(cfg3, modalities=[img, cfg3.modalities[1]])
+    tc_d3 = dataclasses.replace(tc3, use_pallas="mega")
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        reset_launches()
+        state, h = train_loop(cfg_d3, tc_d3, batch3, epochs=3, device="cuda")
+        fallback = launch_counts()
+    n_warn = sum(w.category is assoc_mod.MegaFallbackWarning for w in caught)
+    per_step = dict(COMPOSABLE_PER_STEP, wgrad=16)  # depth 3: 4 + 5 image, 3 + 4 trajectory
+    want = {k: per_step.get(k, 0) * state.step for k in fallback}
+    print(f"depth-3 image tower under 'mega': {n_warn} MegaFallbackWarning(s), launches "
+          f"{fallback}, total {h[-1]['total']:.4f}", flush=True)
+    assert n_warn == state.step == 3 and fallback == want and np.isfinite(h[-1]["total"])
+    return launches
+
+
 def time_training(card):
-    """Phase 8a: train_loop_fused samples/s, kernel vs plain path, in turns."""
+    """Phase 8a: train_loop_fused samples/s, kernel vs plain path, in turns;
+    then config 5's settings on the composable, mega and plain paths."""
     import dataclasses
 
     from vae_assoc_tpu_torch.configs import baseline_config
@@ -342,20 +587,38 @@ def time_training(card):
         print(f"train_loop_fused {label}: kernel path "
               f"{' '.join(f'{v:.1f}' for v in runs['kernel'])} samples/s, plain path "
               f"{' '.join(f'{v:.1f}' for v in runs['plain'])} samples/s [{card}]", flush=True)
+
+    cfg5, tc5 = baseline_config(5)
+    tcs = {name: dataclasses.replace(tc5, use_pallas=up) for name, up in PATHS.items()}
+    for t in tcs.values():
+        train_loop_fused(cfg5, t, data, epochs=1, device="cuda")
+    runs = {name: [] for name in tcs}
+    for name in ("plain", "composable", "mega", "mega", "composable", "plain"):
+        _, h = train_loop_fused(cfg5, tcs[name], data, epochs=2, device="cuda")
+        assert np.isfinite(h[-1]["total"])
+        runs[name].append(h[0]["samples_per_sec"])
+    rates["config 5"] = runs
+    print("train_loop_fused config 5 (batch 1024 bf16, steps_per_call=10): " + "; ".join(
+        f"{name} path {' '.join(f'{v:.1f}' for v in r)} samples/s" for name, r in runs.items())
+        + f" [{card}]", flush=True)
     return rates
 
 
 def time_train_kernels(rng, card):
     """Phase 8b: device ms per launch of each training kernel (its wrapper,
-    weight-gradient launches included) against its twin, image tower."""
+    weight-gradient launches included) against its twin, image tower; the
+    weight-gradient kernel also against one torch.matmul (``library``)."""
+    from vae_assoc_tpu_torch.kernels import loss as kloss
     from vae_assoc_tpu_torch.kernels import megakernel as km
     from vae_assoc_tpu_torch.kernels import mlp as kmlp
+    from vae_assoc_tpu_torch.kernels import sampling as ksamp
     from vae_assoc_tpu_torch.models.networks import init_mlp_vae_params
 
     arch, n_cond, kind = train_archs()["image"]
     m = init_mlp_vae_params(torch.Generator().manual_seed(2), arch, device="cuda")
     flat = [t.detach() for t in km.flatten(m)]
     layers = kmlp._pairs(flat[:8])
+    dec = kmlp._pairs(flat[8:])
     times = {}
     with torch.no_grad():
         for cd in TOL:
@@ -364,6 +627,7 @@ def time_train_kernels(rng, card):
                     return torch.from_numpy(rng.uniform(0, 1, shape).astype(np.float32)).cuda()
                 x, eps, g = t(b, 784), t(b, 20), t(b) / b
                 z, dmu, dlv, a, d = t(b, 20), t(b, 20) / b, t(b, 20) / b, t(b, 500), t(b, 784)
+                dout = d / b
                 cases = {
                     "mega_fwd": (lambda: km.tower_fwd(flat, x, kind=kind, eps=eps, compute_dtype=cd),
                                  lambda: km.tower_fwd_plain(flat, x, eps, kind=kind, compute_dtype=cd)),
@@ -376,20 +640,66 @@ def time_train_kernels(rng, card):
                                                       compute_dtype=cd)),
                     "wgrad": (lambda: kmlp.weight_grads(a, d, compute_dtype=cd),
                               lambda: kmlp.weight_grads_plain(a, d, compute_dtype=cd)),
+                    "dec_bwd": (
+                        lambda: kmlp.decode_bwd(dec[:2], dec[2], z, dout, compute_dtype=cd),
+                        lambda: kmlp.decode_bwd_plain(dec[:2], dec[2], z, dout,
+                                                      compute_dtype=cd)),
                 }
+                if cd == "float32":  # the sampler and the loss kernels are fp32 only
+                    largs = _loss_inputs(rng, b)
+                    gl = t(b, 5) / b
+                    cases.update({
+                        "reparam": (lambda: ksamp.reparameterize_kernel(dmu, dlv, 5),
+                                    lambda: ksamp.reparameterize_plain(dmu, dlv, 5)),
+                        "loss_fwd": (lambda: kloss.loss_terms(LOSS_KINDS, *largs),
+                                     lambda: kloss.loss_terms_plain(LOSS_KINDS, *largs)),
+                        "loss_bwd": (lambda: kloss.loss_terms_bwd(LOSS_KINDS, gl, *largs),
+                                     lambda: kloss.loss_terms_bwd_plain(LOSS_KINDS, gl, *largs)),
+                    })
+                op = torch.bfloat16 if cd == "bfloat16" else torch.float32
+                a_lib, d_lib = a.to(op), d.to(op)
+                library = {"wgrad": lambda: torch.matmul(a_lib.T, d_lib)}
                 for name, (kern, plain) in cases.items():
+                    fns = {"kernel": kern, "plain": plain}
+                    if name in library:
+                        fns["library"] = library[name]
                     for _ in range(2):
-                        kern()
-                        plain()
-                    runs = {"kernel": [], "plain": []}
+                        for fn in fns.values():
+                            fn()
+                    runs = {which: [] for which in fns}
                     for which in ("plain", "kernel", "kernel", "plain"):
-                        fn = kern if which == "kernel" else plain
-                        runs[which].append(_device_ms(fn, n=10))
-                    kt, pt = float(np.mean(runs["kernel"])), float(np.mean(runs["plain"]))
-                    times[(name, b, cd)] = (kt, pt)
-                    print(f"device time {name} image B={b} {cd}: kernel {kt:.4f} ms, plain "
-                          f"{pt:.4f} ms, plain/kernel {pt / kt:.3f} [{card}]", flush=True)
+                        runs[which].append(_device_ms(fns[which], n=10))
+                    if "library" in fns:
+                        runs["library"] += [_device_ms(fns["library"], n=10) for _ in range(2)]
+                    call = {which: float(np.mean(r)) for which, r in runs.items()}
+                    busy = {which: _profiled_ms(fn) for which, fn in fns.items()}
+                    times[(name, b, cd)] = {"call": call, "device": busy}
+                    print(f"time {name} image B={b} {cd}, ms per call (CUDA events) / device "
+                          "busy per call (profiler): " + ", ".join(
+                              f"{which} {call[which]:.4f} / {_fmt(busy[which])}"
+                              for which in fns) + f" [{card}]", flush=True)
     return times
+
+
+def _fmt(ms):
+    return "not measured" if ms is None else f"{ms:.4f}"
+
+
+def _profiled_ms(fn, n=10):
+    """Device time per call of ``fn``: the own time of the CUDA kernels and
+    copies it launches, summed over ``n`` calls by torch.profiler; None when
+    the profiler records no device time. Unlike CUDA events around the
+    calls, this leaves out the time the device waits for the host."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA)
+    return us / n / 1e3 if us > 0 else None
 
 
 def _post(base, path, payload):
@@ -578,6 +888,85 @@ def time_kernels(model, cd, rng, card):
     return times
 
 
+# Layer widths of the config-3/5 towers (models/networks.py layout).
+IMAGE_ENC = (784, 500, 500, 20)  # input, hidden..., head width (μ and logσ² heads)
+IMAGE_DEC = (20, 500, 500, 784)
+TRAJ_DEC = (20, 500, 500, 200)
+
+
+def _bound(nbytes, flops):
+    """(bound_ms, bound_by): the larger of the bytes over the card's memory
+    rate and the fp32 operations over its peak without tensor cores."""
+    tb, tf = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS_PER_S
+    return max(tb, tf) * 1e3, ("bytes" if tb >= tf else "operations")
+
+
+def _layers(widths, heads):
+    """(n_in, n_out) of every layer of a stack: the hidden layers, then
+    ``heads`` output layers of the last width."""
+    *body, out = widths
+    return list(zip(body[:-1], body[1:])) + [(body[-1], out)] * heads
+
+
+def _weight_bytes(layers):
+    return 4 * sum(i * o + o for i, o in layers)
+
+
+def _stack_work(b, widths, heads):
+    """(bytes, flops) of a forward stack over b rows: input and outputs once,
+    every weight once."""
+    layers = _layers(widths, heads)
+    return (4 * b * (widths[0] + heads * widths[-1]) + _weight_bytes(layers),
+            2 * b * sum(i * o for i, o in layers))
+
+
+def _stack_bwd_work(b, widths, heads, remat_head=False, extra_in=0):
+    """(bytes, flops) of a stack backward with its weight grads over b rows:
+    the rematerialized forward (hidden layers, and the head where the loss
+    needs it), the cotangent chain to the input and every weight grad;
+    reads the input, the head cotangents (or ``extra_in`` columns of loss
+    inputs instead) and the weights, writes the input gradient and the
+    weight grads."""
+    layers = _layers(widths, heads)
+    macs = sum(i * o for i, o in layers)
+    remat = sum(i * o for i, o in (layers if remat_head else layers[:-heads]))
+    head_in = extra_in or heads * widths[-1]
+    nbytes = 4 * b * (2 * widths[0] + head_in) + 2 * _weight_bytes(layers)
+    return nbytes, 2 * b * (remat + 2 * macs)
+
+
+def _mega_fwd_work(b):
+    """(bytes, flops) of the image tower's forward with injected ε: x and ε
+    read, μ, logσ², ε, recon and kl written, both nets' weights once."""
+    enc, dec = _layers(IMAGE_ENC, 2), _layers(IMAGE_DEC, 1)
+    macs = sum(i * o for i, o in enc + dec)
+    return (4 * b * (784 + 20 + 3 * 20 + 2) + _weight_bytes(enc) + _weight_bytes(dec),
+            2 * b * macs)
+
+
+def _reparam_work(b, n_z=20):
+    """(bytes, flops): μ, logσ² read, z, ε written; about 10 float operations
+    per element (Box–Muller, the exponential, the product and sum)."""
+    return 4 * b * n_z * 4, 10 * b * n_z
+
+
+def _loss_work(b, bwd, widths=(784, 200), n_z=20):
+    """(bytes, flops) of the joint loss with its association column (kinds
+    bernoulli + gaussian): the forward reads x, r, μ, logσ² and writes
+    [B, 5]; the backward reads those and the [B, 5] cotangent and writes
+    drecon, dμ, dlogσ². Flops: about 8 per Bernoulli element, 3 per
+    Gaussian one, 6 per KL element, 3 per association element (forward),
+    or 4, 3, 7 and 3 (backward)."""
+    inputs = 2 * sum(widths) + 4 * n_z
+    if bwd:
+        nbytes = 4 * b * (5 + inputs + sum(widths) + 2 * 2 * n_z)
+        flops = b * (4 * widths[0] + 3 * widths[1] + 2 * 7 * n_z + 2 * 3 * n_z)
+    else:
+        nbytes = 4 * b * (inputs + 5)
+        flops = b * (8 * widths[0] + 3 * widths[1] + 2 * 6 * n_z + 3 * n_z)
+    return nbytes, flops
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch finds no CUDA device", file=sys.stderr)
@@ -612,44 +1001,75 @@ def main() -> int:
 
     # Phase 6
     train_errs = check_train_kernels(rng)
+    # Phase 6b
+    train_errs.update(check_composable_kernels(rng))
 
     # Phase 7
     train_launches = train_and_check(card)
+    # Phase 7b
+    composable_launches = train_composable_and_check(card)
 
     # Phase 8
     time_training(card)
     train_times = time_train_kernels(rng, card)
 
     cd = pred.compute_dtype
-    big = TRAIN_TIMED[-1]
-    train_rows = [
-        ("mega_fwd", "mega.cu", "vae_assoc_tpu/kernels/megakernel.py:192"),
-        ("mega_dec_loss_bwd", "mega.cu", "vae_assoc_tpu/kernels/megakernel.py:240"),
-        ("enc_bwd", "mlp_bwd.cu", "vae_assoc_tpu/kernels/mlp.py:309"),
-        ("wgrad", "mlp_bwd.cu", "vae_assoc_tpu/kernels/mlp.py:285"),
+    big, small = TRAIN_TIMED[-1], TRAIN_TIMED[0]
+    # (name, source, TPU kernel, launch counts, max_abs_err key, times, bound)
+    rows = [
+        ("enc_fwd", SOURCE, "vae_assoc_tpu/kernels/mlp.py:299", launches,
+         ("image_enc", TIMED_BATCH, cd), times[("image_enc", TIMED_BATCH)],
+         _bound(*_stack_work(TIMED_BATCH, IMAGE_ENC, heads=2))),
+        ("dec_fwd", SOURCE, "vae_assoc_tpu/kernels/mlp.py:486", launches,
+         ("trajectory_dec", TIMED_BATCH, cd), times[("trajectory_dec", TIMED_BATCH)],
+         _bound(*_stack_work(TIMED_BATCH, TRAJ_DEC, heads=1))),
+        ("mega_fwd", CSRC + "mega.cu", "vae_assoc_tpu/kernels/megakernel.py:192",
+         train_launches, ("mega_fwd", "image", big, "float32"),
+         train_times[("mega_fwd", big, "float32")], _bound(*_mega_fwd_work(big))),
+        ("mega_dec_loss_bwd", CSRC + "mega.cu", "vae_assoc_tpu/kernels/megakernel.py:240",
+         train_launches, ("mega_dec_loss_bwd", "image", big, "float32"),
+         train_times[("mega_dec_loss_bwd", big, "float32")],
+         _bound(*_stack_bwd_work(big, IMAGE_DEC, heads=1, remat_head=True, extra_in=785))),
+        ("enc_bwd", CSRC + "mlp_bwd.cu", "vae_assoc_tpu/kernels/mlp.py:309",
+         train_launches, ("enc_bwd", "image", big, "float32"),
+         train_times[("enc_bwd", big, "float32")],
+         _bound(*_stack_bwd_work(big, IMAGE_ENC, heads=2))),
+        ("wgrad", CSRC + "mlp_bwd.cu", "vae_assoc_tpu/kernels/mlp.py:285",
+         train_launches, ("wgrad", "image", big, "float32"),
+         train_times[("wgrad", big, "float32")],
+         _bound(4 * (big * (500 + 784) + 501 * 784), 2 * big * 500 * 784)),
+        ("dec_bwd", CSRC + "mlp_bwd.cu", "vae_assoc_tpu/kernels/mlp.py:495",
+         composable_launches, ("dec_bwd", "image", small, "float32"),
+         train_times[("dec_bwd", small, "float32")],
+         _bound(*_stack_bwd_work(small, IMAGE_DEC, heads=1))),
+        ("reparam", CSRC + "sampling.cu", "vae_assoc_tpu/kernels/sampling.py:67",
+         composable_launches, ("reparam", "n_z=20", small, "float32"),
+         train_times[("reparam", small, "float32")], _bound(*_reparam_work(small))),
+        ("loss_fwd", CSRC + "loss.cu", "vae_assoc_tpu/kernels/loss.py:36",
+         composable_launches, ("loss_fwd", "assoc=True", small, "float32"),
+         train_times[("loss_fwd", small, "float32")], _bound(*_loss_work(small, bwd=False))),
+        ("loss_bwd", CSRC + "loss.cu", "vae_assoc_tpu/kernels/loss.py:69",
+         composable_launches, ("loss_bwd", "assoc=True", small, "float32"),
+         train_times[("loss_bwd", small, "float32")], _bound(*_loss_work(small, bwd=True))),
     ]
-    record = {"kernels": [
-        {"name": "enc_fwd", "route": "cuda", "source": SOURCE,
-         "replaces": "vae_assoc_tpu/kernels/mlp.py:299",
-         "launches": launches["enc_fwd"],
-         "max_abs_err": errs[("image_enc", TIMED_BATCH, cd)],
-         "ms": times[("image_enc", TIMED_BATCH)][0],
-         "plain_ms": times[("image_enc", TIMED_BATCH)][1]},
-        {"name": "dec_fwd", "route": "cuda", "source": SOURCE,
-         "replaces": "vae_assoc_tpu/kernels/mlp.py:486",
-         "launches": launches["dec_fwd"],
-         "max_abs_err": errs[("trajectory_dec", TIMED_BATCH, cd)],
-         "ms": times[("trajectory_dec", TIMED_BATCH)][0],
-         "plain_ms": times[("trajectory_dec", TIMED_BATCH)][1]},
-    ] + [
-        {"name": name, "route": "cuda", "source": CSRC + src, "replaces": replaces,
-         "launches": train_launches[name],
-         "max_abs_err": train_errs[(name, "image", big, "float32")],
-         "ms": train_times[(name, big, "float32")][0],
-         "plain_ms": train_times[(name, big, "float32")][1]}
-        for name, src, replaces in train_rows
-    ]}
-    print(json.dumps(record), flush=True)
+    kernels = []
+    for name, src, replaces, counts, err_key, timed, (bound_ms, bound_by) in rows:
+        errs_of = errs if name in ("enc_fwd", "dec_fwd") else train_errs
+        if isinstance(timed, tuple):  # phase 5b: CUDA events (kernel, plain)
+            timed = {"call": dict(zip(("kernel", "plain"), timed)), "device": {}}
+
+        def ms(which, timed=timed):
+            """The profiler's device time where it has one, else CUDA events."""
+            t = timed["device"].get(which)
+            return t if t is not None else timed["call"].get(which)
+
+        kernels.append({
+            "name": name, "route": "cuda", "source": src, "replaces": replaces,
+            "launches": counts[name], "max_abs_err": errs_of[err_key],
+            "ms": ms("kernel"), "plain_ms": ms("plain"), "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": ms("library"),
+        })
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

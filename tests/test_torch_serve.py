@@ -212,7 +212,7 @@ def test_save_load_round_trip(tmp_path):
     tc = tcfg.TrainConfig(compute_dtype="bfloat16", use_pallas=True)
     model = init_assoc(5, cfg, device="cpu")
     tckpt.save_params(tmp_path, model, cfg, tc)
-    back, cfg2, tc2 = tckpt.load_params(tmp_path)
+    back, cfg2, tc2 = tckpt.load_params(tmp_path, device="cpu")
     assert cfg2 == cfg and tc2 == tc
     for k, v in model.state_dict().items():
         assert torch.equal(back.state_dict()[k], v), k
@@ -229,7 +229,7 @@ def test_orbax_only_directory_raises(tmp_path):
         json.dump(jcfg.config_to_dict(_cfg(jcfg, 0)), f)
     (tmp_path / "0").mkdir()
     with pytest.raises(FileNotFoundError, match="orbax"):
-        tckpt.load_params(tmp_path)
+        tckpt.load_params(tmp_path, device="cpu")
     with pytest.raises(FileNotFoundError, match="model_config.json"):
         load_model_config(str(tmp_path / "missing"))
 

@@ -8,7 +8,9 @@ plain twins. Tolerances: 1e-5 relative for losses and gradients (another
 summation order), 1e-6 for the optimizer fed identical gradients.
 """
 
+import contextlib
 import dataclasses
+import warnings
 
 import jax
 import jax.numpy as jnp
@@ -167,22 +169,45 @@ def test_plain_and_mega_paths_draw_the_same_eps_from_a_seed():
     assert c["total"].item() != b["total"].item()
 
 
-def test_unported_paths_raise_with_the_reason():
-    jc, tc_ = _configs()
-    _, tm = _models(jc, tc_)
-    xs = [torch.from_numpy(x) for x in _batch()[0]]
-    with pytest.raises(NotImplementedError, match="use_pallas=True.*ROADMAP"):
-        tassoc.assoc_loss_fn(tm, xs, tc_, seed=0, use_pallas=True)
-    with pytest.raises(NotImplementedError, match="parity_mode"):
-        tassoc.assoc_loss_fn(tm, xs, tc_, seed=0, use_pallas="mega", parity_mode=True)
-    for kw in (dict(transfer="relu"), dict(depth=3)):
-        jc, tc_ = _configs(**kw)
-        _, tm = _models(jc, tc_)
-        reason = tassoc.mega_fallback_reason(tc_)
-        assert reason is not None and jassoc.mega_fallback_reason(jc) == reason
-        with pytest.raises(NotImplementedError, match="cannot run this config"):
-            tassoc.assoc_loss_fn(tm, xs, tc_, seed=0, use_pallas="mega")
-    assert tassoc.mega_fallback_reason(_configs()[1]) is None
+@contextlib.contextmanager
+def _fallback_warns(category, expect: bool):
+    """Expect one warning of ``category``, or make any such warning an error."""
+    if expect:
+        with pytest.warns(category, match="composable"):
+            yield
+    else:
+        with warnings.catch_warnings():
+            warnings.simplefilter("error", category)
+            yield
+
+
+@pytest.mark.parametrize("case", ["relu", "depth3", "parity_mode"])
+def test_mega_falls_back_to_the_composable_kernels(case):
+    # A config the megakernel does not implement warns and trains on the
+    # composable kernels; parity_mode under "mega" runs the kernel towers
+    # with the ordered plain losses. Both as the JAX package does.
+    kw = {"relu": dict(transfer="relu"), "depth3": dict(depth=3), "parity_mode": {}}[case]
+    parity = case == "parity_mode"
+    jc, tc_ = _configs(**kw)
+    jp, tm = _models(jc, tc_)
+    reason = tassoc.mega_fallback_reason(tc_)
+    assert reason == jassoc.mega_fallback_reason(jc)
+    assert (reason is None) == parity
+    xs, eps = _batch()
+    with _fallback_warns(jassoc.MegaFallbackWarning, not parity):
+        (jt, jm), jg = jax.value_and_grad(
+            lambda p: jassoc.assoc_loss_fn(p, [jnp.asarray(x) for x in xs], jc,
+                                           eps=[jnp.asarray(e) for e in eps],
+                                           use_pallas="mega", parity_mode=parity),
+            has_aux=True)(jp)
+    with _fallback_warns(tassoc.MegaFallbackWarning, not parity):
+        tt, tmets = tassoc.assoc_loss_fn(tm, [torch.from_numpy(x) for x in xs], tc_,
+                                         eps=[torch.from_numpy(e) for e in eps],
+                                         use_pallas="mega", parity_mode=parity)
+    tt.backward()
+    for k in jm:
+        np.testing.assert_allclose(tmets[k].item(), float(jm[k]), rtol=1e-5, atol=1e-6, err_msg=k)
+    _assert_trees(_port_grads(tm), _jax_flat(jg), 1e-5)
 
 
 OPT_CASES = {
@@ -317,7 +342,7 @@ def test_train_loop_consumes_the_jax_batch_order(monkeypatch):
     monkeypatch.setattr(jloop, "make_train_step", _recorder(jlog, lambda: jnp.float32(0)))
     monkeypatch.setattr(tloop, "make_train_step", _recorder(tlog, lambda: torch.tensor(0.0)))
     jloop.train_loop(jc, jcfg.TrainConfig(**kw), xs, epochs=2)
-    tloop.train_loop(tc_, tcfg.TrainConfig(**kw), xs, epochs=2)
+    tloop.train_loop(tc_, tcfg.TrainConfig(**kw), xs, epochs=2, device="cpu")
     assert len(tlog) == len(jlog) == 4
     for t, j in zip(tlog, jlog):
         for a, b in zip(t, j):
@@ -330,8 +355,8 @@ def test_make_train_step_runs_steps_per_call():
     xs = [torch.from_numpy(x) for x in _batch(batch=16)[0]]
     one = tstep.make_train_step(tc_, tcfg.TrainConfig(use_pallas="mega"))
     two = tstep.make_train_step(tc_, tcfg.TrainConfig(use_pallas="mega", steps_per_call=2))
-    sa = tstep.init_train_state(tc_, tcfg.TrainConfig())
-    sb = tstep.init_train_state(tc_, tcfg.TrainConfig())
+    sa = tstep.init_train_state(tc_, tcfg.TrainConfig(), device="cpu")
+    sb = tstep.init_train_state(tc_, tcfg.TrainConfig(), device="cpu")
     sa, m1 = one(sa, xs)
     sa, m2 = one(sa, xs)
     sb, m = two(sb, [torch.stack([x, x]) for x in xs])
@@ -362,13 +387,37 @@ def test_train_loop_fused_is_deterministic_and_learns():
 def test_pipeline_features_match_jax():
     raw = generate_raw_strokes(29, seed=3)
     ji, jt = jpipe.featurize_pairs(jnp.asarray(raw["points"]), jnp.asarray(raw["lengths"]))
-    ds = tpipe.PairedDataset.from_synthetic(29, seed=3)
+    ds = tpipe.PairedDataset.from_synthetic(29, seed=3, device="cpu")
     ti, tt = ds.features()
     assert ti.shape == (29, 784) and tt.shape == (29, 200)
     np.testing.assert_allclose(ti.numpy(), np.asarray(ji), rtol=1e-5, atol=1e-5)
     np.testing.assert_allclose(tt.numpy(), np.asarray(jt), rtol=1e-5, atol=1e-5)
     with pytest.raises(NotImplementedError, match="uji"):
         tpipe.PairedDataset.from_uji(["x.txt"])
+
+
+@pytest.mark.parametrize("entry", ["init_train_state", "train_loop", "train_loop_fused",
+                                   "PairedDataset", "load_params"])
+def test_training_entry_points_default_to_cuda(entry, tmp_path, monkeypatch):
+    # Without a GPU, an entry point that the caller did not point at the CPU
+    # raises instead of quietly training there.
+    from vae_assoc_tpu_torch.utils import checkpoint as tckpt
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    _, tc_ = _configs()
+    ttc = tcfg.TrainConfig(batch_size=8)
+    xs, _ = _batch(batch=16)
+    if entry == "load_params":
+        tckpt.save_params(tmp_path, tassoc.init_assoc(0, tc_, device="cpu"), tc_)
+    call = {
+        "init_train_state": lambda: tstep.init_train_state(tc_, ttc),
+        "train_loop": lambda: tloop.train_loop(tc_, ttc, xs, epochs=1),
+        "train_loop_fused": lambda: tloop.train_loop_fused(tc_, ttc, xs, epochs=1),
+        "PairedDataset": lambda: tpipe.PairedDataset.from_synthetic(4),
+        "load_params": lambda: tckpt.load_params(tmp_path),
+    }[entry]
+    with pytest.raises(RuntimeError, match=f"{entry}\\(device='cuda'\\).*no CUDA device"):
+        call()
 
 
 def test_remat_recomputes_the_same_gradients():

@@ -317,11 +317,13 @@ class TrainConfig:
 
     ``compute_dtype`` is "float32", or "bfloat16": bf16 matmul operands with
     fp32 accumulation. ``use_pallas`` selects the hand-written CUDA kernels:
-    truthy for serving's forward stacks; in training, "mega" runs the tower
-    megakernel, False the plain path, and True (the composable kernels) is
-    not ported yet. The train step (train/step.py) reads every other field
-    except ``data_axis``, which is carried so that a ``model_config.json``
-    round-trips unchanged.
+    truthy for serving's forward stacks; in training, True runs the
+    composable kernels (fused encoder, sampler, decoder and joint loss, each
+    with a backward kernel), "mega" the tower megakernel (a config it does
+    not implement falls back to True with a ``MegaFallbackWarning``), and
+    False the plain path. The train step (train/step.py) reads every other
+    field except ``data_axis``, which is carried so that a
+    ``model_config.json`` round-trips unchanged.
     """
 
     learning_rate: float = 1e-3

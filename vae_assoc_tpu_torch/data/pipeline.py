@@ -15,6 +15,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from vae_assoc_tpu_torch.models.networks import cuda_or_raise
 from vae_assoc_tpu_torch.ops.rasterize import rasterize_trajectories
 from vae_assoc_tpu_torch.ops.resample import normalize_and_flatten
 
@@ -33,18 +34,19 @@ def featurize_pairs(points: torch.Tensor, lengths: torch.Tensor, *,
 
 
 class PairedDataset:
-    """Raw strokes staged on ``device`` once and featurized there.
+    """Raw strokes staged on ``device`` once and featurized there; the card
+    unless the caller names the CPU (without a GPU ``device="cuda"`` raises).
 
-        ds = PairedDataset.from_synthetic(2000, device="cuda")
+        ds = PairedDataset.from_synthetic(2000)
         imgs, trajs = ds.features()   # device tensors, ready for train_loop
     """
 
     def __init__(self, points, lengths, labels=None, *, n_timesteps: int = 100,
-                 image_size: int = 28, device="cpu"):
+                 image_size: int = 28, device="cuda"):
         self.n_timesteps = n_timesteps
         self.image_size = image_size
         self.labels = labels
-        self.device = torch.device(device)
+        self.device = cuda_or_raise(device, "PairedDataset")
         self._points = torch.as_tensor(np.asarray(points, np.float32), device=self.device)
         self._lengths = torch.as_tensor(np.asarray(lengths, np.int64), device=self.device)
         self._features = None

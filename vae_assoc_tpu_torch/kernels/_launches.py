@@ -3,8 +3,10 @@
 Each wrapper adds one to its kernel's count where it launches it, and
 nowhere else, so a run can show that its main path went through the
 kernels. ``SERVING`` holds the forward stacks (kernels/mlp.py),
-``TRAINING`` the kernels of the training step (kernels/megakernel.py and
-the encoder backward in kernels/mlp.py).
+``TRAINING`` the kernels of the training step: the tower megakernel
+(kernels/megakernel.py), the stack backwards and the weight grads
+(kernels/mlp.py), the sampler (kernels/sampling.py) and the joint loss
+(kernels/loss.py).
 """
 
 from __future__ import annotations
@@ -12,7 +14,8 @@ from __future__ import annotations
 import threading
 
 SERVING = {"enc_fwd": 0, "dec_fwd": 0}
-TRAINING = {"mega_fwd": 0, "mega_dec_loss_bwd": 0, "enc_bwd": 0, "wgrad": 0}
+TRAINING = {"mega_fwd": 0, "mega_dec_loss_bwd": 0, "enc_bwd": 0, "dec_bwd": 0,
+            "wgrad": 0, "reparam": 0, "loss_fwd": 0, "loss_bwd": 0}
 
 _lock = threading.Lock()
 

@@ -1,4 +1,5 @@
-// Device helpers shared by the training kernels (mega.cu, mlp_bwd.cu).
+// Device helpers shared by the training kernels (mega.cu, mlp_bwd.cu,
+// sampling.cu, loss.cu).
 //
 // The building block is one dense layer over a tile of TM rows whose
 // activations sit in shared memory: y[r, j] = act[r, :] . W[:, j] (+ b[j]),
@@ -137,15 +138,22 @@ __device__ void load_tile(float* dst, int stride, const float* __restrict__ src,
   }
 }
 
-// Sum of v[0..n) by one warp in a fixed order: each lane adds its strided
-// share in sequence, then a shuffle tree. The same inputs give the same bits.
-__device__ __forceinline__ float warp_sum(const float* v, int n) {
+// Sum of f(0) .. f(n - 1) by one warp in a fixed order: each lane adds its
+// strided share in sequence, then a shuffle tree. The same inputs give the
+// same bits. Every lane of the warp must call it.
+template <class F>
+__device__ __forceinline__ float warp_sum_of(int n, F f) {
   const int lane = threadIdx.x & 31;
   float s = 0.f;
-  for (int j = lane; j < n; j += 32) s += v[j];
+  for (int j = lane; j < n; j += 32) s += f(j);
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
   return s;
+}
+
+// Sum of v[0..n) by one warp (warp_sum_of over the array).
+__device__ __forceinline__ float warp_sum(const float* v, int n) {
+  return warp_sum_of(n, [&](int j) { return v[j]; });
 }
 
 // Philox4x32-10 (Salmon et al., SC'11) keyed by the 64-bit seed, counter

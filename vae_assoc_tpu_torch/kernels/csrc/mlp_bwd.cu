@@ -1,35 +1,44 @@
-// Backward of the fused MLP encoder stack, and the weight-gradient kernel
-// that the training backward passes share, on Hopper (sm_90a).
+// Backward of the fused MLP encoder and decoder stacks, and the
+// weight-gradient kernel that the training backward passes share, on
+// Hopper (sm_90a).
 //
-// enc_bwd is the per-row half of the Pallas TPU kernel
-// vae_assoc_tpu/kernels/mlp.py::_enc_bwd_kernel: per tile of TM rows it
-// rematerializes the softplus encoder from x (x -> h1 -> ... -> hL), then
-// backprops the cotangents of the two heads (dmu, dlogvar) through the
-// stack to dx. It writes dx and, for the weight gradients, each layer's
-// activation h_i and cotangent da_i to scratch in device memory. The TPU
-// kernel sums the weight gradients over row tiles in place because its grid
-// runs in order; GPU blocks run at once, so wgrad below sums them instead.
+// stack_bwd is the per-row half of two Pallas TPU kernels:
+// vae_assoc_tpu/kernels/mlp.py::_enc_bwd_kernel (launched as enc_bwd, two
+// heads: mu and logvar) and mlp.py::_dec_bwd_kernel (launched as dec_bwd,
+// one head: the decoder output, 784 wide for images). Per tile of TM rows
+// it rematerializes the softplus stack from its input (x -> h1 -> ... ->
+// hL), then backprops the heads' cotangents through the stack to the input
+// gradient (dx, or dz over the decoder input [z, cond]). It writes that
+// gradient and, for the weight gradients, each layer's activation h_i and
+// cotangent da_i to scratch in device memory. The TPU kernels sum the
+// weight gradients over row tiles in place because their grid runs in
+// order; GPU blocks run at once, so wgrad below sums them instead. Rows
+// past the batch (a ragged last tile) write nothing, so they add nothing.
 // Depth comes from the layer table (up to kMaxHidden hidden layers), passed
 // by value: no device-side table, nothing to copy per call.
 //
 // wgrad computes dW = A^T D and db = sum of the rows of D over all B rows,
 // A [B, M], D [B, N]: the in-kernel `ref[:] += aT @ d` of
-// mlp.py::_enc_bwd_kernel / megakernel.py::_dec_loss_bwd_kernel, done
-// deterministically. Each block owns one 64 x 64 tile of dW (or 64 columns
-// of db) and walks its rows in a fixed order; when the tiles alone cannot
-// fill the card, the rows are split into `chunks` whose partial tiles a
-// second kernel adds in chunk order. No atomics, so a gradient has the same
-// bits on every run. In bf16 both operands of the product are rounded to
-// bf16 (fp32 accumulation), as the reference's _mm_tn does; db sums D
-// unrounded, as jnp.sum does.
+// mlp.py::_enc_bwd_kernel / _dec_bwd_kernel /
+// megakernel.py::_dec_loss_bwd_kernel, done deterministically. Each block
+// owns one 64 x 64 tile of dW (or 64 columns of db) and walks its rows in a
+// fixed order; when the tiles alone cannot fill the card, the rows are
+// split into `chunks` whose partial tiles a second kernel adds in chunk
+// order. No atomics, so a gradient has the same bits on every run. In bf16
+// both operands of the product are rounded to bf16 (fp32 accumulation), as
+// the reference's _mm_tn does; db sums D unrounded, as jnp.sum does.
 //
-// What bounds them. enc_bwd does three products per layer and row (the
+// What bounds them. stack_bwd does three products per layer and row (the
 // rematerialized forward and the backward chain) on weights streamed from
-// L2, as mlp_fwd.cu does; its shared memory holds two TM-row activation
-// buffers. wgrad at B = 16384 does 6.5 GFMA for the image encoder's first
-// layer alone: fp32 FMA throughput, with operands staged through shared
-// memory in 16-row slices, each loaded value feeding 4 FMAs per thread.
-// Tensor cores (wgmma) for bf16 are later work.
+// L2, as mlp_fwd.cu does: fp32 FMA throughput (about 1.6 M multiply-adds
+// per row for the image decoder with its weight grads, 48 us at the fp32
+// peak for 1024 rows); its shared memory holds two TM-row buffers as wide
+// as the widest of the input, the hidden layers and the stacked head
+// cotangents (784 floats for the image decoder: TM = 32 still fits).
+// wgrad at B = 16384 does 6.5 GFMA for the image encoder's first layer
+// alone: fp32 FMA throughput, with operands staged through shared memory
+// in 16-row slices, each loaded value feeding 4 FMAs per thread. Tensor
+// cores (wgmma) for bf16 are later work.
 
 #include "common.cuh"
 
@@ -54,12 +63,15 @@ struct EncTable {
   EncLayer l[kMaxHidden];
 };
 
+// Heads: n_heads (1 or 2) of n_g columns each; their cotangents g0 (and g1)
+// are [batch, n_g], stacked as [g0, g1] against head_t = [W0^T; W1^T].
 template <int TM, bool BF16>
 __global__ void __launch_bounds__(kThreads)
-    enc_bwd(const float* __restrict__ x, int batch, int n_in, EncTable t,
-            int n_hidden, const float* __restrict__ head_t, int n_z,
-            const float* __restrict__ dmu, const float* __restrict__ dlv,
-            float* __restrict__ dx, int stride) {
+    stack_bwd(const float* __restrict__ x, int batch, int n_in, EncTable t,
+              int n_hidden, const float* __restrict__ head_t, int n_g,
+              int n_heads, const float* __restrict__ g0,
+              const float* __restrict__ g1, float* __restrict__ dx,
+              int stride) {
   extern __shared__ __align__(16) float smem[];
   float* cur = smem;
   float* nxt = smem + TM * stride;
@@ -86,15 +98,15 @@ __global__ void __launch_bounds__(kThreads)
     nxt = tmp;
   }
 
-  // Heads: dh = [dmu, dlv] [Wm; Wl]^T, one product over the stacked heads.
-  const int n2 = 2 * n_z;
+  // Heads: dh = [g0, g1] [W0; W1]^T, one product over the stacked heads.
+  const int n2 = n_heads * n_g;
   for (int i = threadIdx.x; i < TM * n2; i += kThreads) {
     const int r = i / n2;
     const int k = i - r * n2;
     float v = 0.f;
     if (r < valid) {
-      v = k < n_z ? dmu[(size_t)(row0 + r) * n_z + k]
-                  : dlv[(size_t)(row0 + r) * n_z + (k - n_z)];
+      v = k < n_g ? g0[(size_t)(row0 + r) * n_g + k]
+                  : g1[(size_t)(row0 + r) * n_g + (k - n_g)];
     }
     cur[r * stride + k] = vae::operand<BF16>(v);
   }
@@ -240,18 +252,16 @@ __global__ void __launch_bounds__(kThreads)
 
 }  // namespace
 
-// Per-row half of the encoder backward. x [batch, n_in]; `layers` holds
-// n_hidden rows of 8 int64 values (w, b, wT, act, sig, da, n_in, n_out) as
-// EncLayer; head_t [2 n_z, width of the last hidden layer] is
-// [Wm^T; Wl^T]; dmu, dlv [batch, n_z]. Writes dx [batch, n_in] and the
-// act/sig/da scratch. `stride` is the shared-memory row length (a multiple
-// of 4, at least n_in, 2 n_z and every hidden width).
-extern "C" int vae_mlp_enc_bwd(const void* x, int batch, int n_in,
-                               const long long* layers, int n_hidden,
-                               const void* head_t, int n_z, const void* dmu,
-                               const void* dlv, void* dx, int stride,
-                               int tile_rows, int bf16, void* stream) {
-  if (batch <= 0 || n_hidden < 1 || n_hidden > kMaxHidden || stride % 4 != 0)
+namespace {
+
+// Launches stack_bwd on a layer table of n_hidden rows of 8 int64 values
+// (w, b, wT, act, sig, da, n_in, n_out) as EncLayer.
+int run_stack_bwd(const void* x, int batch, int n_in, const long long* layers,
+                  int n_hidden, const void* head_t, int n_g, int n_heads,
+                  const void* g0, const void* g1, void* dx, int stride,
+                  int tile_rows, int bf16, void* stream) {
+  if (batch <= 0 || n_hidden < 1 || n_hidden > kMaxHidden || stride % 4 != 0 ||
+      stride < n_heads * n_g)
     return (int)cudaErrorInvalidValue;
   EncTable t;
   for (int i = 0; i < n_hidden; ++i) {
@@ -267,23 +277,54 @@ extern "C" int vae_mlp_enc_bwd(const void* x, int batch, int n_in,
   }
   const auto* xs = static_cast<const float*>(x);
   const auto* ht = static_cast<const float*>(head_t);
-  const auto* gm = static_cast<const float*>(dmu);
-  const auto* gl = static_cast<const float*>(dlv);
+  const auto* c0 = static_cast<const float*>(g0);
+  const auto* c1 = static_cast<const float*>(g1);
   auto* o_dx = static_cast<float*>(dx);
   auto st = static_cast<cudaStream_t>(stream);
-#define VAE_ENC_BWD(TM)                                                      \
+#define VAE_STACK_BWD(TM)                                                    \
   [&]() -> cudaError_t {                                                     \
-    auto k = bf16 ? enc_bwd<TM, true> : enc_bwd<TM, false>;                  \
+    auto k = bf16 ? stack_bwd<TM, true> : stack_bwd<TM, false>;              \
     const size_t smem = 2 * (size_t)TM * stride * sizeof(float);             \
     cudaError_t e = vae::set_smem(k, smem);                                  \
     if (e != cudaSuccess) return e;                                          \
     k<<<(batch + TM - 1) / TM, kThreads, smem, st>>>(                        \
-        xs, batch, n_in, t, n_hidden, ht, n_z, gm, gl, o_dx, stride);        \
+        xs, batch, n_in, t, n_hidden, ht, n_g, n_heads, c0, c1, o_dx,        \
+        stride);                                                             \
     return cudaGetLastError();                                               \
   }()
-  auto run = [&]() -> cudaError_t { VAE_TM_SWITCH(tile_rows, VAE_ENC_BWD) };
-#undef VAE_ENC_BWD
+  auto run = [&]() -> cudaError_t { VAE_TM_SWITCH(tile_rows, VAE_STACK_BWD) };
+#undef VAE_STACK_BWD
   return (int)run();
+}
+
+}  // namespace
+
+// Per-row half of the encoder backward. x [batch, n_in]; `layers` as
+// run_stack_bwd; head_t [2 n_z, width of the last hidden layer] is
+// [Wm^T; Wl^T]; dmu, dlv [batch, n_z]. Writes dx [batch, n_in] and the
+// act/sig/da scratch. `stride` is the shared-memory row length (a multiple
+// of 4, at least n_in, 2 n_z and every hidden width).
+extern "C" int vae_mlp_enc_bwd(const void* x, int batch, int n_in,
+                               const long long* layers, int n_hidden,
+                               const void* head_t, int n_z, const void* dmu,
+                               const void* dlv, void* dx, int stride,
+                               int tile_rows, int bf16, void* stream) {
+  return run_stack_bwd(x, batch, n_in, layers, n_hidden, head_t, n_z, 2, dmu,
+                       dlv, dx, stride, tile_rows, bf16, stream);
+}
+
+// Per-row half of the decoder backward. z [batch, n_in] is the decoder
+// input ([z, cond] for a conditional model); `layers` as run_stack_bwd;
+// head_t [n_out, width of the last hidden layer] is Wo^T; dout
+// [batch, n_out]. Writes dz [batch, n_in] and the act/sig/da scratch.
+// `stride`: a multiple of 4, at least n_in, n_out and every hidden width.
+extern "C" int vae_mlp_dec_bwd(const void* z, int batch, int n_in,
+                               const long long* layers, int n_hidden,
+                               const void* head_t, int n_out,
+                               const void* dout, void* dz, int stride,
+                               int tile_rows, int bf16, void* stream) {
+  return run_stack_bwd(z, batch, n_in, layers, n_hidden, head_t, n_out, 1,
+                       dout, nullptr, dz, stride, tile_rows, bf16, stream);
 }
 
 // dw [m, n] = A^T D and db [n] = the column sums of D over `batch` rows;

@@ -7,14 +7,13 @@ hidden activations kept in shared memory. ``encode_mlp_fused`` /
 ``decode_mlp_fused`` keep the signatures of ``networks.encode_mlp`` /
 ``networks.decode_mlp``; softplus only.
 
-The encoder has a gradient: under autograd ``encode_mlp_fused`` is a
-``torch.autograd.Function`` whose backward is the encoder-backward kernel
-(``csrc/mlp_bwd.cu``, replacing the Pallas ``_enc_bwd_kernel``) followed by
-the weight-gradient kernel ``weight_grads``; the tower megakernel's
-backward uses the same two (kernels/megakernel.py). The decoder's backward
-(the Pallas ``_dec_bwd_kernel``) belongs to the composable training path,
-which is not ported yet: ``decode_mlp_fused`` under autograd on a CUDA
-tensor raises.
+Both stacks have a gradient: under autograd ``encode_mlp_fused`` and
+``decode_mlp_fused`` are ``torch.autograd.Function``s whose backward is the
+stack-backward kernel (``csrc/mlp_bwd.cu``, launched as ``enc_bwd``,
+replacing the Pallas ``_enc_bwd_kernel``, or as ``dec_bwd``, replacing
+``_dec_bwd_kernel``) followed by the weight-gradient kernel
+``weight_grads``; the tower megakernel's backward uses the encoder's
+(kernels/megakernel.py).
 
 Dispatch is by the device of the input, and only by it: a CPU tensor goes
 to the plain twin in this module (the CPU tests' path); a CUDA tensor
@@ -184,18 +183,16 @@ def encode_mlp_fused(params, x, *, compute_dtype="float32", transfer=None):
 def decode_mlp_fused(params, z, *, compute_dtype="float32", transfer=None):
     """Drop-in for `networks.decode_mlp`, fused on the GPU. softplus only.
 
-    z [B, n_z] → decoder output before its activation, fp32 [B, n_input].
-    Forward only: its backward kernel belongs to the composable training
-    path (ROADMAP), so autograd through it on a CUDA tensor raises."""
+    z [B, n_z(+n_cond)] → decoder output before its activation, fp32
+    [B, n_input]. Under autograd the backward is the decoder-backward
+    kernel (or its plain twin on the CPU)."""
+    g = params.gener
+    if _grad_needed(params, z):
+        layers = networks.hidden_layers(g) + [g["out"]]
+        flat = [t for l in layers for t in (l.w, l.b)]
+        return _DecodeFused.apply(networks.dtype_name(compute_dtype), z, *flat)
     if z.device.type == "cpu":
         return decode_mlp_plain(params, z, compute_dtype=compute_dtype)
-    if z.device.type == "cuda" and _grad_needed(params, z):
-        raise NotImplementedError(
-            "decode_mlp_fused has no backward kernel yet (the decoder "
-            "backward belongs to the composable training path, ROADMAP "
-            "slice C); train with use_pallas='mega' or False"
-        )
-    g = params.gener
     (out,) = _launch(
         "dec_fwd", z, networks.hidden_layers(g), [g["out"]], compute_dtype
     )
@@ -203,7 +200,8 @@ def decode_mlp_fused(params, z, *, compute_dtype="float32", transfer=None):
 
 
 # ---------------------------------------------------------------------------
-# Backward: the encoder stack (Pallas _enc_bwd_kernel) and the weight grads.
+# Backward: the encoder and decoder stacks (Pallas _enc_bwd_kernel,
+# _dec_bwd_kernel) and the weight grads.
 # ---------------------------------------------------------------------------
 
 
@@ -249,6 +247,60 @@ class _EncodeFused(torch.autograd.Function):
                 *(g for pair in grads for g in pair))
 
 
+class _DecodeFused(torch.autograd.Function):
+    """The decoder stack with the backward of the Pallas ``_decode_fused``
+    custom VJP. Inputs: compute dtype, z, then (w, b) of every hidden layer
+    and of the output layer."""
+
+    @staticmethod
+    def forward(ctx, cd, z, *flat):
+        layers = _pairs(flat)
+        if z.device.type == "cpu":
+            h = z
+            for l in layers[:-1]:
+                h = networks.softplus(networks.linear(l, h, cd))
+            out = networks.linear(layers[-1], h, cd)
+        else:
+            (out,) = _launch("dec_fwd", z, layers[:-1], layers[-1:], cd)
+        ctx.cd = cd
+        ctx.save_for_backward(z, *flat)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        z, *flat = ctx.saved_tensors
+        layers = _pairs(flat)
+        grads, dz = decode_bwd(layers[:-1], layers[-1], z, dout, compute_dtype=ctx.cd)
+        return (None, dz if ctx.needs_input_grad[1] else None,
+                *(g for pair in grads for g in pair))
+
+
+def _stack_bwd_plain(hidden, heads, x, cts, cd):
+    """The stack backward's explicit formulas (see encode_bwd_plain) for one
+    or two heads with cotangents ``cts``."""
+
+    def mm(a, b):
+        return networks.round_operand(a, cd) @ networks.round_operand(b, cd)
+
+    hw = [(l.w.detach(), l.b.detach()) for l in hidden]
+    x = x.detach().float()
+    cts = [c.float() for c in cts]
+    acts, pres = [x], []
+    for w, b in hw:
+        a = mm(acts[-1], w) + b
+        pres.append(a)
+        acts.append(networks.softplus(a))
+    dh = mm(cts[0], heads[0].w.detach().T)
+    for c, h in zip(cts[1:], heads[1:]):
+        dh = dh + mm(c, h.w.detach().T)
+    grads = [None] * len(hw) + [(mm(acts[-1].T, c), c.sum(0)) for c in cts]
+    for i in reversed(range(len(hw))):
+        da = dh * torch.sigmoid(pres[i])
+        grads[i] = (mm(acts[i].T, da), da.sum(0))
+        dh = mm(da, hw[i][0].T)
+    return grads, dh
+
+
 def encode_bwd_plain(hidden, heads, x, dmu, dlv, *, compute_dtype="float32"):
     """Plain twin of the encoder-backward kernel and its weight grads.
 
@@ -259,29 +311,18 @@ def encode_bwd_plain(hidden, heads, x, dmu, dlv, *, compute_dtype="float32"):
     product rounded under the bf16 policy (mlp.py::_enc_bwd_kernel, _mm_nt,
     _mm_tn): autograd of the forward twin would round each product's result
     instead."""
-    cd = networks.dtype_name(compute_dtype)
+    return _stack_bwd_plain(hidden, heads, x, [dmu, dlv], networks.dtype_name(compute_dtype))
 
-    def mm(a, b):
-        return networks.round_operand(a, cd) @ networks.round_operand(b, cd)
 
-    hw = [(l.w.detach(), l.b.detach()) for l in hidden]
-    (wm, _), (wl, _) = ((l.w.detach(), l.b) for l in heads)
-    x, dmu, dlv = x.detach().float(), dmu.float(), dlv.float()
-    acts, pres = [x], []
-    for w, b in hw:
-        a = mm(acts[-1], w) + b
-        pres.append(a)
-        acts.append(networks.softplus(a))
-    dh = mm(dmu, wm.T) + mm(dlv, wl.T)
-    grads = [None] * len(hw) + [
-        (mm(acts[-1].T, dmu), dmu.sum(0)),
-        (mm(acts[-1].T, dlv), dlv.sum(0)),
-    ]
-    for i in reversed(range(len(hw))):
-        da = dh * torch.sigmoid(pres[i])
-        grads[i] = (mm(acts[i].T, da), da.sum(0))
-        dh = mm(da, hw[i][0].T)
-    return grads, dh
+def decode_bwd_plain(hidden, head, z, dout, *, compute_dtype="float32"):
+    """Plain twin of the decoder-backward kernel and its weight grads.
+
+    ``hidden``: the hidden layers and ``head``: the output layer; z
+    [B, n_z(+n_cond)] the decoder input; dout [B, n_out]. Returns
+    ([(dw, db) per hidden layer, then the output layer], dz). Explicit
+    formulas with the operand rounding of :func:`encode_bwd_plain`
+    (mlp.py::_dec_bwd_kernel)."""
+    return _stack_bwd_plain(hidden, [head], z, [dout], networks.dtype_name(compute_dtype))
 
 
 def weight_grads_plain(a, d, *, compute_dtype="float32"):
@@ -315,18 +356,23 @@ def _pad4(n: int) -> int:
     return -(-n // 4) * 4
 
 
-def enc_bwd_plan(n_in: int, hidden_widths, n_z: int, batch: int, n_sm: int):
-    """(tile_rows, stride) for the encoder-backward kernel: two ping-pong
+def stack_bwd_plan(n_in: int, hidden_widths, head_cols: int, batch: int, n_sm: int,
+                   what: str = "stack backward"):
+    """(tile_rows, stride) for the stack-backward kernel: two ping-pong
     buffers of ``stride`` floats per row, stride covering the input, every
-    hidden width and the stacked head cotangents [dμ, dlogσ²]."""
-    stride = _pad4(max(n_in, *hidden_widths, 2 * n_z))
-    tile = rows_plan(2 * stride * 4, batch, n_sm, what="encoder backward")
-    return tile, stride
+    hidden width and the ``head_cols`` stacked head cotangents."""
+    stride = _pad4(max(n_in, *hidden_widths, head_cols))
+    return rows_plan(2 * stride * 4, batch, n_sm, what=what), stride
+
+
+def enc_bwd_plan(n_in: int, hidden_widths, n_z: int, batch: int, n_sm: int):
+    """:func:`stack_bwd_plan` for the encoder: the heads are [dμ, dlogσ²]."""
+    return stack_bwd_plan(n_in, hidden_widths, 2 * n_z, batch, n_sm, "encoder backward")
 
 
 ENC_BWD_MAX_HIDDEN = 16
-"""Hidden layers the encoder-backward kernel's by-value layer table holds
-(``kMaxHidden`` in csrc/mlp_bwd.cu)."""
+"""Hidden layers the stack-backward kernel's by-value layer table holds
+(``kMaxHidden`` in csrc/mlp_bwd.cu), for the encoder and the decoder."""
 
 WGRAD_TILE = 64
 WGRAD_SLICE = 16
@@ -395,32 +441,28 @@ def weight_grads(a, d, *, compute_dtype="float32"):
     return dw, db
 
 
-def encode_bwd(hidden, heads, x, dmu, dlv, *, compute_dtype="float32"):
-    """Encoder-stack backward: the kernel on a CUDA tensor, its twin on the
-    CPU. Arguments and result as :func:`encode_bwd_plain`."""
-    cd = networks.dtype_name(compute_dtype)
-    if x.device.type == "cpu":
-        return encode_bwd_plain(hidden, heads, x, dmu, dlv, compute_dtype=cd)
-    if x.device.type != "cuda":
-        raise ValueError(f"the encoder-backward kernel runs on CUDA, got {x.device}")
+def _stack_bwd(name, hidden, heads, x, cts, cd):
+    """Launch the stack-backward kernel (the encoder's two heads or the
+    decoder's one) and the weight-gradient kernel; returns (grads, dx)."""
     dev = x.device
-    x, dmu, dlv = (t.detach().float().contiguous() for t in (x, dmu, dlv))
+    x = x.detach().float().contiguous()
+    cts = [t.detach().float().contiguous() for t in cts]
     batch, n_in = x.shape
-    n_z = heads[0].w.shape[1]
+    n_g = heads[0].w.shape[1]
     if len(hidden) > ENC_BWD_MAX_HIDDEN:
         raise ValueError(
-            f"the encoder-backward kernel takes at most {ENC_BWD_MAX_HIDDEN} "
-            f"hidden layers, got {len(hidden)}"
+            f"the {name} kernel takes at most {ENC_BWD_MAX_HIDDEN} hidden layers, "
+            f"got {len(hidden)}"
         )
     _check_f32(x, dev, "x")
-    for name, t in (("dmu", dmu), ("dlogvar", dlv)):
-        _check_f32(t, dev, name, (batch, n_z))
+    for i, t in enumerate(cts):
+        _check_f32(t, dev, f"head cotangent {i}", (batch, n_g))
     _check_stack(x, hidden, heads)
     widths = [l.w.shape[1] for l in hidden]
     scratch = [[torch.empty(batch, w, dtype=torch.float32, device=dev)
                 for _ in range(3)] for w in widths]  # act, sig, da per layer
     w_t = [l.w.detach().t().contiguous() for l in hidden]
-    head_t = torch.cat([heads[0].w.detach().t(), heads[1].w.detach().t()]).contiguous()
+    head_t = torch.cat([h.w.detach().t() for h in heads]).contiguous()
     dx = torch.empty(batch, n_in, dtype=torch.float32, device=dev)
     rows = []
     for l, wt, (act, sig, da) in zip(hidden, w_t, scratch):
@@ -430,18 +472,47 @@ def encode_bwd(hidden, heads, x, dmu, dlv, *, compute_dtype="float32"):
     if batch:
         lib = _build.load()
         n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-        tile, stride = enc_bwd_plan(n_in, widths, n_z, batch, n_sm)
+        tile, stride = stack_bwd_plan(n_in, widths, len(heads) * n_g, batch, n_sm,
+                                      what=f"{name} kernel")
         with torch.cuda.device(dev):
-            err = lib.vae_mlp_enc_bwd(
-                x.data_ptr(), batch, n_in, table, len(hidden), head_t.data_ptr(),
-                n_z, dmu.data_ptr(), dlv.data_ptr(), dx.data_ptr(), stride, tile,
-                int(cd == "bfloat16"), _stream(x),
-            )
-        _build.check(lib, err, "encoder-backward kernel launch")
-        _launches.count(_launches.TRAINING, "enc_bwd")
+            if len(heads) == 2:
+                err = lib.vae_mlp_enc_bwd(
+                    x.data_ptr(), batch, n_in, table, len(hidden), head_t.data_ptr(),
+                    n_g, cts[0].data_ptr(), cts[1].data_ptr(), dx.data_ptr(), stride,
+                    tile, int(cd == "bfloat16"), _stream(x),
+                )
+            else:
+                err = lib.vae_mlp_dec_bwd(
+                    x.data_ptr(), batch, n_in, table, len(hidden), head_t.data_ptr(),
+                    n_g, cts[0].data_ptr(), dx.data_ptr(), stride, tile,
+                    int(cd == "bfloat16"), _stream(x),
+                )
+        _build.check(lib, err, f"{name} kernel launch")
+        _launches.count(_launches.TRAINING, "enc_bwd" if len(heads) == 2 else "dec_bwd")
     top = scratch[-1][0]
     grads = [weight_grads(a, s[2], compute_dtype=cd)
              for a, s in zip([x] + [s[0] for s in scratch[:-1]], scratch)]
-    grads += [weight_grads(top, dmu, compute_dtype=cd),
-              weight_grads(top, dlv, compute_dtype=cd)]
+    grads += [weight_grads(top, c, compute_dtype=cd) for c in cts]
     return grads, dx
+
+
+def encode_bwd(hidden, heads, x, dmu, dlv, *, compute_dtype="float32"):
+    """Encoder-stack backward: the kernel on a CUDA tensor, its twin on the
+    CPU. Arguments and result as :func:`encode_bwd_plain`."""
+    cd = networks.dtype_name(compute_dtype)
+    if x.device.type == "cpu":
+        return encode_bwd_plain(hidden, heads, x, dmu, dlv, compute_dtype=cd)
+    if x.device.type != "cuda":
+        raise ValueError(f"the encoder-backward kernel runs on CUDA, got {x.device}")
+    return _stack_bwd("encoder-backward", hidden, heads, x, [dmu, dlv], cd)
+
+
+def decode_bwd(hidden, head, z, dout, *, compute_dtype="float32"):
+    """Decoder-stack backward: the kernel on a CUDA tensor, its twin on the
+    CPU. Arguments and result as :func:`decode_bwd_plain`."""
+    cd = networks.dtype_name(compute_dtype)
+    if z.device.type == "cpu":
+        return decode_bwd_plain(hidden, head, z, dout, compute_dtype=cd)
+    if z.device.type != "cuda":
+        raise ValueError(f"the decoder-backward kernel runs on CUDA, got {z.device}")
+    return _stack_bwd("decoder-backward", hidden, [head], z, [dout], cd)

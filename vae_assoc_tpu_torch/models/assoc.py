@@ -16,24 +16,17 @@ the JAX tree ``{"modalities": (params_0, ..., params_{K-1})}``.
 
 from __future__ import annotations
 
+import warnings
 from typing import Sequence
 
 import torch
 from torch import nn
-
 from torch.utils.checkpoint import checkpoint
 
 from vae_assoc_tpu_torch.configs import AssocConfig, gener_widths, recog_widths
 from vae_assoc_tpu_torch.models import vae as vae_mod
 from vae_assoc_tpu_torch.ops import losses
 from vae_assoc_tpu_torch.ops.sampling import fold_in
-
-NOT_PORTED = (
-    "the composable training kernels (use_pallas=True: the decoder backward, "
-    "the fused sampler and the fused loss) are not ported yet; see ROADMAP.md "
-    "§1, the next slice"
-)
-
 
 class AssocVAE(nn.Module):
     """One :class:`~vae_assoc_tpu_torch.models.networks.MLPVAE` per modality.
@@ -91,28 +84,35 @@ def modality_seeds(seed: int, k: int) -> list:
 def assoc_forward(params: AssocVAE, xs, cfg: AssocConfig, *, seed=None, eps=None,
                   compute_dtype="float32", use_pallas=False, cond=None,
                   remat: bool = False):
-    """Run all K modality VAEs; ε per modality from ``seed`` or the ``eps`` list.
+    """Run all K modality VAEs; ε per modality from ``seed`` (one modality
+    seed each, ``modality_seeds``) or the ``eps`` list.
 
     ``remat=True`` recomputes each tower in the backward instead of keeping
     its activations (activation checkpointing); the recompute replays the
-    same ε."""
+    same ε (the same injected tensor, or the same seed)."""
     xs, cond = split_cond(xs, cfg, cond)
     k = len(cfg.modalities)
+    seeds = [None] * k
     if eps is None:
         if seed is None:
             raise ValueError("assoc_forward needs `seed` or `eps`")
-        eps = [vae_mod.draw_eps(s, x.shape[0], m, x.device)
-               for s, x, m in zip(modality_seeds(seed, k), xs, cfg.modalities)]
+        seeds, eps = modality_seeds(seed, k), [None] * k
 
-    def fwd(p, x, m, e):
+    def fwd(p, x, m, s, e):
         def f(x, e):
-            return vae_mod.vae_forward(p, x, m, eps=e, compute_dtype=compute_dtype,
+            return vae_mod.vae_forward(p, x, m, seed=s, eps=e, compute_dtype=compute_dtype,
                                        use_pallas=use_pallas, cond=cond)
 
         return checkpoint(f, x, e, use_reentrant=False) if remat else f(x, e)
 
-    return tuple(fwd(p, x, m, e)
-                 for p, x, m, e in zip(params.modalities, xs, cfg.modalities, eps))
+    return tuple(fwd(p, x, m, s, e) for p, x, m, s, e
+                 in zip(params.modalities, xs, cfg.modalities, seeds, eps))
+
+
+class MegaFallbackWarning(UserWarning):
+    """``use_pallas="mega"`` fell back to the composable kernels for a config
+    the tower megakernel does not implement. Its own category, so a process
+    that runs with warnings as errors can allow exactly this notice."""
 
 
 def mega_fallback_reason(cfg: AssocConfig):
@@ -145,47 +145,78 @@ def assoc_loss_fn(params: AssocVAE, xs, cfg: AssocConfig, *, seed=None, eps=None
     ``kl_<m>`` per modality, and ``assoc``.
 
     ``use_pallas``: False is the plain torch path (autograd through the
-    towers and losses; the oracle of the others); "mega" runs each tower
-    in the megakernel (kernels/megakernel.py), differentiable with respect
-    to the weights only. The reference falls back from "mega" to its
-    composable kernels (use_pallas=True) for configs the megakernel does not
-    implement and in parity mode; those are not ported yet, so such a
-    config, and use_pallas=True, raise NotImplementedError with the reason.
-    ``remat`` applies to the plain path; the megakernel recomputes its
-    decoder in the backward anyway."""
+    towers and losses; the oracle of the others). True is the composable
+    kernel path: the fused encoder, sampler and decoder kernels per tower
+    and one fused loss kernel over all modalities, each an autograd
+    Function whose backward is a kernel, so input gradients are true ones.
+    "mega" runs each tower in the megakernel (kernels/megakernel.py),
+    differentiable with respect to the weights only; a config it does not
+    implement (``mega_fallback_reason``) warns ``MegaFallbackWarning`` and
+    runs the composable path, as the reference does. ``parity_mode`` keeps
+    the ordered plain losses on every path; with a kernel path it runs the
+    kernel towers under them. ``remat`` recomputes each tower in the
+    backward; the megakernel recomputes its decoder anyway."""
     xs, cond = split_cond(xs, cfg, cond)
     if use_pallas == "mega" and not parity_mode:
         reason = mega_fallback_reason(cfg)
-        if reason is not None:
-            raise NotImplementedError(
-                f"use_pallas='mega' cannot run this config: {reason}. The "
-                f"reference falls back to its composable kernels here, and {NOT_PORTED}"
-            )
-        return _assoc_loss_mega(params, xs, cfg, seed=seed, eps=eps,
-                                compute_dtype=compute_dtype, cond=cond)
-    if use_pallas:
-        what = "parity_mode with use_pallas='mega'" if use_pallas == "mega" else "use_pallas=True"
-        raise NotImplementedError(f"{what} trains on the composable kernels, and {NOT_PORTED}")
+        if reason is None:
+            return _assoc_loss_mega(params, xs, cfg, seed=seed, eps=eps,
+                                    compute_dtype=compute_dtype, cond=cond)
+        warnings.warn(
+            f"use_pallas='mega' fell back to the composable kernels: {reason}. The "
+            "step still runs the fused kernels, but not the single-launch tower "
+            "megakernel.",
+            MegaFallbackWarning,
+            stacklevel=2,
+        )
+        use_pallas = True
     outs = assoc_forward(params, xs, cfg, seed=seed, eps=eps, compute_dtype=compute_dtype,
-                         cond=cond, remat=remat)
+                         use_pallas=use_pallas, cond=cond, remat=remat)
     metrics = {}
     total = torch.zeros((), dtype=torch.float32, device=xs[0].device)
-    for m, x, out in zip(cfg.modalities, xs, outs):
-        terms = vae_mod.vae_loss(out, x, m, parity_mode=parity_mode)
-        metrics[f"recon_{m.name}"] = terms["recon"]
-        metrics[f"kl_{m.name}"] = terms["kl"]
-        total = total + terms["recon"] + terms["kl"]
-    per_sample = losses.assoc_loss(
-        [o.z_mean for o in outs], z_logvars=[o.z_logvar for o in outs],
-        zs=[o.z for o in outs], form=cfg.assoc_form, temp=cfg.assoc_temp,
-        ordered=parity_mode, negatives=cfg.assoc_negatives,
-    )
-    mean = losses.ordered_mean if parity_mode else torch.mean
-    assoc = mean(per_sample)
+    if use_pallas and not parity_mode:
+        # One fused pass over every modality's loss terms (kernels/loss.py).
+        # Its association column is the mean-L2 form; another form couples
+        # through ops/losses on the tensors already at hand.
+        from vae_assoc_tpu_torch.kernels.loss import joint_loss_terms_fused
+
+        k = len(cfg.modalities)
+        is_mean_l2 = cfg.assoc_form == "mean_l2"
+        terms = joint_loss_terms_fused(
+            [m.recon for m in cfg.modalities], xs, [o.recon for o in outs],
+            [o.z_mean for o in outs], [o.z_logvar for o in outs], with_assoc=is_mean_l2,
+        )
+        col_means = terms.mean(0)
+        for i, m in enumerate(cfg.modalities):
+            metrics[f"recon_{m.name}"] = col_means[i]
+            metrics[f"kl_{m.name}"] = col_means[k + i]
+            total = total + col_means[i] + col_means[k + i]
+        if is_mean_l2:
+            assoc = col_means[2 * k]
+        else:
+            assoc = torch.mean(_assoc_per_sample(outs, cfg))
+    else:
+        for m, x, out in zip(cfg.modalities, xs, outs):
+            terms = vae_mod.vae_loss(out, x, m, parity_mode=parity_mode)
+            metrics[f"recon_{m.name}"] = terms["recon"]
+            metrics[f"kl_{m.name}"] = terms["kl"]
+            total = total + terms["recon"] + terms["kl"]
+        mean = losses.ordered_mean if parity_mode else torch.mean
+        assoc = mean(_assoc_per_sample(outs, cfg, ordered=parity_mode))
     metrics["assoc"] = assoc
     total = total + cfg.assoc_lambda * assoc
     metrics["total"] = total
     return total, metrics
+
+
+def _assoc_per_sample(outs, cfg: AssocConfig, *, ordered: bool = False):
+    """Per-sample association term in the configured form, from the
+    per-modality forward outputs (ops/losses.assoc_loss does the math)."""
+    return losses.assoc_loss(
+        [o.z_mean for o in outs], z_logvars=[o.z_logvar for o in outs],
+        zs=[o.z for o in outs], form=cfg.assoc_form, temp=cfg.assoc_temp,
+        ordered=ordered, negatives=cfg.assoc_negatives,
+    )
 
 
 def _assoc_loss_mega(params, xs, cfg, *, seed=None, eps=None, compute_dtype, cond=None):

@@ -50,6 +50,18 @@ def dtype_name(dtype) -> str:
     return dtype
 
 
+def cuda_or_raise(device, what: str) -> torch.device:
+    """``device`` as a torch.device; a CUDA device without a GPU raises,
+    since nothing falls back to the CPU unless the caller names it."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"{what}(device='cuda') but torch finds no CUDA device; "
+            "pass device='cpu' to run on the CPU"
+        )
+    return device
+
+
 def round_operand(t: torch.Tensor, compute_dtype: str) -> torch.Tensor:
     """A matmul operand under the policy: fp32 as is, or rounded to bf16
     and held as fp32."""

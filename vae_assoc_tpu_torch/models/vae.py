@@ -135,19 +135,27 @@ def vae_forward(params, x, cfg: ModalityConfig, *, seed=None, eps=None,
                 compute_dtype="float32", use_pallas=False, cond=None) -> VAEOutputs:
     """Encoder → reparameterized sample → decoder. ε from ``seed`` or explicit.
 
-    ``cond``: the condition of a conditional modality, concatenated to the
-    encoder input and to the sampled latent."""
+    ``use_pallas`` runs the fused CUDA towers and, for a seed, the fused
+    sampler kernel (softplus only, as the reference). ``cond``: the
+    condition of a conditional modality, concatenated to the encoder input
+    and to the sampled latent."""
     _check_width(x, cfg.arch["n_input"], cfg.name, "input")
     cond = prepare_cond(cond, cfg, x.shape[0], device=x.device)
     _, encode, decode = _net_fns(cfg, use_pallas)
     transfer = TRANSFER_FNS[cfg.transfer]
     x_in = x if cond is None else torch.cat([x.float(), cond], dim=1)
     z_mean, z_logvar = encode(params, x_in, compute_dtype=compute_dtype, transfer=transfer)
-    if eps is None:
-        if seed is None:
-            raise ValueError("vae_forward needs `seed` or `eps`")
-        eps = draw_eps(seed, x.shape[0], cfg, x.device)
-    z = sampling.reparameterize(z_mean, z_logvar, eps=eps)
+    if eps is None and seed is None:
+        raise ValueError("vae_forward needs `seed` or `eps`")
+    if use_pallas and eps is None and cfg.transfer == "softplus":
+        # The fused sampler kernel draws the same ε as draw_eps(seed).
+        from vae_assoc_tpu_torch.kernels.sampling import reparameterize_fused
+
+        z = reparameterize_fused(z_mean, z_logvar, seed)
+    else:
+        if eps is None:
+            eps = draw_eps(seed, x.shape[0], cfg, x.device)
+        z = sampling.reparameterize(z_mean, z_logvar, eps=eps)
     z_in = z if cond is None else torch.cat([z, cond], dim=1)
     recon = decode(params, z_in, compute_dtype=compute_dtype, transfer=transfer)
     return VAEOutputs(z_mean, z_logvar, z, recon)

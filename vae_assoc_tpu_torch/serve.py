@@ -30,7 +30,7 @@ import torch
 from vae_assoc_tpu_torch import bucketing
 from vae_assoc_tpu_torch.configs import AssocConfig, TrainConfig
 from vae_assoc_tpu_torch.models import assoc as assoc_mod
-from vae_assoc_tpu_torch.models.networks import dtype_name
+from vae_assoc_tpu_torch.models.networks import cuda_or_raise, dtype_name
 
 
 class Predictor:
@@ -43,12 +43,7 @@ class Predictor:
 
     def __init__(self, params_or_model, cfg: AssocConfig, *, device="cuda",
                  compute_dtype="float32", use_pallas=False):
-        device = torch.device(device)
-        if device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(
-                "Predictor(device='cuda') but torch finds no CUDA device; "
-                "pass device='cpu' to serve on the CPU"
-            )
+        device = cuda_or_raise(device, "Predictor")
         if isinstance(params_or_model, torch.nn.Module):
             model = params_or_model.to(device)
         else:

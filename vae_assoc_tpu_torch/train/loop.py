@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from vae_assoc_tpu_torch.configs import AssocConfig, TrainConfig
+from vae_assoc_tpu_torch.models.networks import cuda_or_raise
 from vae_assoc_tpu_torch.ops.sampling import fold_in
 from vae_assoc_tpu_torch.train.step import (
     TrainState,
@@ -33,14 +34,14 @@ def _stage(data, device) -> list:
     return [torch.as_tensor(d, dtype=torch.float32, device=device) for d in data]
 
 
-def _device(state, data, device):
-    if device is not None:
-        return torch.device(device)
-    if state is not None:
-        return next(state.params.parameters()).device
-    if isinstance(data[0], torch.Tensor):
-        return data[0].device
-    return torch.device("cpu")
+def _device(state, data, device, what):
+    """The device to train on: ``device``, else the state's, else that of
+    tensor data; host arrays with nothing else named train on the card."""
+    if device is None and state is not None:
+        device = next(state.params.parameters()).device
+    elif device is None and isinstance(data[0], torch.Tensor):
+        device = data[0].device
+    return cuda_or_raise("cuda" if device is None else device, what)
 
 
 def train_loop(cfg: AssocConfig, tc: TrainConfig, data, *, epochs: int = 10,
@@ -54,7 +55,7 @@ def train_loop(cfg: AssocConfig, tc: TrainConfig, data, *, epochs: int = 10,
     remainder past whole batches is dropped. ``on_metrics(epoch, metrics)``
     runs every ``display_step`` epochs. Returns (state, history of
     per-epoch mean metrics with ``samples_per_sec``)."""
-    dev = _device(state, data, device)
+    dev = _device(state, data, device, "train_loop")
     dev_data = _stage(data, dev)
     n = dev_data[0].shape[0]
     bs, spc = tc.batch_size, tc.steps_per_call
@@ -108,7 +109,7 @@ def train_loop_fused(cfg: AssocConfig, tc: TrainConfig, data, *, epochs: int = 1
     Returns (state, history); ``samples_per_sec`` is the whole run's rate,
     repeated in every epoch's entry, and includes the first step's build
     of the kernels unless they were built before."""
-    dev = _device(state, data, device)
+    dev = _device(state, data, device, "train_loop_fused")
     dev_data = _stage(data, dev)
     n = dev_data[0].shape[0]
     bs, spc = tc.batch_size, tc.steps_per_call

@@ -23,6 +23,7 @@ import torch
 
 from vae_assoc_tpu_torch.configs import AssocConfig, TrainConfig
 from vae_assoc_tpu_torch.models import assoc as assoc_mod
+from vae_assoc_tpu_torch.models.networks import cuda_or_raise
 from vae_assoc_tpu_torch.ops.sampling import fold_in
 
 
@@ -187,12 +188,14 @@ def ema_params(tc: TrainConfig, opt_state: OptState):
     return [e / corr for e in opt_state.ema]
 
 
-def init_train_state(cfg: AssocConfig, tc: TrainConfig, *, device="cpu",
+def init_train_state(cfg: AssocConfig, tc: TrainConfig, *, device="cuda",
                      params=None) -> TrainState:
     """Step 0: Xavier weights from ``tc.seed`` (or ``params``), a fresh
-    optimizer state, and the ε stream keyed by ``tc.seed``."""
+    optimizer state, and the ε stream keyed by ``tc.seed``. The weights go
+    to ``device``, the card unless the caller names the CPU; without a GPU
+    ``device="cuda"`` raises."""
     if params is None:
-        params = assoc_mod.init_assoc(tc.seed, cfg, device=device)
+        params = assoc_mod.init_assoc(tc.seed, cfg, device=cuda_or_raise(device, "init_train_state"))
     return TrainState(0, params, make_optimizer(tc).init(params.parameters()), tc.seed)
 
 

@@ -18,6 +18,7 @@ from vae_assoc_tpu_torch.configs import (
     AssocConfig, TrainConfig, config_to_dict, load_model_config,
 )
 from vae_assoc_tpu_torch.models.assoc import AssocVAE
+from vae_assoc_tpu_torch.models.networks import cuda_or_raise
 
 PARAMS_FILE = "params.pt"
 
@@ -33,8 +34,11 @@ def save_params(path: str, model: AssocVAE, cfg: AssocConfig,
     return path
 
 
-def load_params(path: str, *, device="cpu"):
-    """Read a directory written by :func:`save_params` → (model, cfg, tc)."""
+def load_params(path: str, *, device="cuda"):
+    """Read a directory written by :func:`save_params` → (model, cfg, tc),
+    the weights on ``device``: the card unless the caller names the CPU
+    (without a GPU ``device="cuda"`` raises)."""
+    device = cuda_or_raise(device, "load_params")
     cfg, tc, _ = load_model_config(path)
     path = os.path.abspath(os.path.expanduser(path))
     params_path = os.path.join(path, PARAMS_FILE)
