@@ -17,7 +17,14 @@ Phases, each of which raises on failure (nothing is caught):
    ModelServer, every HTTP route, 16 concurrent requests; outputs checked
    for shape, finiteness and range, and against the same model served on
    the plain path. The kernels' launch counts are reset just before the
-   requests and must both be positive after them.
+   requests and the MLP kernels' must be positive after them.
+4b. Serving config 4 with encoder="conv_pallas": a Predictor on the
+   kernels (the conv kernel for the image tower, the MLP kernels for the
+   trajectory tower) against the same weights on the plain path
+   (encoder="conv", no kernels), every verb at batches 1 to 1024 (rtol =
+   atol = 1e-4, fp32); the conv kernel's serving count, reset just before
+   the requests, must be positive after them; image→trajectory p50/p95 of
+   both paths at buckets 1 to 1024.
 5. Times: Predictor.cross_generate image→trajectory p50/p95 per bucket for
    both paths, and each tower's device time (CUDA events) against its plain
    twin.
@@ -32,6 +39,11 @@ Phases, each of which raises on failure (nothing is caught):
    decoders, fp32 and bf16), the sampler (ε at rtol = atol = 1e-6, z) and
    the joint loss forward and backward (kinds bernoulli + gaussian, with
    and without the association column), batches 1 to 16384.
+6c. The conv kernels against their twins on the card, batches 1 to 16384,
+   fp32 and bf16: conv_fwd on all four layer shapes of the conv tower, as
+   the layer's forward and as its input gradient (the four uses of the
+   primitive), conv_dw on all four, conv_enc (every output) and conv_dec
+   (every output, kinds bernoulli and gaussian).
 7. Training, the port's second main path: config 3 at full width from
    seed 0, trained through train_loop on the kernels (use_pallas="mega")
    and on the plain path. Step-0 gradients agree within phase 6's
@@ -48,6 +60,14 @@ Phases, each of which raises on failure (nothing is caught):
    20-step per-step totals agree within rtol 1e-3 in fp32 (config 5 at
    fp32, and config 3); a depth-3 image tower under "mega" warns
    MegaFallbackWarning and trains on the composable kernels.
+7c. Training config 4 (batch 64, fp32) from one seed (so one ε): with
+   encoder="conv_pallas" on the mega, composable and plain paths, step-0
+   totals and gradients agree with the plain path (encoder="conv", no
+   kernels) within phase 6's tolerances in fp32 and bf16; each path, and
+   config 4 as it ships (encoder="conv", "mega"), trains 200 steps with
+   exactly the per-step launch counts of CONV_PER_STEP or SHIPPED_PER_STEP
+   (counts reset just before), its first 20 per-step totals agree with the
+   plain path's within rtol 1e-3, and its loss falls.
 8. Times: train_loop_fused samples/s, interleaved plain first and last, at
    batch 16384 bf16 (steps_per_call=4) and batch 64 fp32 (mega and plain
    paths), and at config 5's settings (all three paths), on 65,536
@@ -56,12 +76,19 @@ Phases, each of which raises on failure (nothing is caught):
    torch.matmul's): CUDA events around the calls, and the device's busy
    time from torch.profiler, which leaves out the device waiting for the
    host (what the JSON record reports where the profiler measured it).
+8d. Times of config 4: train_loop_fused samples/s at batch 64 fp32 and
+   batch 2048 bf16 on the plain, conv mega, conv_pallas mega and
+   conv_pallas composable paths in turns, plain first and last; each conv
+   kernel per call against its twin at B = 1024 and 16384 (conv_fwd and
+   conv_dw on conv2, also against F.conv2d and torch.nn.grad.conv2d_weight),
+   and each layer's conv_fwd, dx and conv_dw at B = 16384.
 
 The line before the last is the kernel record as JSON, each kernel with
 its bound: the larger of the bytes it must move over 3.35 TB/s and its
 operations over 67 TFLOP/s (fp32, no tensor cores), the H100 SXM data
-sheet's rates. The last line is {"ok": true, "device": {...}}. Without a CUDA device, or without the
-package beside this file, the script exits non-zero and prints no result.
+sheet's rates. The last line is {"ok": true, "device": {...}}. Without a
+CUDA device, or without the package beside this file, the script exits
+non-zero and prints no result.
 """
 
 from __future__ import annotations
@@ -702,6 +729,352 @@ def _profiled_ms(fn, n=10):
     return us / n / 1e3 if us > 0 else None
 
 
+# The conv tower's four layers: (cin, input size, cout, stride, dilate, pads,
+# output size), as kernels/conv.py's layer ops call the conv kernel.
+CONV_LAYERS = {
+    "conv1": (1, 28, 32, 2, False, (0, 1), 14),
+    "conv2": (32, 14, 64, 2, False, (0, 1), 7),
+    "convt1": (64, 7, 32, 1, True, (2, 1), 14),
+    "convt2": (32, 14, 1, 1, True, (2, 1), 28),
+}
+CONV_PER_STEP = {
+    # conv_fwd: the dx of convt2, convt1 and conv2 (conv1's input is the data).
+    "mega": {"conv_enc": 1, "conv_dec": 1, "conv_fwd": 3, "conv_dw": 4, "mega_fwd": 1,
+             "mega_dec_loss_bwd": 1, "enc_bwd": 1, "wgrad": 7},
+    # conv_fwd: the four layers forward, then the same three dx.
+    "composable": {"conv_fwd": 7, "conv_dw": 4, "enc_fwd": 1, "dec_fwd": 1, "dec_bwd": 1,
+                   "enc_bwd": 1, "wgrad": 7, "reparam": 2, "loss_fwd": 1, "loss_bwd": 1},
+    "plain": {"conv_fwd": 7, "conv_dw": 4},
+}
+"""Hand-written launches per training step of config 4 with
+encoder="conv_pallas", per use_pallas path: the image tower's conv kernels,
+and the trajectory tower and the joint loss as on config 3's paths (3
+weight-gradient launches for the trajectory decoder, 4 for its encoder)."""
+SHIPPED_PER_STEP = {"mega_fwd": 1, "mega_dec_loss_bwd": 1, "enc_bwd": 1, "wgrad": 7}
+"""Config 4 as it ships (encoder="conv", "mega"): plain torch convs on the
+image branch, the tower megakernel on the trajectory branch."""
+
+
+def _conv_pallas(cfg):
+    """``cfg`` with its conv image tower on the conv kernels."""
+    import dataclasses
+
+    img = dataclasses.replace(cfg.modalities[0], encoder="conv_pallas")
+    return dataclasses.replace(cfg, modalities=[img, *cfg.modalities[1:]])
+
+
+def _conv_model(seed):
+    from vae_assoc_tpu_torch.configs import default_image_arch
+    from vae_assoc_tpu_torch.models.conv import ConvVAE
+
+    return ConvVAE(default_image_arch(), device="cuda",
+                   generator=torch.Generator().manual_seed(seed))
+
+
+def _conv_w2d(m, name):
+    cin, _, cout = CONV_LAYERS[name][:3]
+    net = m.gener if name.startswith("convt") else m.recog
+    return net[name].w.detach().reshape(9 * cin, cout)
+
+
+@torch.no_grad()
+def check_conv_kernels(rng, batches=TRAIN_BATCHES):
+    """Phase 6c; returns {(kernel, case, batch, dtype): max_abs_err}."""
+    from vae_assoc_tpu_torch.kernels import conv as kconv
+    from vae_assoc_tpu_torch.kernels import conv_mega as kcm
+
+    errs, failed = {}, []
+    record = _recorder(errs, failed)
+    m = _conv_model(4)
+    flat = [t.detach() for t in kcm.flatten(m)]
+
+    def t(*shape, lo=-1.0):
+        return torch.from_numpy(rng.uniform(lo, 1.0, shape).astype(np.float32)).cuda()
+
+    for cd, tol in TOL.items():
+        line = {}
+        for b in batches:
+            for name, (cin, h, cout, s, dil, pads, oh) in CONV_LAYERS.items():
+                w2d = _conv_w2d(m, name)
+                x, dy = t(b, h, h, cin), t(b, oh, oh, cout)
+                got = kconv.conv_fwd(x, w2d, s, dil, pads, oh, compute_dtype=cd)
+                want = kconv.conv_im2col_plain(x, w2d, s, dil, pads, oh, cd)
+                gdx = kconv.conv_dx(dy, w2d, cin, s, dil, pads, h, compute_dtype=cd)
+                wdx = kconv.conv_im2col_plain(dy, kconv.flip_w2d(w2d, cin, cout),
+                                              *kconv.DX_GEOMETRY[(s, dil, pads)], h, cd)
+                gdw = kconv.conv_dw(x, dy, s, dil, pads, oh, compute_dtype=cd)
+                wdw = kconv.conv_dw_plain(x, dy, s, dil, pads, oh, cd)
+                torch.cuda.synchronize()
+                for key, pairs in ((("conv_fwd", name, b, cd), [("y", got, want, False)]),
+                                   (("conv_fwd", f"{name} dx", b, cd), [("dx", gdx, wdx, False)]),
+                                   (("conv_dw", name, b, cd), [("dw", gdw, wdw, True)])):
+                    line.setdefault(key[:2], []).append(record(key, pairs, tol))
+            x3 = t(b, 28, 28, lo=0.0)
+            got = kcm.conv_enc(flat[:10], x3, compute_dtype=cd)
+            want = kcm.conv_enc_plain(flat[:10], x3, compute_dtype=cd)
+            torch.cuda.synchronize()
+            line.setdefault(("conv_enc", "image"), []).append(record(
+                ("conv_enc", "image", b, cd),
+                [(n, g, w, False) for n, g, w in zip(("mu", "lv", "a1", "a2", "h"), got, want)],
+                tol))
+            z = t(b, 20)
+            for kind in LOSS_KINDS:
+                got = kcm.conv_dec(flat[10:], z, x3, kind=kind, compute_dtype=cd)
+                want = kcm.conv_dec_plain(flat[10:], z, x3, kind=kind, compute_dtype=cd)
+                torch.cuda.synchronize()
+                line.setdefault(("conv_dec", kind), []).append(record(
+                    ("conv_dec", kind, b, cd),
+                    [(n, g, w, False) for n, g, w in zip(("rec", "g1", "g2", "d1p", "r"),
+                                                         got, want)], tol))
+        for (k, case), v in line.items():
+            print(f"check {k} {case} {cd} (tol {tol}): " + " ".join(
+                f"B={b}:{e:.2e}" for b, e in zip(batches, v)), flush=True)
+    if failed:
+        raise AssertionError("conv kernel disagrees with its plain twin: "
+                             + "; ".join(failed[:20]))
+    return errs
+
+
+def _verbs(p, img, traj, z):
+    """Every serving verb of a config-4 Predictor on one batch."""
+    outs = {f"transform[{i}]": o for i, o in enumerate(p.transform([img, traj]))}
+    outs.update({
+        "generate_image": p.generate(z, "image"),
+        "generate_trajectory": p.generate(z, "trajectory"),
+        "reconstruct_image": p.reconstruct(img, "image"),
+        "image_to_trajectory": p.cross_generate(img, "image", "trajectory"),
+        "trajectory_to_image": p.cross_generate(traj, "trajectory", "image"),
+    })
+    return outs
+
+
+def serve_conv_and_check(rng, card):
+    """Phase 4b: config 4 served with encoder="conv_pallas", a Predictor on
+    the kernels against the same weights on the plain path (encoder="conv",
+    no kernels); returns the launch counts of the kernel predictor's
+    requests."""
+    from vae_assoc_tpu_torch.configs import baseline_config
+    from vae_assoc_tpu_torch.kernels import launch_counts, reset_launches
+    from vae_assoc_tpu_torch.models.assoc import init_assoc
+    from vae_assoc_tpu_torch.serve import Predictor
+
+    cfg, tc = baseline_config(4)
+    kcfg = _conv_pallas(cfg)
+    model = init_assoc(0, kcfg, device="cuda")
+    print(f"serving: baseline config 4 with encoder='conv_pallas', "
+          f"{sum(p.numel() for p in model.parameters())} parameters, "
+          f"compute_dtype={tc.compute_dtype}", flush=True)
+    pred = Predictor(model, kcfg, device="cuda", compute_dtype=tc.compute_dtype, use_pallas=True)
+    plain = Predictor(model, cfg, device="cuda", compute_dtype=tc.compute_dtype, use_pallas=False)
+    pred.warmup(buckets=(1, 64))
+    batches = {}
+    for b in (1, 5, 64, 300, 1024):
+        batches[b] = (rng.uniform(0, 1, (b, 784)).astype(np.float32),
+                      rng.normal(size=(b, 200)).astype(np.float32),
+                      rng.normal(size=(b, 20)).astype(np.float32))
+    reset_launches()
+    got = {b: _verbs(pred, *args) for b, args in batches.items()}
+    launches = launch_counts()
+    print(f"launches during the conv_pallas predictor's requests: {launches}", flush=True)
+    for k in ("conv_fwd", "enc_fwd", "dec_fwd"):
+        assert launches[k] > 0, f"kernel {k} was not launched by config 4's serving path"
+    tol = TOL[pred.compute_dtype]
+    worst, n = 0.0, 0
+    for b, args in batches.items():
+        want = _verbs(plain, *args)
+        for name, w in want.items():
+            g = got[b][name]
+            assert g.shape == w.shape and np.isfinite(g).all(), (name, b, g.shape, w.shape)
+            np.testing.assert_allclose(g, w, rtol=tol, atol=tol, err_msg=f"{name} B={b}")
+            worst, n = max(worst, float(np.abs(g - w).max())), n + 1
+        for name in ("generate_image", "reconstruct_image", "trajectory_to_image"):
+            assert got[b][name].min() >= 0.0 and got[b][name].max() <= 1.0, name
+    print(f"config 4 conv_pallas predictor vs plain path: {n} outputs at B = "
+          f"{', '.join(map(str, batches))} agree, max abs err {worst:.3e} (rtol=atol={tol})",
+          flush=True)
+    time_serving(pred, plain, rng, card, buckets=(1, 64, 256, 1024))
+    return launches
+
+
+def train_conv_and_check(card):
+    """Phase 7c: config 4 on the card from one seed (so one ε). Returns the
+    launch counts of the conv_pallas mega path's 200 steps."""
+    import dataclasses
+
+    from vae_assoc_tpu_torch.configs import baseline_config
+    from vae_assoc_tpu_torch.data import PairedDataset
+    from vae_assoc_tpu_torch.kernels import launch_counts, reset_launches
+    from vae_assoc_tpu_torch.models import assoc as assoc_mod
+    from vae_assoc_tpu_torch.train import init_train_state, train_loop
+
+    cfg, tc = baseline_config(4)
+    kcfg = _conv_pallas(cfg)
+    print(f"training: baseline config 4, batch {tc.batch_size}, compute_dtype="
+          f"{tc.compute_dtype}, as shipped (encoder='conv', use_pallas={tc.use_pallas!r}) "
+          "and with encoder='conv_pallas' on every path", flush=True)
+    batch = list(PairedDataset.from_synthetic(tc.batch_size, seed=0, device="cuda").features())
+    model = assoc_mod.init_assoc(0, cfg, device="cuda")
+    params = list(model.parameters())
+    names = [key for key, _ in model.named_parameters()]
+    for cd, tol in TOL.items():
+        total, _ = assoc_mod.assoc_loss_fn(model, batch, cfg, seed=123, compute_dtype=cd,
+                                           use_pallas=False)
+        want, want_total = torch.autograd.grad(total, params), float(total.detach())
+        for name, up in PATHS.items():
+            total, _ = assoc_mod.assoc_loss_fn(model, batch, kcfg, seed=123, compute_dtype=cd,
+                                               use_pallas=up)
+            got = torch.autograd.grad(total, params)
+            worst, bad = _grads_close(names, got, want, tol)
+            rel = abs(float(total.detach()) - want_total) / abs(want_total)
+            print(f"config 4 {cd} step 0, conv_pallas {name} path vs plain: total "
+                  f"{float(total.detach()):.4f} vs {want_total:.4f} (rel {rel:.3e}); "
+                  f"{len(params)} grads, max abs err {worst:.3e} (rtol {tol}, atol {tol} x "
+                  "max|want|)", flush=True)
+            assert rel <= tol and not bad, f"config 4 step 0, {name}: " + "; ".join(bad)
+
+    def run(c, t, steps, per_step):
+        state = init_train_state(c, t, device="cuda")
+        reset_launches()
+        state, h = train_loop(c, t, batch, epochs=steps, state=state)
+        launches = launch_counts()
+        want = {k: per_step.get(k, 0) * state.step for k in launches}
+        assert state.step == steps and launches == want, f"launch counts {launches} != {want}"
+        return np.array([e["total"] for e in h]), launches
+
+    one = dataclasses.replace(tc, steps_per_call=1)
+    plain, _ = run(cfg, dataclasses.replace(one, use_pallas=False), 20, {})
+    print("config 4, per-step total, plain path: " + " ".join(f"{v:.4f}" for v in plain),
+          flush=True)
+    runs = {f"conv_pallas {n}": (kcfg, up, CONV_PER_STEP[n]) for n, up in PATHS.items()}
+    runs["as shipped (conv, mega)"] = (cfg, "mega", SHIPPED_PER_STEP)
+    main = None
+    for label, (c, up, per_step) in runs.items():
+        curve, launches = run(c, dataclasses.replace(one, use_pallas=up), 200, per_step)
+        rel = float(np.max(np.abs(curve[:20] - plain) / np.abs(plain)))
+        print(f"config 4 {label}: 200 steps with exactly {per_step} launches per step; "
+              f"20-step curve vs plain: max rel err {rel:.3e} (rtol 1e-3); total "
+              f"{curve[0]:.4f} at step 1, {curve[-1]:.4f} at step 200", flush=True)
+        assert np.isfinite(curve).all() and rel <= 1e-3, f"{label}: loss curves disagree"
+        assert curve[-1] < curve[0], f"{label}: the loss did not fall over 200 steps"
+        if label == "conv_pallas mega":
+            main = launches
+    return main
+
+
+def time_conv_training(card):
+    """Phase 8d: train_loop_fused samples/s on config 4, the four paths in
+    turns with plain first and last."""
+    import dataclasses
+
+    from vae_assoc_tpu_torch.configs import baseline_config
+    from vae_assoc_tpu_torch.data import PairedDataset
+    from vae_assoc_tpu_torch.train import train_loop_fused
+
+    cfg, tc = baseline_config(4)
+    kcfg = _conv_pallas(cfg)
+    data = list(PairedDataset.from_synthetic(16384, seed=2, device="cuda").features())
+    paths = {"plain": (cfg, False), "conv mega": (cfg, "mega"),
+             "conv_pallas mega": (kcfg, "mega"), "conv_pallas composable": (kcfg, True)}
+    order = list(paths) + list(paths)[::-1]
+    rates = {}
+    for label, kw, rows in (("batch 64 fp32", dict(batch_size=64, compute_dtype="float32"), 4096),
+                            ("batch 2048 bf16",
+                             dict(batch_size=2048, compute_dtype="bfloat16"), 16384)):
+        part = [d[:rows] for d in data]
+        tcs = {n: (c, dataclasses.replace(tc, use_pallas=up, **kw)) for n, (c, up) in paths.items()}
+        for c, t in tcs.values():
+            train_loop_fused(c, t, part, epochs=1, device="cuda")
+        runs = {n: [] for n in paths}
+        for n in order:
+            c, t = tcs[n]
+            _, h = train_loop_fused(c, t, part, epochs=1, device="cuda")
+            assert np.isfinite(h[-1]["total"])
+            runs[n].append(h[0]["samples_per_sec"])
+        rates[label] = runs
+        print(f"train_loop_fused config 4 {label}: " + "; ".join(
+            f"{n} {' '.join(f'{v:.1f}' for v in r)} samples/s" for n, r in runs.items())
+            + f" [{card}]", flush=True)
+    return rates
+
+
+def time_conv_kernels(rng, card):
+    """Phase 8d: device ms per call of the four conv kernels against their
+    twins (conv_fwd and conv_dw on conv2, the encoder's main layer) and
+    against one PyTorch call where one computes the same function
+    (``library``): F.conv2d for the stride-2 conv and
+    torch.nn.grad.conv2d_weight for its weight gradient, on the input padded
+    (0, 1) beforehand (a cuDNN conv pads symmetrically), in NCHW. Then each
+    layer's forward, dx and dw kernel at B = 16384 (CUDA events)."""
+    import torch.nn.functional as F
+
+    from vae_assoc_tpu_torch.kernels import conv as kconv
+    from vae_assoc_tpu_torch.kernels import conv_mega as kcm
+
+    m = _conv_model(5)
+    flat = [t.detach() for t in kcm.flatten(m)]
+    w2 = m.recog["conv2"].w.detach()
+    w2d, w_oihw = w2.reshape(288, 64), w2.permute(3, 2, 0, 1).contiguous()
+    times = {}
+
+    def t(*shape, lo=-1.0):
+        return torch.from_numpy(rng.uniform(lo, 1.0, shape).astype(np.float32)).cuda()
+
+    with torch.no_grad():
+        for b in TRAIN_TIMED:
+            x, dy, x3, z = t(b, 14, 14, 32), t(b, 7, 7, 64), t(b, 28, 28, lo=0.0), t(b, 20)
+            xp = F.pad(x.permute(0, 3, 1, 2), (0, 1, 0, 1)).contiguous()
+            dyn = dy.permute(0, 3, 1, 2).contiguous()
+            cases = {
+                "conv_fwd": (lambda: kconv.conv_fwd(x, w2d, 2, False, (0, 1), 7),
+                             lambda: kconv.conv_im2col_plain(x, w2d, 2, False, (0, 1), 7)),
+                "conv_dw": (lambda: kconv.conv_dw(x, dy, 2, False, (0, 1), 7),
+                            lambda: kconv.conv_dw_plain(x, dy, 2, False, (0, 1), 7)),
+                "conv_enc": (lambda: kcm.conv_enc(flat[:10], x3),
+                             lambda: kcm.conv_enc_plain(flat[:10], x3)),
+                "conv_dec": (lambda: kcm.conv_dec(flat[10:], z, x3, kind="bernoulli"),
+                             lambda: kcm.conv_dec_plain(flat[10:], z, x3, kind="bernoulli")),
+            }
+            library = {
+                "conv_fwd": lambda: F.conv2d(xp, w_oihw, stride=2),
+                "conv_dw": lambda: torch.nn.grad.conv2d_weight(xp, w_oihw.shape, dyn, stride=2),
+            }
+            # The yardsticks compute the kernels' functions.
+            got, lib = kconv.conv_fwd(x, w2d, 2, False, (0, 1), 7), library["conv_fwd"]()
+            assert _close(lib.permute(0, 2, 3, 1), got, 1e-4)[1], "F.conv2d is another function"
+            got, lib = kconv.conv_dw(x, dy, 2, False, (0, 1), 7), library["conv_dw"]()
+            assert _close(lib.permute(2, 3, 1, 0).reshape(288, 64), got, 1e-4, summed=True)[1], \
+                "conv2d_weight is another function"
+            for name, (kern, plain) in cases.items():
+                fns = {"kernel": kern, "plain": plain}
+                if name in library:
+                    fns["library"] = library[name]
+                for _ in range(2):
+                    for fn in fns.values():
+                        fn()
+                runs = {which: [] for which in fns}
+                for which in ("plain", "kernel", "kernel", "plain"):
+                    runs[which].append(_device_ms(fns[which], n=5))
+                if "library" in fns:
+                    runs["library"] += [_device_ms(fns["library"], n=5) for _ in range(2)]
+                call = {which: float(np.mean(r)) for which, r in runs.items()}
+                busy = {which: _profiled_ms(fn, n=5) for which, fn in fns.items()}
+                times[(name, b)] = {"call": call, "device": busy}
+                print(f"time {name} B={b} float32, ms per call (CUDA events) / device busy per "
+                      "call (profiler): " + ", ".join(
+                          f"{which} {call[which]:.4f} / {_fmt(busy[which])}" for which in fns)
+                      + f" [{card}]", flush=True)
+        b = TRAIN_TIMED[-1]
+        for name, (cin, h, cout, s, dil, pads, oh) in CONV_LAYERS.items():
+            w = _conv_w2d(m, name)
+            x, dy = t(b, h, h, cin), t(b, oh, oh, cout)
+            ms = {"fwd": _device_ms(lambda: kconv.conv_fwd(x, w, s, dil, pads, oh), n=3),
+                  "dx": _device_ms(lambda: kconv.conv_dx(dy, w, cin, s, dil, pads, h), n=3),
+                  "dw": _device_ms(lambda: kconv.conv_dw(x, dy, s, dil, pads, oh), n=3)}
+            print(f"time conv kernels, layer {name} B={b} float32, ms per call (CUDA events): "
+                  + ", ".join(f"{k} {v:.4f}" for k, v in ms.items()) + f" [{card}]", flush=True)
+    return times
+
+
 def _post(base, path, payload):
     req = urllib.request.Request(
         base + path, data=json.dumps(payload).encode(),
@@ -781,8 +1154,8 @@ def serve_and_check(rng):
     print(f"statz after 16 concurrent + 3 batched requests: {statz}", flush=True)
     print(f"launches during the requests: {launches}", flush=True)
     assert health["status"] == "ok" and health["modalities"] == ["image", "trajectory"]
-    for name, n in launches.items():
-        assert n > 0, f"kernel {name} was not launched by the serving path"
+    for name in ("enc_fwd", "dec_fwd"):  # config 3 has no conv tower: conv_fwd stays 0
+        assert launches[name] > 0, f"kernel {name} was not launched by the serving path"
 
     tol = TOL[pred.compute_dtype]
     want = {
@@ -828,10 +1201,10 @@ def _pcts(fn, n):
     return ts
 
 
-def time_serving(pred, plain, rng, card):
+def time_serving(pred, plain, rng, card, buckets=BUCKETS):
     """Phase 5a: host-clock latency of Predictor.cross_generate (each call
     ends in a device-to-host copy, so it waits for the device)."""
-    for b in BUCKETS:
+    for b in buckets:
         x = rng.uniform(0, 1, (b, 784)).astype(np.float32)
         for p in (pred, plain):
             for _ in range(3):
@@ -841,7 +1214,8 @@ def time_serving(pred, plain, rng, card):
             p = pred if name == "kernel" else plain
             samples[name] += _pcts(lambda: p.cross_generate(x, "image", "trajectory"), 25)
         k, q = np.array(samples["kernel"]), np.array(samples["plain"])
-        print(f"latency cross_generate image->trajectory bucket={b}: kernel "
+        print(f"latency {pred.cfg.modalities[0].encoder} image tower, cross_generate "
+              f"image->trajectory bucket={b}: kernel "
               f"p50={np.percentile(k, 50):.4f} p95={np.percentile(k, 95):.4f} ms; "
               f"plain p50={np.percentile(q, 50):.4f} p95={np.percentile(q, 95):.4f} ms "
               f"[{card}]", flush=True)
@@ -967,6 +1341,37 @@ def _loss_work(b, bwd, widths=(784, 200), n_z=20):
     return nbytes, flops
 
 
+def _conv_macs(name):
+    """Useful multiply-adds per image of one conv layer: 9 taps × cin × cout
+    per pixel of its undilated side (the stride-2 conv's output, the
+    transposed conv's input), so the zeros of a dilated input do not count."""
+    cin, h, cout, stride, _, _, oh = CONV_LAYERS[name]
+    return 9 * cin * cout * (oh * oh if stride == 2 else h * h)
+
+
+def _conv_work(b, name):
+    """(bytes, flops) of conv_fwd on a layer (x and the weight read, y
+    written), and of conv_dw (x and dy read, dw written: the same sizes)."""
+    cin, h, cout, _, _, _, oh = CONV_LAYERS[name]
+    return 4 * (b * (h * h * cin + oh * oh * cout) + 9 * cin * cout), 2 * b * _conv_macs(name)
+
+
+def _conv_enc_work(b, hr=500, n_z=20):
+    """(bytes, flops) of conv_enc: x read; μ, logσ², a1, a2, h written; the
+    weights once."""
+    weights = 9 * 32 + 32 + 9 * 32 * 64 + 64 + 3136 * hr + hr + 2 * (hr * n_z + n_z)
+    macs = _conv_macs("conv1") + _conv_macs("conv2") + 3136 * hr + 2 * hr * n_z
+    return 4 * (b * (784 + 2 * n_z + 6272 + 3136 + hr) + weights), 2 * b * macs
+
+
+def _conv_dec_work(b, hg=500, n_z=20):
+    """(bytes, flops) of conv_dec: z and x read; recon, g1, g2, d1p and the
+    logits written; the weights once."""
+    weights = n_z * hg + hg + hg * 3136 + 3136 + 9 * 64 * 32 + 32 + 9 * 32 + 1
+    macs = n_z * hg + hg * 3136 + _conv_macs("convt1") + _conv_macs("convt2")
+    return 4 * (b * (n_z + 784 + 1 + hg + 3136 + 6272 + 784) + weights), 2 * b * macs
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch finds no CUDA device", file=sys.stderr)
@@ -994,6 +1399,8 @@ def main() -> int:
 
     # Phase 4
     launches, pred, plain = serve_and_check(rng)
+    # Phase 4b
+    serve_conv_and_check(rng, card)
 
     # Phase 5
     time_serving(pred, plain, rng, card)
@@ -1003,15 +1410,22 @@ def main() -> int:
     train_errs = check_train_kernels(rng)
     # Phase 6b
     train_errs.update(check_composable_kernels(rng))
+    # Phase 6c
+    train_errs.update(check_conv_kernels(rng))
 
     # Phase 7
     train_launches = train_and_check(card)
     # Phase 7b
     composable_launches = train_composable_and_check(card)
+    # Phase 7c
+    conv_launches = train_conv_and_check(card)
 
     # Phase 8
     time_training(card)
     train_times = time_train_kernels(rng, card)
+    # Phase 8d
+    time_conv_training(card)
+    train_times.update(time_conv_kernels(rng, card))
 
     cd = pred.compute_dtype
     big, small = TRAIN_TIMED[-1], TRAIN_TIMED[0]
@@ -1051,6 +1465,19 @@ def main() -> int:
         ("loss_bwd", CSRC + "loss.cu", "vae_assoc_tpu/kernels/loss.py:69",
          composable_launches, ("loss_bwd", "assoc=True", small, "float32"),
          train_times[("loss_bwd", small, "float32")], _bound(*_loss_work(small, bwd=True))),
+        ("conv_fwd", CSRC + "conv.cu",
+         "vae_assoc_tpu/kernels/conv.py:103, vae_assoc_tpu/kernels/conv_banded.py:125",
+         conv_launches, ("conv_fwd", "conv2", big, "float32"), train_times[("conv_fwd", big)],
+         _bound(*_conv_work(big, "conv2"))),
+        ("conv_dw", CSRC + "conv.cu", "vae_assoc_tpu/kernels/conv.py:125", conv_launches,
+         ("conv_dw", "conv2", big, "float32"), train_times[("conv_dw", big)],
+         _bound(*_conv_work(big, "conv2"))),
+        ("conv_enc", CSRC + "conv_mega.cu", "vae_assoc_tpu/kernels/conv_mega.py:189",
+         conv_launches, ("conv_enc", "image", big, "float32"), train_times[("conv_enc", big)],
+         _bound(*_conv_enc_work(big))),
+        ("conv_dec", CSRC + "conv_mega.cu", "vae_assoc_tpu/kernels/conv_mega.py:209",
+         conv_launches, ("conv_dec", "bernoulli", big, "float32"),
+         train_times[("conv_dec", big)], _bound(*_conv_dec_work(big))),
     ]
     kernels = []
     for name, src, replaces, counts, err_key, timed, (bound_ms, bound_by) in rows:

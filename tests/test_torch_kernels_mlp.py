@@ -84,7 +84,7 @@ def test_cpu_path_launches_nothing():
     tmlp.reset_launches()
     tmlp.encode_mlp_fused(tp, torch.zeros(3, 24))
     tmlp.decode_mlp_fused(tp, torch.zeros(3, 4))
-    assert tmlp.LAUNCHES == {"enc_fwd": 0, "dec_fwd": 0}
+    assert tmlp.LAUNCHES == {"enc_fwd": 0, "dec_fwd": 0, "conv_fwd": 0}
 
 
 def test_non_cpu_tensor_never_takes_the_plain_path():

@@ -189,9 +189,10 @@ class ModalityConfig:
       name: modality identifier (e.g. "image", "trajectory").
       arch: reference-style architecture dict (see :data:`ARCH_KEYS`).
       recon: "bernoulli" (sigmoid output) or "gaussian" (linear output).
-      encoder: "mlp", "conv" or "conv_pallas". The port runs "mlp" towers;
-        the conv towers are validated here so configs round-trip, and are
-        refused by the model code until they are ported.
+      encoder: "mlp", or a conv image tower (models/conv.py): "conv" on
+        plain torch convs, "conv_pallas" on the hand-written conv kernels
+        (kernels/conv.py; kernels/conv_mega.py under use_pallas="mega")
+        whatever ``use_pallas`` says, as in the reference.
       transfer: hidden activation, a key of :data:`TRANSFER_FNS`.
       n_cond: conditional-VAE one-hot width (0 = unconditional). The
         condition is concatenated to the encoder input and to z at the

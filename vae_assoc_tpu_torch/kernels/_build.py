@@ -148,9 +148,26 @@ def load() -> ctypes.CDLL:
             lib.vae_reparam.argtypes = [ptr, ptr, i32, i32, u64, ptr, ptr, ptr]
             lib.vae_loss_fwd.argtypes = [ptr, i32, i32, i32, i32, ptr, ptr]
             lib.vae_loss_bwd.argtypes = [ptr, i32, i32, i32, i32, ptr, ptr]
+            lib.vae_conv_fwd.argtypes = [
+                ptr, i32, i32, i32, i32, ptr, i32, i32, i32, i32, i32, i32,
+                ptr, i32, ptr,
+            ]
+            lib.vae_conv_dw.argtypes = [
+                ptr, i32, i32, i32, i32, ptr, i32, i32, i32, i32, i32, i32,
+                i32, i32, ptr, ptr, i32, ptr,
+            ]
+            lib.vae_conv_enc.argtypes = [
+                ptr, i32, ptr, i32, i32, ptr, ptr, ptr, ptr, ptr, i32, i32, ptr,
+            ]
+            lib.vae_conv_dec.argtypes = [
+                ptr, ptr, i32, ptr, i32, i32, i32, ptr, ptr, ptr, ptr, ptr, i32,
+                i32, ptr,
+            ]
             for fn in (lib.vae_mega_fwd, lib.vae_mega_dec_loss_bwd,
                        lib.vae_mlp_enc_bwd, lib.vae_mlp_dec_bwd, lib.vae_wgrad,
-                       lib.vae_reparam, lib.vae_loss_fwd, lib.vae_loss_bwd):
+                       lib.vae_reparam, lib.vae_loss_fwd, lib.vae_loss_bwd,
+                       lib.vae_conv_fwd, lib.vae_conv_dw, lib.vae_conv_enc,
+                       lib.vae_conv_dec):
                 fn.restype = i32
             lib.vae_cuda_error_string.argtypes = [i32]
             lib.vae_cuda_error_string.restype = ctypes.c_char_p

@@ -29,7 +29,9 @@ from vae_assoc_tpu_torch.ops import losses
 from vae_assoc_tpu_torch.ops.sampling import fold_in
 
 class AssocVAE(nn.Module):
-    """One :class:`~vae_assoc_tpu_torch.models.networks.MLPVAE` per modality.
+    """One tower pair per modality: a
+    :class:`~vae_assoc_tpu_torch.models.networks.MLPVAE`, or a
+    :class:`~vae_assoc_tpu_torch.models.conv.ConvVAE` for a conv encoder.
     Without a generator the weights are zeros, to be loaded."""
 
     def __init__(self, cfg: AssocConfig, *, device,
@@ -149,8 +151,10 @@ def assoc_loss_fn(params: AssocVAE, xs, cfg: AssocConfig, *, seed=None, eps=None
     kernel path: the fused encoder, sampler and decoder kernels per tower
     and one fused loss kernel over all modalities, each an autograd
     Function whose backward is a kernel, so input gradients are true ones.
-    "mega" runs each tower in the megakernel (kernels/megakernel.py),
-    differentiable with respect to the weights only; a config it does not
+    "mega" runs each tower in the megakernel (kernels/megakernel.py; a conv
+    tower in kernels/conv_mega.py, on the kernels for encoder="conv_pallas"
+    and on plain torch convs for "conv"), differentiable with respect to
+    the weights only; a config it does not
     implement (``mega_fallback_reason``) warns ``MegaFallbackWarning`` and
     runs the composable path, as the reference does. ``parity_mode`` keeps
     the ordered plain losses on every path; with a kernel path it runs the
@@ -238,15 +242,20 @@ def _assoc_loss_mega(params, xs, cfg, *, seed=None, eps=None, compute_dtype, con
     mus, lvs, zs = [], [], []
     for p, x, m, s, e in zip(params.modalities, xs, cfg.modalities, seeds, eps):
         vae_mod._check_width(x, m.arch["n_input"], m.name, "input")
-        if m.encoder != "mlp":
-            raise NotImplementedError(
-                f"modality {m.name!r}: encoder={m.encoder!r} towers are not "
-                "ported yet; the port runs encoder='mlp'"
+        if m.encoder in ("conv", "conv_pallas"):
+            # The encoder field picks the conv tower, as the reference's:
+            # "conv" the plain torch convs, "conv_pallas" the conv-tower
+            # megakernel (kernels/conv_mega.py).
+            from vae_assoc_tpu_torch.kernels import conv_mega
+
+            tower = (conv_mega.conv_tower_fused if m.encoder == "conv_pallas"
+                     else conv_mega.conv_tower_xla)
+            out = tower(p, x, kind=m.recon, seed=s, eps=e, compute_dtype=compute_dtype)
+        else:
+            out = vae_tower_fused(
+                p, x, kind=m.recon, seed=s, eps=e, compute_dtype=compute_dtype,
+                cond=vae_mod.prepare_cond(cond, m, x.shape[0], device=x.device),
             )
-        out = vae_tower_fused(
-            p, x, kind=m.recon, seed=s, eps=e, compute_dtype=compute_dtype,
-            cond=vae_mod.prepare_cond(cond, m, x.shape[0], device=x.device),
-        )
         metrics[f"recon_{m.name}"] = torch.mean(out["recon_term"])
         metrics[f"kl_{m.name}"] = torch.mean(out["kl_term"])
         total = total + metrics[f"recon_{m.name}"] + metrics[f"kl_{m.name}"]

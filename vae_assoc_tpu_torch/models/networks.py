@@ -70,9 +70,32 @@ def round_operand(t: torch.Tensor, compute_dtype: str) -> torch.Tensor:
     return t.bfloat16().float()
 
 
+class _Softplus(torch.autograd.Function):
+    """Autograd of max(a, 0) + log1p(e^{−|a|}) would take clamp's and abs's
+    derivatives at a = 0 (1 and 0) and give 1 there; softplus'(0) is
+    σ(0) = ½, as the reference's jax.nn.softplus gives. A conv layer over
+    the zero background of an image at zero bias meets a = 0 exactly."""
+
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(a):
+        return torch.clamp_min(a, 0.0) + torch.log1p(torch.exp(-torch.abs(a)))
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(inputs[0])
+
+    @staticmethod
+    def backward(ctx, g):
+        (a,) = ctx.saved_tensors
+        return g * torch.sigmoid(a)
+
+
 def softplus(a: torch.Tensor) -> torch.Tensor:
-    """log(1 + e^a) in the overflow-safe form the kernels use."""
-    return torch.clamp_min(a, 0.0) + torch.log1p(torch.exp(-torch.abs(a)))
+    """log(1 + e^a) in the overflow-safe form the kernels use; its gradient
+    is σ(a)."""
+    return _Softplus.apply(a)
 
 
 def xavier_uniform(n_in: int, n_out: int, *, generator: torch.Generator,

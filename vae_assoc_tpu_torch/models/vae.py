@@ -32,14 +32,20 @@ def _net_fns(cfg: ModalityConfig, use_pallas=False):
 
     ``use_pallas`` (kept under its JAX name) selects the fused CUDA MLP
     kernels. They implement softplus only; other transfers run the plain
-    torch path."""
+    torch path. A conv tower takes its ops from the encoder field alone, as
+    the reference does: ``"conv"`` the plain torch convs, ``"conv_pallas"``
+    the conv kernels (kernels/conv.py) whatever ``use_pallas`` says."""
     if use_pallas and cfg.transfer != "softplus":
         use_pallas = False
-    if cfg.encoder != "mlp":
-        raise NotImplementedError(
-            f"modality {cfg.name!r}: encoder={cfg.encoder!r} towers are not "
-            "ported yet; the port runs encoder='mlp'"
-        )
+    if cfg.encoder in ("conv", "conv_pallas"):
+        from vae_assoc_tpu_torch.models import conv as conv_mod
+
+        if cfg.encoder == "conv_pallas":
+            from vae_assoc_tpu_torch.kernels import conv as kconv
+
+            return (conv_mod.init_conv_vae_params, kconv.encode_conv_fused,
+                    kconv.decode_conv_fused)
+        return conv_mod.init_conv_vae_params, conv_mod.encode_conv, conv_mod.decode_conv
     if use_pallas:
         from vae_assoc_tpu_torch.kernels import mlp as kmlp
 

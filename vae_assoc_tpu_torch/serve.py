@@ -135,8 +135,12 @@ class Predictor:
         """Build the kernel library and run each endpoint once per bucket.
 
         Nothing is compiled per shape here; this moves the one-time kernel
-        build and CUDA's lazy module loading off the request threads."""
-        if self.use_pallas and self.device.type == "cuda":
+        build and CUDA's lazy module loading off the request threads. A
+        ``conv_pallas`` modality runs the conv kernels whatever
+        ``use_pallas`` says, so it needs the library too."""
+        kernels = self.use_pallas or any(
+            m.encoder == "conv_pallas" for m in self.cfg.modalities)
+        if kernels and self.device.type == "cuda":
             from vae_assoc_tpu_torch.kernels import _build
 
             _build.load()
