@@ -27,13 +27,15 @@ Phases, each of which raises on failure (nothing is caught):
    both paths at buckets 1 to 1024.
 5. Times: Predictor.cross_generate image→trajectory p50/p95 per bucket for
    both paths, and each tower's device time (CUDA events) against its plain
-   twin.
+   twin at every bucket and at B = 16384.
 6. The training kernels against their plain twins on the card: the tower
    forward (injected and seeded ε), the decoder+loss backward, the encoder
    backward and the weight-gradient kernel, for the config-3 towers and a
    conditional image tower (n_cond=10), batches 1 to 16384, fp32
    (rtol = atol = 1e-4) and bf16 (2e-2); a gradient summed over the batch
-   takes atol = tol × max|want|.
+   takes atol = tol × max|want|. The weight-gradient kernel also runs on
+   widths that are not multiples of 4 (the conditional tower's 510 × 794)
+   and gives identical bits on a second call.
 6b. The composable training path's kernels against their twins on the
    card: the decoder backward (image, trajectory, conditional and depth-3
    decoders, fp32 and bf16), the sampler (ε at rtol = atol = 1e-6, z) and
@@ -42,8 +44,9 @@ Phases, each of which raises on failure (nothing is caught):
 6c. The conv kernels against their twins on the card, batches 1 to 16384,
    fp32 and bf16: conv_fwd on all four layer shapes of the conv tower, as
    the layer's forward and as its input gradient (the four uses of the
-   primitive), conv_dw on all four, conv_enc (every output) and conv_dec
-   (every output, kinds bernoulli and gaussian).
+   primitive; each gives identical bits on a second call), conv_dw on all
+   four, conv_enc (every output) and conv_dec (every output, kinds
+   bernoulli and gaussian).
 7. Training, the port's second main path: config 3 at full width from
    seed 0, trained through train_loop on the kernels (use_pallas="mega")
    and on the plain path. Step-0 gradients agree within phase 6's
@@ -73,20 +76,26 @@ Phases, each of which raises on failure (nothing is caught):
    paths), and at config 5's settings (all three paths), on 65,536
    synthetic pairs featurized on the card; and each training kernel's
    time per call against its twin's (and, for the weight-gradient kernel,
-   torch.matmul's): CUDA events around the calls, and the device's busy
-   time from torch.profiler, which leaves out the device waiting for the
-   host (what the JSON record reports where the profiler measured it).
+   torch.matmul's), fp32 and bf16: CUDA events around the calls, and the
+   device's busy time from torch.profiler, which leaves out the device
+   waiting for the host (what the JSON record reports where the profiler
+   measured it).
 8d. Times of config 4: train_loop_fused samples/s at batch 64 fp32 and
    batch 2048 bf16 on the plain, conv mega, conv_pallas mega and
-   conv_pallas composable paths in turns, plain first and last; each conv
-   kernel per call against its twin at B = 1024 and 16384 (conv_fwd and
-   conv_dw on conv2, also against F.conv2d and torch.nn.grad.conv2d_weight),
-   and each layer's conv_fwd, dx and conv_dw at B = 16384.
+   conv_pallas composable paths in turns, plain first and last; at B = 1024
+   and 16384, conv_fwd in all eight uses (each layer's forward and input
+   gradient), fp32 and bf16, against its twin and one cuDNN call checked
+   to compute the same function (F.conv2d, F.conv_transpose2d or
+   torch.nn.grad.conv2d_input), conv_dw on conv2 against its twin and
+   torch.nn.grad.conv2d_weight, conv_enc and conv_dec against their twins;
+   and each layer's conv_dw at B = 16384.
 
 The line before the last is the kernel record as JSON, each kernel with
 its bound: the larger of the bytes it must move over 3.35 TB/s and its
-operations over 67 TFLOP/s (fp32, no tensor cores), the H100 SXM data
-sheet's rates. The last line is {"ok": true, "device": {...}}. Without a
+operations over 67 TFLOP/s (fp32, no tensor cores) or, for a bf16 call,
+989 TFLOP/s (tensor cores), the H100 SXM data sheet's rates. The two
+kernels with a bf16 route on tensor cores (wgrad, conv_fwd) also carry a
+"bf16" object with the same fields. The last line is {"ok": true, "device": {...}}. Without a
 CUDA device, or without the package beside this file, the script exits
 non-zero and prints no result.
 """
@@ -119,6 +128,7 @@ COMPOSABLE_PER_STEP = {"enc_fwd": 2, "reparam": 2, "dec_fwd": 2, "loss_fwd": 1,
 towers: 3 weight-gradient launches per decoder, 4 per encoder."""
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
+BF16_FLOPS_PER_S = 989e12
 
 
 def _card() -> str:
@@ -289,14 +299,19 @@ def check_train_kernels(rng, batches=TRAIN_BATCHES):
                 for i, (g, w) in enumerate(zip(got[0], want[0])):
                     pairs += [(f"dw{i}", g[0], w[0], True), (f"db{i}", g[1], w[1], True)]
                 line["enc_bwd"].append(record(("enc_bwd", tower, b, cd), pairs, tol))
-                a = torch.from_numpy(rng.uniform(0, 1, (b, 500)).astype(np.float32)).cuda()
-                d = torch.from_numpy(rng.normal(size=(b, n_x)).astype(np.float32)).cuda()
+                # The conditional tower's widths (510, 794) are not multiples
+                # of 4: the kernel's one-by-one loads.
+                a = torch.from_numpy(rng.uniform(0, 1, (b, 500 + n_cond)).astype(np.float32)).cuda()
+                d = torch.from_numpy(rng.normal(size=(b, n_x + n_cond)).astype(np.float32)).cuda()
                 got = kmlp.weight_grads(a, d, compute_dtype=cd)
                 want = kmlp.weight_grads_plain(a, d, compute_dtype=cd)
+                again = kmlp.weight_grads(a, d, compute_dtype=cd)
                 torch.cuda.synchronize()
                 line["wgrad"].append(record(
                     ("wgrad", tower, b, cd),
                     [("dw", got[0], want[0], True), ("db", got[1], want[1], True)], tol))
+                if not all(torch.equal(g, r) for g, r in zip(got, again)):
+                    failed.append(f"wgrad {tower} B={b} {cd}: two calls differ")
             for k, v in line.items():
                 print(f"check {tower} {k} {cd} (tol {tol}): " + " ".join(
                     f"B={b}:{e:.2e}" for b, e in zip(batches, v)), flush=True)
@@ -690,21 +705,9 @@ def time_train_kernels(rng, card):
                     fns = {"kernel": kern, "plain": plain}
                     if name in library:
                         fns["library"] = library[name]
-                    for _ in range(2):
-                        for fn in fns.values():
-                            fn()
-                    runs = {which: [] for which in fns}
-                    for which in ("plain", "kernel", "kernel", "plain"):
-                        runs[which].append(_device_ms(fns[which], n=10))
-                    if "library" in fns:
-                        runs["library"] += [_device_ms(fns["library"], n=10) for _ in range(2)]
-                    call = {which: float(np.mean(r)) for which, r in runs.items()}
-                    busy = {which: _profiled_ms(fn) for which, fn in fns.items()}
-                    times[(name, b, cd)] = {"call": call, "device": busy}
-                    print(f"time {name} image B={b} {cd}, ms per call (CUDA events) / device "
-                          "busy per call (profiler): " + ", ".join(
-                              f"{which} {call[which]:.4f} / {_fmt(busy[which])}"
-                              for which in fns) + f" [{card}]", flush=True)
+                    bound = _bound(*_wgrad_work(b), cd) if name == "wgrad" else None
+                    times[(name, b, cd)] = _time_case(f"{name} image B={b} {cd}", fns, card,
+                                                      bound, n=10)
     return times
 
 
@@ -714,9 +717,13 @@ def _fmt(ms):
 
 def _profiled_ms(fn, n=10):
     """Device time per call of ``fn``: the own time of the CUDA kernels and
-    copies it launches, summed over ``n`` calls by torch.profiler; None when
-    the profiler records no device time. Unlike CUDA events around the
-    calls, this leaves out the time the device waits for the host."""
+    copies it launches, summed over ``n`` calls by torch.profiler. Unlike
+    CUDA events around the calls, this leaves out the time the device waits
+    for the host. None when the profiler recorded fewer device activities
+    than calls: each call launches at least one kernel, and the profiler
+    has been seen to drop launches of the kernels in the ctypes library
+    (all of a window's, or busy times near 3/5 of the CUDA events'), which
+    would read as a shorter time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -724,9 +731,9 @@ def _profiled_ms(fn, n=10):
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA)
-    return us / n / 1e3 if us > 0 else None
+    device = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    us = sum(e.self_device_time_total for e in device)
+    return us / n / 1e3 if us > 0 and sum(e.count for e in device) >= n else None
 
 
 # The conv tower's four layers: (cin, input size, cout, stride, dilate, pads,
@@ -804,7 +811,11 @@ def check_conv_kernels(rng, batches=TRAIN_BATCHES):
                                               *kconv.DX_GEOMETRY[(s, dil, pads)], h, cd)
                 gdw = kconv.conv_dw(x, dy, s, dil, pads, oh, compute_dtype=cd)
                 wdw = kconv.conv_dw_plain(x, dy, s, dil, pads, oh, cd)
+                again = (kconv.conv_fwd(x, w2d, s, dil, pads, oh, compute_dtype=cd),
+                         kconv.conv_dx(dy, w2d, cin, s, dil, pads, h, compute_dtype=cd))
                 torch.cuda.synchronize()
+                if not (torch.equal(got, again[0]) and torch.equal(gdx, again[1])):
+                    failed.append(f"conv_fwd {name} B={b} {cd}: two calls differ")
                 for key, pairs in ((("conv_fwd", name, b, cd), [("y", got, want, False)]),
                                    (("conv_fwd", f"{name} dx", b, cd), [("dx", gdx, wdx, False)]),
                                    (("conv_dw", name, b, cd), [("dw", gdw, wdw, True)])):
@@ -997,23 +1008,89 @@ def time_conv_training(card):
     return rates
 
 
-def time_conv_kernels(rng, card):
-    """Phase 8d: device ms per call of the four conv kernels against their
-    twins (conv_fwd and conv_dw on conv2, the encoder's main layer) and
-    against one PyTorch call where one computes the same function
-    (``library``): F.conv2d for the stride-2 conv and
-    torch.nn.grad.conv2d_weight for its weight gradient, on the input padded
-    (0, 1) beforehand (a cuDNN conv pads symmetrically), in NCHW. Then each
-    layer's forward, dx and dw kernel at B = 16384 (CUDA events)."""
+def _conv_use(m, name, use, b, t):
+    """(x, w2d, stride, dilate, pads, out_hw) of conv_fwd in one use on a
+    layer: the layer's forward, or its input gradient (dy, the flipped
+    weight and the mapped geometry, as kernels/conv.py::conv_dx)."""
+    from vae_assoc_tpu_torch.kernels import conv as kconv
+
+    cin, h, cout, s, dil, pads, oh = CONV_LAYERS[name]
+    w2d = _conv_w2d(m, name)
+    if use == "fwd":
+        return t(b, h, h, cin), w2d, s, dil, pads, oh
+    return (t(b, oh, oh, cout), kconv.flip_w2d(w2d, cin, cout),
+            *kconv.DX_GEOMETRY[(s, dil, pads)], h)
+
+
+def _conv_library(m, name, use, x, cd):
+    """One cuDNN call that computes conv_fwd's function in this use, on NCHW
+    copies of the input and the layer's HWIO weight w in the compute dtype
+    (made here, not timed), and the map of its result to NHWC fp32:
+    F.conv2d on the input padded (0, 1) for the stride-2 mode (the conv's
+    forward; the transposed conv's dx, with w flipped in both spatial axes
+    as [cin, cout, 3, 3]); F.conv_transpose2d with that flipped weight,
+    cropped to 2h, for the transposed conv's forward; conv2d_input on the
+    (0, 1)-padded input's shape, cropped to h, for the conv's dx."""
     import torch.nn.functional as F
 
+    cin, h, *_ = CONV_LAYERS[name]
+    dt = torch.bfloat16 if cd == "bfloat16" else torch.float32
+    w = (m.gener if name.startswith("convt") else m.recog)[name].w.detach()
+    xn = x.permute(0, 3, 1, 2).to(dt).contiguous()
+    flipped = w.flip(0, 1).permute(2, 3, 0, 1).to(dt).contiguous()
+    if name.startswith("conv") and not name.startswith("convt") and use == "fwd":
+        xp, wo = F.pad(xn, (0, 1, 0, 1)), w.permute(3, 2, 0, 1).to(dt).contiguous()
+        return (lambda: F.conv2d(xp, wo, stride=2)), lambda r: r.permute(0, 2, 3, 1).float()
+    if use == "dx" and name.startswith("convt"):
+        xp = F.pad(xn, (0, 1, 0, 1))
+        return (lambda: F.conv2d(xp, flipped, stride=2)), lambda r: r.permute(0, 2, 3, 1).float()
+    if use == "fwd":
+        out = 2 * h
+        return (lambda: F.conv_transpose2d(xn, flipped, stride=2),
+                lambda r: r[:, :, :out, :out].permute(0, 2, 3, 1).float())
+    wo = w.permute(3, 2, 0, 1).to(dt).contiguous()
+    shape = (x.shape[0], cin, h + 1, h + 1)
+    return (lambda: torch.nn.grad.conv2d_input(shape, wo, xn, stride=2),
+            lambda r: r[:, :, :h, :h].permute(0, 2, 3, 1).float())
+
+
+def _time_case(label, fns, card, bound=None, n=5):
+    """{"call": CUDA-event ms per call, "device": profiler busy ms per call}
+    of each function in ``fns`` (kernel, plain, and library where given):
+    two warm-up rounds, then plain, kernel, kernel, plain and the library
+    twice, ``n`` calls each."""
+    for _ in range(2):
+        for fn in fns.values():
+            fn()
+    runs = {which: [] for which in fns}
+    for which in ("plain", "kernel", "kernel", "plain"):
+        runs[which].append(_device_ms(fns[which], n=n))
+    if "library" in fns:
+        runs["library"] += [_device_ms(fns["library"], n=n) for _ in range(2)]
+    call = {which: float(np.mean(r)) for which, r in runs.items()}
+    busy = {which: _profiled_ms(fn, n=n) for which, fn in fns.items()}
+    tail = "" if bound is None else f"; bound {bound[0]:.4f} ({bound[1]})"
+    print(f"time {label}, ms per call (CUDA events) / device busy per call (profiler): "
+          + ", ".join(f"{which} {call[which]:.4f} / {_fmt(busy[which])}" for which in fns)
+          + f"{tail} [{card}]", flush=True)
+    return {"call": call, "device": busy}
+
+
+def time_conv_kernels(rng, card):
+    """Phase 8d: device ms per call of the conv kernels at B = 1024 and
+    16384: conv_fwd in each of its eight uses (the four layers' forward and
+    input gradient), fp32 and bf16, against its twin and one cuDNN call
+    (_conv_library, checked to compute the same function); conv_dw on conv2
+    against its twin and torch.nn.grad.conv2d_weight (on the input padded
+    (0, 1), NCHW), conv_enc and conv_dec against their twins (fp32); then
+    conv_dw on each layer at B = 16384 (CUDA events)."""
     from vae_assoc_tpu_torch.kernels import conv as kconv
     from vae_assoc_tpu_torch.kernels import conv_mega as kcm
 
     m = _conv_model(5)
     flat = [t.detach() for t in kcm.flatten(m)]
     w2 = m.recog["conv2"].w.detach()
-    w2d, w_oihw = w2.reshape(288, 64), w2.permute(3, 2, 0, 1).contiguous()
+    w_oihw = w2.permute(3, 2, 0, 1).contiguous()
     times = {}
 
     def t(*shape, lo=-1.0):
@@ -1021,57 +1098,47 @@ def time_conv_kernels(rng, card):
 
     with torch.no_grad():
         for b in TRAIN_TIMED:
+            for cd in TOL:
+                for name in CONV_LAYERS:
+                    for use in ("fwd", "dx"):
+                        x, w2d, s, dil, pads, oh = _conv_use(m, name, use, b, t)
+                        library, to_nhwc = _conv_library(m, name, use, x, cd)
+                        fns = {"kernel": lambda: kconv.conv_fwd(x, w2d, s, dil, pads, oh,
+                                                                compute_dtype=cd),
+                               "plain": lambda: kconv.conv_im2col_plain(x, w2d, s, dil, pads,
+                                                                        oh, cd),
+                               "library": library}
+                        if cd == "float32":
+                            assert _close(to_nhwc(library()), fns["kernel"](), 1e-4)[1], \
+                                f"the library call of conv_fwd {name} {use} is another function"
+                        times[("conv_fwd", name, use, b, cd)] = _time_case(
+                            f"conv_fwd {name} {use} B={b} {cd}", fns, card,
+                            _bound(*_conv_work(b, name), cd))
             x, dy, x3, z = t(b, 14, 14, 32), t(b, 7, 7, 64), t(b, 28, 28, lo=0.0), t(b, 20)
-            xp = F.pad(x.permute(0, 3, 1, 2), (0, 1, 0, 1)).contiguous()
+            xp = torch.nn.functional.pad(x.permute(0, 3, 1, 2), (0, 1, 0, 1)).contiguous()
             dyn = dy.permute(0, 3, 1, 2).contiguous()
             cases = {
-                "conv_fwd": (lambda: kconv.conv_fwd(x, w2d, 2, False, (0, 1), 7),
-                             lambda: kconv.conv_im2col_plain(x, w2d, 2, False, (0, 1), 7)),
-                "conv_dw": (lambda: kconv.conv_dw(x, dy, 2, False, (0, 1), 7),
-                            lambda: kconv.conv_dw_plain(x, dy, 2, False, (0, 1), 7)),
-                "conv_enc": (lambda: kcm.conv_enc(flat[:10], x3),
-                             lambda: kcm.conv_enc_plain(flat[:10], x3)),
-                "conv_dec": (lambda: kcm.conv_dec(flat[10:], z, x3, kind="bernoulli"),
-                             lambda: kcm.conv_dec_plain(flat[10:], z, x3, kind="bernoulli")),
+                "conv_dw": {"kernel": lambda: kconv.conv_dw(x, dy, 2, False, (0, 1), 7),
+                            "plain": lambda: kconv.conv_dw_plain(x, dy, 2, False, (0, 1), 7),
+                            "library": lambda: torch.nn.grad.conv2d_weight(
+                                xp, w_oihw.shape, dyn, stride=2)},
+                "conv_enc": {"kernel": lambda: kcm.conv_enc(flat[:10], x3),
+                             "plain": lambda: kcm.conv_enc_plain(flat[:10], x3)},
+                "conv_dec": {"kernel": lambda: kcm.conv_dec(flat[10:], z, x3, kind="bernoulli"),
+                             "plain": lambda: kcm.conv_dec_plain(flat[10:], z, x3,
+                                                                 kind="bernoulli")},
             }
-            library = {
-                "conv_fwd": lambda: F.conv2d(xp, w_oihw, stride=2),
-                "conv_dw": lambda: torch.nn.grad.conv2d_weight(xp, w_oihw.shape, dyn, stride=2),
-            }
-            # The yardsticks compute the kernels' functions.
-            got, lib = kconv.conv_fwd(x, w2d, 2, False, (0, 1), 7), library["conv_fwd"]()
-            assert _close(lib.permute(0, 2, 3, 1), got, 1e-4)[1], "F.conv2d is another function"
-            got, lib = kconv.conv_dw(x, dy, 2, False, (0, 1), 7), library["conv_dw"]()
+            got, lib = cases["conv_dw"]["kernel"](), cases["conv_dw"]["library"]()
             assert _close(lib.permute(2, 3, 1, 0).reshape(288, 64), got, 1e-4, summed=True)[1], \
                 "conv2d_weight is another function"
-            for name, (kern, plain) in cases.items():
-                fns = {"kernel": kern, "plain": plain}
-                if name in library:
-                    fns["library"] = library[name]
-                for _ in range(2):
-                    for fn in fns.values():
-                        fn()
-                runs = {which: [] for which in fns}
-                for which in ("plain", "kernel", "kernel", "plain"):
-                    runs[which].append(_device_ms(fns[which], n=5))
-                if "library" in fns:
-                    runs["library"] += [_device_ms(fns["library"], n=5) for _ in range(2)]
-                call = {which: float(np.mean(r)) for which, r in runs.items()}
-                busy = {which: _profiled_ms(fn, n=5) for which, fn in fns.items()}
-                times[(name, b)] = {"call": call, "device": busy}
-                print(f"time {name} B={b} float32, ms per call (CUDA events) / device busy per "
-                      "call (profiler): " + ", ".join(
-                          f"{which} {call[which]:.4f} / {_fmt(busy[which])}" for which in fns)
-                      + f" [{card}]", flush=True)
+            for name, fns in cases.items():
+                times[(name, b)] = _time_case(f"{name} B={b} float32", fns, card)
         b = TRAIN_TIMED[-1]
         for name, (cin, h, cout, s, dil, pads, oh) in CONV_LAYERS.items():
-            w = _conv_w2d(m, name)
             x, dy = t(b, h, h, cin), t(b, oh, oh, cout)
-            ms = {"fwd": _device_ms(lambda: kconv.conv_fwd(x, w, s, dil, pads, oh), n=3),
-                  "dx": _device_ms(lambda: kconv.conv_dx(dy, w, cin, s, dil, pads, h), n=3),
-                  "dw": _device_ms(lambda: kconv.conv_dw(x, dy, s, dil, pads, oh), n=3)}
-            print(f"time conv kernels, layer {name} B={b} float32, ms per call (CUDA events): "
-                  + ", ".join(f"{k} {v:.4f}" for k, v in ms.items()) + f" [{card}]", flush=True)
+            ms = _device_ms(lambda: kconv.conv_dw(x, dy, s, dil, pads, oh), n=3)
+            print(f"time conv_dw, layer {name} B={b} float32, ms per call (CUDA events): "
+                  f"{ms:.4f} [{card}]", flush=True)
     return times
 
 
@@ -1233,7 +1300,8 @@ def _device_ms(fn, n=50):
 
 def time_kernels(model, cd, rng, card):
     """Phase 5b: device time per launch of each config-3 tower, kernel
-    against plain twin, in turns (plain, kernel, kernel, plain)."""
+    against plain twin, in turns (plain, kernel, kernel, plain), at the
+    serving buckets and at the training batch 16384."""
     from vae_assoc_tpu_torch.kernels import mlp as kmlp
 
     img, traj = model.modalities
@@ -1245,7 +1313,7 @@ def time_kernels(model, cd, rng, card):
     }
     times = {}
     with torch.inference_mode():
-        for b in BUCKETS:
+        for b in BUCKETS + TRAIN_TIMED[-1:]:
             for name, (fused, plain, m, width) in stacks.items():
                 x = torch.from_numpy(rng.uniform(0, 1, (b, width)).astype(np.float32)).cuda()
                 runs = {"kernel": [], "plain": []}
@@ -1268,10 +1336,12 @@ IMAGE_DEC = (20, 500, 500, 784)
 TRAJ_DEC = (20, 500, 500, 200)
 
 
-def _bound(nbytes, flops):
+def _bound(nbytes, flops, compute_dtype="float32"):
     """(bound_ms, bound_by): the larger of the bytes over the card's memory
-    rate and the fp32 operations over its peak without tensor cores."""
-    tb, tf = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS_PER_S
+    rate and the operations over its peak for their type: bf16 on the
+    tensor cores, fp32 without them."""
+    peak = BF16_FLOPS_PER_S if compute_dtype == "bfloat16" else FP32_FLOPS_PER_S
+    tb, tf = nbytes / HBM_BYTES_PER_S, flops / peak
     return max(tb, tf) * 1e3, ("bytes" if tb >= tf else "operations")
 
 
@@ -1339,6 +1409,12 @@ def _loss_work(b, bwd, widths=(784, 200), n_z=20):
         nbytes = 4 * b * (inputs + 5)
         flops = b * (8 * widths[0] + 3 * widths[1] + 2 * 6 * n_z + 3 * n_z)
     return nbytes, flops
+
+
+def _wgrad_work(b, m=500, n=784):
+    """(bytes, flops) of dW = AᵀD and db over b rows: A [b, m] and D [b, n]
+    read, dW and db written."""
+    return 4 * (b * (m + n) + (m + 1) * n), 2 * b * m * n
 
 
 def _conv_macs(name):
@@ -1450,8 +1526,7 @@ def main() -> int:
          _bound(*_stack_bwd_work(big, IMAGE_ENC, heads=2))),
         ("wgrad", CSRC + "mlp_bwd.cu", "vae_assoc_tpu/kernels/mlp.py:285",
          train_launches, ("wgrad", "image", big, "float32"),
-         train_times[("wgrad", big, "float32")],
-         _bound(4 * (big * (500 + 784) + 501 * 784), 2 * big * 500 * 784)),
+         train_times[("wgrad", big, "float32")], _bound(*_wgrad_work(big))),
         ("dec_bwd", CSRC + "mlp_bwd.cu", "vae_assoc_tpu/kernels/mlp.py:495",
          composable_launches, ("dec_bwd", "image", small, "float32"),
          train_times[("dec_bwd", small, "float32")],
@@ -1467,7 +1542,8 @@ def main() -> int:
          train_times[("loss_bwd", small, "float32")], _bound(*_loss_work(small, bwd=True))),
         ("conv_fwd", CSRC + "conv.cu",
          "vae_assoc_tpu/kernels/conv.py:103, vae_assoc_tpu/kernels/conv_banded.py:125",
-         conv_launches, ("conv_fwd", "conv2", big, "float32"), train_times[("conv_fwd", big)],
+         conv_launches, ("conv_fwd", "conv2", big, "float32"),
+         train_times[("conv_fwd", "conv2", "fwd", big, "float32")],
          _bound(*_conv_work(big, "conv2"))),
         ("conv_dw", CSRC + "conv.cu", "vae_assoc_tpu/kernels/conv.py:125", conv_launches,
          ("conv_dw", "conv2", big, "float32"), train_times[("conv_dw", big)],
@@ -1479,23 +1555,37 @@ def main() -> int:
          conv_launches, ("conv_dec", "bernoulli", big, "float32"),
          train_times[("conv_dec", big)], _bound(*_conv_dec_work(big))),
     ]
+    # The two kernels this record also gives in bf16: (times, bound, error key).
+    bf16 = {
+        "wgrad": (train_times[("wgrad", big, "bfloat16")],
+                  _bound(*_wgrad_work(big), "bfloat16"), ("wgrad", "image", big, "bfloat16")),
+        "conv_fwd": (train_times[("conv_fwd", "conv2", "fwd", big, "bfloat16")],
+                     _bound(*_conv_work(big, "conv2"), "bfloat16"),
+                     ("conv_fwd", "conv2", big, "bfloat16")),
+    }
+
+    def ms(timed, which):
+        """The profiler's device time where it has one, else CUDA events."""
+        t = timed["device"].get(which)
+        return t if t is not None else timed["call"].get(which)
+
     kernels = []
     for name, src, replaces, counts, err_key, timed, (bound_ms, bound_by) in rows:
         errs_of = errs if name in ("enc_fwd", "dec_fwd") else train_errs
         if isinstance(timed, tuple):  # phase 5b: CUDA events (kernel, plain)
             timed = {"call": dict(zip(("kernel", "plain"), timed)), "device": {}}
-
-        def ms(which, timed=timed):
-            """The profiler's device time where it has one, else CUDA events."""
-            t = timed["device"].get(which)
-            return t if t is not None else timed["call"].get(which)
-
-        kernels.append({
+        row = {
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
             "launches": counts[name], "max_abs_err": errs_of[err_key],
-            "ms": ms("kernel"), "plain_ms": ms("plain"), "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": ms("library"),
-        })
+            "ms": ms(timed, "kernel"), "plain_ms": ms(timed, "plain"), "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": ms(timed, "library"),
+        }
+        if name in bf16:
+            t16, (b16_ms, b16_by), key16 = bf16[name]
+            row["bf16"] = {"max_abs_err": train_errs[key16], "ms": ms(t16, "kernel"),
+                           "plain_ms": ms(t16, "plain"), "bound_ms": b16_ms,
+                           "bound_by": b16_by, "library_ms": ms(t16, "library")}
+        kernels.append(row)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

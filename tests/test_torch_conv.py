@@ -204,6 +204,99 @@ def test_dw_twin_matches_pallas(name, cd):
     _close_summed(got, want, RTOL if cd == "float32" else BF16, err_msg=name)
 
 
+PHASE_CASES = [(n, use, cd) for n in sorted(LAYERS) for use in ("fwd", "dx")
+               for cd in ("float32", "bfloat16")]
+
+
+def _use_args(name, use):
+    """(x, w2d, stride, dilate, pads, out_hw) of the conv kernel in one use
+    on a layer: the forward, or the input gradient (dy, the flipped weight,
+    the mapped geometry), as numpy."""
+    x, w, _, dy, (stride, dilate, pads, oh) = _layer(name)
+    cin, h, cout, _ = LAYERS[name]
+    w2d = w.reshape(9 * cin, cout)
+    if use == "fwd":
+        return x, w2d, stride, dilate, pads, oh
+    mapped = tkc.DX_GEOMETRY[(stride, dilate, pads)]
+    return (dy, np.array(jkc._flip_w2d(jnp.asarray(w2d), cin, cout)), *mapped, h)
+
+
+@pytest.mark.parametrize("name,use,cd", PHASE_CASES)
+@torch.no_grad()
+def test_phase_plan_mirror_matches_pallas(name, use, cd):
+    # The kernel's phase plan (parity classes over the undilated input) run
+    # in torch against the reference's im2col kernel, in every use of every
+    # layer. 1e-5 in both dtypes: only the order of the fp32 sums differs
+    # (a bf16 × bf16 product is exact in fp32).
+    args = _use_args(name, use)
+    want = jkc._conv_im2col(jnp.asarray(args[0]), jnp.asarray(args[1]), *args[2:], cd)
+    got = tkc.conv_phase_plain(torch.from_numpy(args[0]), torch.from_numpy(args[1]),
+                               *args[2:], cd)
+    _close(got, want, 1e-5, 1e-5, err_msg=f"{name} {use} {cd}")
+
+
+@pytest.mark.parametrize("stride,dilate,pads,h,out_hw", [
+    (2, False, (0, 1), 14, 7),   # the stride-2 conv: one class of 9 taps
+    (1, True, (2, 1), 7, 14),    # the transposed conv: 4 classes, 9 taps in all
+    (1, True, (2, 2), 7, 14),    # the conv's dx, clipped to the input size
+    (1, True, (2, 1), 5, 9),     # odd output size: classes of unequal pixel counts
+])
+def test_phase_plan_covers_each_nonzero_tap_once(stride, dilate, pads, h, out_hw):
+    lo, hi = pads
+    size = 2 * h - 1 if dilate else h
+    want = set()
+    for oy in range(out_hw):
+        for ox in range(out_hw):
+            for ky in range(3):
+                for kx in range(3):
+                    py, px = stride * oy + ky - lo, stride * ox + kx - lo
+                    if not (0 <= py < size and 0 <= px < size):
+                        continue  # padding
+                    if dilate and (py % 2 or px % 2):
+                        continue  # a dilation zero
+                    want.add((oy, ox, 3 * ky + kx))
+    got = []
+    for c in tkc.phase_plan(stride, dilate, lo, out_hw):
+        assert c.ostep * (c.nqy - 1) + c.oy0 < out_hw and c.ostep * (c.nqx - 1) + c.ox0 < out_hw
+        for qy in range(c.nqy):
+            for qx in range(c.nqx):
+                for wrow, dy, dx in c.taps:
+                    iy, ix = c.istep * qy + dy, c.istep * qx + dx
+                    if 0 <= iy < h and 0 <= ix < h:
+                        got.append((c.oy0 + c.ostep * qy, c.ox0 + c.ostep * qx, wrow))
+    assert len(got) == len(set(got)), "a (pixel, tap) product is computed twice"
+    assert set(got) == want
+    if dilate:  # 9 tap products per 4 output pixels, not 36
+        assert sum(c.nqy * c.nqx * len(c.taps) for c in tkc.phase_plan(
+            stride, dilate, lo, 2 * h)) == 9 * h * h
+
+
+@pytest.mark.parametrize("name,use,cd", PHASE_CASES)
+def test_fwd_tile_plan_fits_shared_memory(name, use, cd):
+    x, w2d, stride, dilate, pads, oh = _use_args(name, use)
+    cin, cout = x.shape[-1], w2d.shape[1]
+    plan = tkc.phase_plan(stride, dilate, pads[0], oh)
+    route, tile, smem = tkc.fwd_tile_plan(plan, cin, cout, cd)
+    want = ("dot" if cout == 1 else "taps" if cin == 1
+            else "mma" if cd == "bfloat16" else "ffma")
+    assert (route, tile) == (want, {"dot": 128, "taps": 128, "mma": 128, "ffma": 256}[want])
+    assert smem + tkc.PLAN_BYTES <= 232448
+    assert len(plan) == (4 if dilate else 1)
+
+
+def test_fwd_tile_plan_raises_past_shared_memory():
+    plan = tkc.phase_plan(2, False, 0, 7)
+    # fp32 keeps the weight, two 256-pixel slices and the pixel rows.
+    assert tkc.fwd_tile_plan(plan, 64, 32, "float32")[2] == 4 * (576 * 32 + 2 * 256 * 36) + 4096
+    assert tkc.fwd_tile_plan(plan, 64, 64, "bfloat16")[2] == 2 * (64 * 584 + 2 * 128 * 40) + 2048
+    # A block keeps only its class's taps: at most 4 of a dilated conv's.
+    dilated = tkc.phase_plan(1, True, 2, 14)
+    assert tkc.fwd_tile_plan(dilated, 64, 32)[2] == 4 * (256 * 32 + 2 * 256 * 36) + 4096
+    assert tkc.fwd_tile_plan(plan, 64, 64, "float32")[2] == 225280  # the widest fp32 fit
+    with pytest.raises(ValueError, match="shared memory"):
+        tkc.fwd_tile_plan(plan, 96, 64, "float32")
+
+
 VJP_CASES = ([(n, mod, "float32") for n in sorted(LAYERS) for mod in ("im2col", "banded")]
              + [("conv2", "banded", "bfloat16"), ("convt2", "im2col", "bfloat16")])
 

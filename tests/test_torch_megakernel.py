@@ -273,12 +273,27 @@ def test_tile_plans_lower_the_rows_and_raise_only_past_one_row():
 
 
 @pytest.mark.parametrize("batch,m,n,want", [
-    (16384, 500, 784, (5472, 3)),  # 104 tiles: 3 chunks fill two waves
-    (64, 500, 784, (64, 1)),        # too few rows to split
-    (16384, 500, 20, (512, 32)),    # 8 tiles: chunks of the minimum rows
-    (16383, 784, 500, (5472, 3)),   # a ragged batch: the last chunk is short
+    (16384, 500, 784, (1184, 14)),  # 28 tiles of 128 × 128: 392 blocks, 3 full waves
+    (64, 500, 784, (64, 1)),         # too few rows to split
+    (16384, 500, 20, (512, 32)),     # 4 tiles: chunks of the minimum rows
+    (16383, 784, 500, (1184, 14)),   # a ragged batch: the last chunk is short
 ])
 def test_wgrad_plan(batch, m, n, want):
     rows, chunks = tmlp.wgrad_plan(batch, m, n, n_sm=132)
     assert (rows, chunks) == want
     assert rows % tmlp.WGRAD_SLICE == 0 and rows * chunks >= batch > rows * (chunks - 1)
+
+
+def test_sm_count_is_queried_once_per_device(monkeypatch):
+    # The wrappers' tile plans read the SM count on every launch; the
+    # device query runs once per device and process.
+    calls = []
+
+    class _Props:
+        multi_processor_count = 132
+
+    monkeypatch.setattr(tmlp, "_sm_counts", {})
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda i: calls.append(i) or _Props())
+    assert [tmlp.sm_count(torch.device("cuda", 0)) for _ in range(3)] == [132] * 3
+    assert tmlp.sm_count("cuda:1") == 132 and calls == [0, 1]

@@ -149,7 +149,7 @@ def load() -> ctypes.CDLL:
             lib.vae_loss_fwd.argtypes = [ptr, i32, i32, i32, i32, ptr, ptr]
             lib.vae_loss_bwd.argtypes = [ptr, i32, i32, i32, i32, ptr, ptr]
             lib.vae_conv_fwd.argtypes = [
-                ptr, i32, i32, i32, i32, ptr, i32, i32, i32, i32, i32, i32,
+                ptr, i32, i32, i32, i32, ptr, i32, i32, ptr, i32, i32, i32,
                 ptr, i32, ptr,
             ]
             lib.vae_conv_dw.argtypes = [

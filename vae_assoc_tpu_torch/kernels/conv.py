@@ -6,11 +6,20 @@ same two layer functions. One kernel backs both: the banded formulation's
 band matrices and row-parity plans exist for the TPU's 128-lane layout,
 which Hopper does not have, so it is not ported as a module.
 
-    conv_fwd(x, w2d; stride, dilate, pads, out_hw)   csrc/conv.cu::conv_fwd
+    conv_fwd(x, w2d; stride, dilate, pads, out_hw)   csrc/conv.cu
       stride 2, no dilation, pads (0, 1)  the SAME stride-2 conv
       stride 1, dilated ×2, pads (2, 1)   the SAME stride-2 transposed conv
                                           (kernel not flipped)
     conv_dw(x, dy; same geometry)         csrc/conv.cu::conv_dw
+
+``conv_fwd`` runs a phase plan (:func:`phase_plan`): the output pixels split
+into parity classes, each a dense conv of the undilated input over only the
+taps that meet nonzero input (the sub-pixel split of a dilated conv: 9 tap
+products per 4 output pixels instead of 36; a stride-2 conv is one class of
+9 taps); the kernel's blockIdx.y picks the class. :func:`conv_phase_plain`
+runs the same plan in torch, and :func:`fwd_tile_plan` picks the kernel's
+route (register-tiled fp32, bf16 tensor cores, or the thin layers' lane
+groups and tap loads).
 
 ``conv3x3_s2`` and ``convt3x3_s2`` call one ``torch.autograd.Function``
 (the reference's ``_conv_im2col`` custom VJP) whose backward is the kernels
@@ -29,6 +38,11 @@ the kernel or raises.
 
 from __future__ import annotations
 
+import ctypes
+import functools
+import itertools
+from typing import NamedTuple
+
 import torch
 
 from vae_assoc_tpu_torch.kernels import _build, _launches
@@ -41,6 +55,17 @@ DW_SLICE = 16
 DW_MIN_ROWS = 512
 MAX_COUT = 64
 """Output channels the kernels take (``kMaxCout`` in csrc/conv.cu)."""
+ROUTES = ("taps", "dot", "ffma", "mma")
+"""conv_fwd's routes (``Route`` in csrc/conv.cu)."""
+STAGE_K = 32
+"""Patch columns per staged slice of the tiled routes (``kStageK``)."""
+FFMA_TILE, MMA_TILE, DOT_TILE, TAPS_PIX = 256, 128, 128, 2
+"""Output pixels per block tile of the fp32, bf16 and cout = 1 routes;
+pixels per thread of the taps route."""
+FWD_THREADS = 256
+MAX_CLASSES = 4
+PLAN_BYTES = 4 * (4 + 5 * MAX_CLASSES + 3 * K * K)
+"""The plan as the kernel keeps it in shared memory (``PhasePlan``)."""
 
 # The input gradient of each layer geometry: (stride, dilate, pads) of the
 # forward → those of the conv that computes dx from dy (the reference's
@@ -89,6 +114,143 @@ def flip_w2d(w2d, cin: int, cout: int):
     return w.reshape(K * K * cout, cin).contiguous()
 
 
+class PhaseClass(NamedTuple):
+    """Output pixels (oy0 + ostep·qy, ox0 + ostep·qx) for qy < nqy, qx < nqx,
+    each the sum over ``taps`` (wrow = 3·ky + kx, dy, dx) of x[b, istep·qy
+    + dy, istep·qx + dx, :] · w2d[wrow·cin : (wrow + 1)·cin] (zero where
+    the input index leaves the image)."""
+    oy0: int
+    ox0: int
+    ostep: int
+    nqy: int
+    nqx: int
+    istep: int
+    taps: tuple
+
+
+def _axis_classes(stride: int, dilate: bool, lo: int, out: int):
+    """Parity classes along one axis: (first output, output step, count,
+    input step, ((k, input offset), ...)). Output o reads x̃[stride·o + k],
+    x̃ being x dilated ×2 when ``dilate`` and padded ``lo`` in front."""
+    if not dilate:
+        return [(0, 1, out, stride, tuple((k, k - lo) for k in range(K)))]
+    if stride % 2 == 0:  # every output has the same parity: one class
+        return [(0, 1, out, stride // 2,
+                 tuple((k, (k - lo) // 2) for k in range(K) if (k - lo) % 2 == 0))]
+    classes = []
+    for p in range(2):  # o = 2q + p reads x[stride·q + (stride·p + k − lo)/2]
+        n = (out - p + 1) // 2
+        taps = tuple((k, (stride * p + k - lo) // 2) for k in range(K)
+                     if (stride * p + k - lo) % 2 == 0)
+        if n > 0 and taps:
+            classes.append((p, 2, n, stride, taps))
+    return classes
+
+
+@functools.lru_cache(maxsize=64)
+def phase_plan(stride: int, dilate: bool, lo: int, out_hw: int) -> tuple:
+    """The parity classes that cover every (output pixel, tap meeting
+    nonzero input) of the conv exactly once: the product of the two axes'
+    classes (:class:`PhaseClass`). The kernel takes it by value."""
+    plan = []
+    for oy0, ostep, nqy, istep, ytaps in _axis_classes(stride, bool(dilate), lo, out_hw):
+        for ox0, _, nqx, _, xtaps in _axis_classes(stride, bool(dilate), lo, out_hw):
+            taps = tuple((K * ky + kx, dy, dx) for ky, dy in ytaps for kx, dx in xtaps)
+            plan.append(PhaseClass(oy0, ox0, ostep, nqy, nqx, istep, taps))
+    return tuple(plan)
+
+
+@functools.lru_cache(maxsize=64)
+def _plan_table(plan: tuple):
+    """The plan as the C entry point reads it (csrc/conv.cu::PhasePlan): the
+    class count, the tap count, the input and output steps; per class
+    (zero-padded to 4) oy0, ox0, its extent nqy, nqx and the end of its
+    taps; per tap (padded to 9) wrow, dy, dx, class after class."""
+    taps = [t for c in plan for t in c.taps]
+
+    def pad(v, n):
+        return list(v) + [0] * (n - len(v))
+
+    ends = list(itertools.accumulate(len(c.taps) for c in plan))
+    rows = [len(plan), len(taps), plan[0].istep, plan[0].ostep]
+    for field in ("oy0", "ox0", "nqy", "nqx"):
+        rows += pad([getattr(c, field) for c in plan], MAX_CLASSES)
+    rows += pad(ends, MAX_CLASSES)
+    for v in zip(*taps):
+        rows += pad(v, K * K)
+    return (ctypes.c_int * len(rows))(*rows)
+
+
+def conv_phase_plain(x, w2d, stride, dilate, pads, out_hw, compute_dtype="float32"):
+    """The phase plan run in torch: per class and tap, the shifted input
+    (zero outside the image) times the tap's rows of the weight, written
+    to the class's output pixels. The kernel's arithmetic (operands
+    rounded under ``compute_dtype``, sums in fp32) in the plain twin's
+    function."""
+    cd = networks.dtype_name(compute_dtype)
+    b, h, w, cin = x.shape
+    cout = w2d.shape[1]
+    xr = networks.round_operand(x.float(), cd)
+    wr = networks.round_operand(w2d.float(), cd)
+    y = xr.new_zeros(b, out_hw, out_hw, cout)
+    for c in phase_plan(stride, bool(dilate), pads[0], out_hw):
+        acc = xr.new_zeros(b * c.nqy * c.nqx, cout)
+        for wrow, dy, dx in c.taps:
+            iy = c.istep * torch.arange(c.nqy) + dy
+            ix = c.istep * torch.arange(c.nqx) + dx
+            inside = ((iy >= 0) & (iy < h))[:, None] & ((ix >= 0) & (ix < w))[None, :]
+            patch = xr[:, iy.clamp(0, h - 1)][:, :, ix.clamp(0, w - 1)]
+            patch = patch * inside[None, :, :, None]
+            acc = acc + patch.reshape(-1, cin) @ wr[wrow * cin:(wrow + 1) * cin]
+        y[:, c.oy0::c.ostep, c.ox0::c.ostep] = acc.reshape(b, c.nqy, c.nqx, cout)
+    return y
+
+
+def fwd_route(cin: int, cout: int, compute_dtype="float32") -> str:
+    """conv_fwd's route: the tiled routes take cin in slices of 32 and
+    cout 32 or 64, bf16 on tensor cores (``mma``) and fp32 on FFMA
+    (``ffma``); cout = 1 takes 8 lanes per output pixel (``dot``, cin a
+    multiple of 32); cin = 1 and every other shape one pixel's channel
+    group per thread (``taps``)."""
+    if cin % STAGE_K == 0 and cout in (32, 64):
+        return "mma" if networks.dtype_name(compute_dtype) == "bfloat16" else "ffma"
+    if cout == 1 and cin % STAGE_K == 0:
+        return "dot"
+    return "taps"
+
+
+def _taps_groups(cout: int):
+    """(channels per thread, threads per pixel) of the taps route."""
+    cg = 8 if cout >= 8 else 1
+    return cg, -(-cout // cg)
+
+
+def fwd_tile_plan(plan: tuple, cin: int, cout: int, compute_dtype="float32"):
+    """(route, output pixels per block tile, dynamic shared memory in
+    bytes) of conv_fwd; csrc/conv.cu::fwd_smem computes the same bytes and
+    refuses a launch that disagrees. A block keeps its class's weight
+    (and, on the tiled routes, two slice buffers and the tile's pixel
+    rows). Raises when that does not fit a block's shared memory."""
+    route = fwd_route(cin, cout, compute_dtype)
+    k = max(len(c.taps) for c in plan) * cin
+    if route == "ffma":
+        tile = FFMA_TILE
+        smem = 4 * (k * cout + 2 * tile * (STAGE_K + 4)) + 16 * tile
+    elif route == "mma":
+        tile = MMA_TILE
+        smem = 2 * (cout * (k + 8) + 2 * tile * (STAGE_K + 8)) + 16 * tile
+    elif route == "dot":
+        tile, smem = DOT_TILE, 4 * k
+    else:
+        cg, groups = _taps_groups(cout)
+        tile, smem = FWD_THREADS // groups * TAPS_PIX, 4 * k * cg * groups
+    if smem + PLAN_BYTES > kmlp.SMEM_BYTES:
+        raise ValueError(f"the conv kernel keeps the weight in shared memory: "
+                         f"{k} patch columns × {cout} channels need {smem} bytes on the "
+                         f"{route} route, more than a block has")
+    return route, tile, smem
+
+
 def _chan_threads(cout: int) -> int:
     """Threads across the channels (csrc/conv.cu::chan_threads)."""
     rc = min(4, cout)
@@ -121,24 +283,35 @@ def _geometry(x, cout, stride, dilate, pads, out_hw):
                          f"output channels, got stride {stride}, cout {cout}")
     b, h, w, cin = x.shape
     lo, hi = pads
+    span = stride * (out_hw - 1) + K
+    if out_hw < 1 or min(lo, hi) < 0 or span > (2 * h - 1 if dilate else h) + lo + hi \
+            or span > (2 * w - 1 if dilate else w) + lo + hi:
+        raise ValueError(f"a {h}×{w} input padded {pads} cannot give {out_hw} outputs at "
+                         f"stride {stride}")
+    if max(x.numel(), b * out_hw * out_hw * cout) >= 2 ** 31:
+        raise ValueError("the conv kernels index with 32-bit offsets: split the batch")
     return (b, h, w, cin, cout, stride, int(bool(dilate)), lo, hi, out_hw)
 
 
 def _launch_fwd(x, w2d, stride, dilate, pads, out_hw, cd):
     dev = x.device
     x = x.detach().float().contiguous()
+    if x.data_ptr() % 16:  # the tiled routes read 16-byte vectors
+        x = x.clone()
     w2d = w2d.detach().float().contiguous()
     cin, cout = x.shape[-1], w2d.shape[1]
     kmlp._check_f32(w2d, dev, "w2d", (K * K * cin, cout))
-    geom = _geometry(x, cout, stride, dilate, pads, out_hw)
-    y = torch.empty(x.shape[0], out_hw, out_hw, cout, dtype=torch.float32, device=dev)
-    if x.shape[0] == 0:
+    b, h, w, *_ = _geometry(x, cout, stride, dilate, pads, out_hw)
+    y = torch.empty(b, out_hw, out_hw, cout, dtype=torch.float32, device=dev)
+    if b == 0:
         return y
+    plan = phase_plan(stride, bool(dilate), pads[0], out_hw)
+    route, _, smem = fwd_tile_plan(plan, cin, cout, cd)
     lib = _build.load()
-    b, h, w, cin, cout, s, dil, lo, hi, ohw = geom
     with torch.cuda.device(dev):
-        err = lib.vae_conv_fwd(x.data_ptr(), b, h, w, cin, w2d.data_ptr(), cout, s, dil,
-                               lo, hi, ohw, y.data_ptr(), int(cd == "bfloat16"),
+        err = lib.vae_conv_fwd(x.data_ptr(), b, h, w, cin, w2d.data_ptr(), cout, out_hw,
+                               _plan_table(plan), ROUTES.index(route), smem,
+                               kmlp.sm_count(dev), y.data_ptr(), int(cd == "bfloat16"),
                                kmlp._stream(x))
     _build.check(lib, err, "conv kernel launch")
     _launches.count(_launches.SERVING, "conv_fwd")
@@ -156,8 +329,7 @@ def _launch_dw(x, dy, stride, dilate, pads, out_hw, cd):
     if b == 0:
         return dw.zero_()
     lib = _build.load()
-    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-    rows, chunks = dw_plan(b * out_hw * out_hw, K * K * cin, cout, n_sm)
+    rows, chunks = dw_plan(b * out_hw * out_hw, K * K * cin, cout, kmlp.sm_count(dev))
     partial = (torch.empty(chunks * dw.numel(), dtype=torch.float32, device=dev)
                if chunks > 1 else None)
     with torch.cuda.device(dev):

@@ -157,7 +157,7 @@ def _launch_enc(enc_flat, x3, cd):
     mu, lv, a1, a2, h = buf(n_z), buf(n_z), buf(MID, MID, C1), buf(SMALL, SMALL, C2), buf(hr)
     if b:
         lib = _build.load()
-        tile = enc_plan(hr, b, torch.cuda.get_device_properties(dev).multi_processor_count)
+        tile = enc_plan(hr, b, kmlp.sm_count(dev))
         with torch.cuda.device(dev):
             err = lib.vae_conv_enc(x3.data_ptr(), b, _ptrs(flat), hr, n_z,
                                    *(t.data_ptr() for t in (mu, lv, a1, a2, h)), tile,
@@ -181,7 +181,7 @@ def _launch_dec(dec_flat, z, x3, kind, cd):
     rec, g1, g2, d1p, r = buf(), buf(hg), buf(SMALL, SMALL, C2), buf(MID, MID, C1), buf(IMG, IMG, 1)
     if b:
         lib = _build.load()
-        tile = dec_plan(hg, n_z, b, torch.cuda.get_device_properties(dev).multi_processor_count)
+        tile = dec_plan(hg, n_z, b, kmlp.sm_count(dev))
         with torch.cuda.device(dev):
             err = lib.vae_conv_dec(z.data_ptr(), x3.data_ptr(), b, _ptrs(flat), hg, n_z,
                                    int(kind == "bernoulli"),

@@ -1,5 +1,6 @@
 // Device helpers shared by the training kernels (mega.cu, mlp_bwd.cu,
-// sampling.cu, loss.cu).
+// sampling.cu, loss.cu, conv.cu), and the host side's once-per-process
+// launch bookkeeping.
 //
 // The building block is one dense layer over a tile of TM rows whose
 // activations sit in shared memory: y[r, j] = act[r, :] . W[:, j] (+ b[j]),
@@ -20,9 +21,12 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <mutex>
+
 namespace vae {
 
 constexpr int kThreads = 256;
+constexpr int kSmemLimit = 232448;  // dynamic shared memory a block may opt into
 
 template <bool BF16>
 __device__ __forceinline__ float operand(float v) {
@@ -188,6 +192,125 @@ cudaError_t set_smem(Kernel kernel, size_t smem) {
   return cudaFuncSetAttribute(kernel,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               (int)smem);
+}
+
+// Host bookkeeping of a kernel, done once per (device, kernel) and process
+// instead of on every launch: its dynamic shared-memory cap raised to
+// kSmemLimit less its static shared memory (a cap: each launch still asks
+// for its own size), and the blocks of kThreads threads an SM holds at
+// `smem` bytes, cached per size.
+inline cudaError_t launch_info(const void* fn, int smem, int* per_sm) {
+  struct Entry {
+    int dev;
+    const void* fn;
+    int smem;
+    int per_sm;
+  };
+  static std::mutex mu;
+  static Entry seen[64];
+  static int n_seen = 0;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  std::lock_guard<std::mutex> lock(mu);
+  bool capped = false;
+  for (int i = 0; i < n_seen; ++i) {
+    if (seen[i].dev != dev || seen[i].fn != fn) continue;
+    capped = true;
+    if (seen[i].smem == smem) {
+      *per_sm = seen[i].per_sm;
+      return cudaSuccess;
+    }
+  }
+  if (!capped) {
+    cudaFuncAttributes attr;
+    e = cudaFuncGetAttributes(&attr, fn);
+    if (e != cudaSuccess) return e;
+    e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             kSmemLimit - (int)attr.sharedSizeBytes);
+    if (e != cudaSuccess) return e;
+  }
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, fn, kThreads,
+                                                    smem);
+  if (e != cudaSuccess) return e;
+  if (n_seen < 64) seen[n_seen++] = Entry{dev, fn, smem, *per_sm};
+  return cudaSuccess;
+}
+
+// Tensor-core building blocks (mma.sync, sm_80 and later): bf16 operands,
+// fp32 accumulators. Fragment layouts are PTX's for m16n8k16 (row.col):
+// lane l holds A rows l/4 and l/4 + 8, B column l/4, C rows l/4 and
+// l/4 + 8 at columns 2 (l%4) and 2 (l%4) + 1.
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// Four 8x8 bf16 matrices; lanes 8i..8i+7 give the 16-byte rows of matrix i.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p))
+      : "memory");
+}
+
+// The same, each matrix transposed on the way (operands stored MN-major).
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p))
+      : "memory");
+}
+
+// c += a (16x16) . b (16x8).
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Asynchronous copies to shared memory (cp.async, sm_80 and later), grouped
+// per pipeline stage: 16 bytes (src 16-byte aligned) or 4, zero-filled when
+// !valid (src must still be a valid address: nothing is read from it).
+// The 16-byte copy streams through L2 only: each value is read once.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :
+               : "r"(smem_u32(dst)), "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :
+               : "r"(smem_u32(dst)), "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Waits until at most N of this thread's committed groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Four floats rounded to bf16 (to nearest even, as torch's .bfloat16()),
+// packed in order into 8 bytes.
+__device__ __forceinline__ uint2 pack_bf16x4(float4 v) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
+  const __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
+  return make_uint2(*reinterpret_cast<const uint32_t*>(&lo),
+                    *reinterpret_cast<const uint32_t*>(&hi));
 }
 
 }  // namespace vae

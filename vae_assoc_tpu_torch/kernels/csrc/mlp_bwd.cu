@@ -21,12 +21,14 @@
 // A [B, M], D [B, N]: the in-kernel `ref[:] += aT @ d` of
 // mlp.py::_enc_bwd_kernel / _dec_bwd_kernel /
 // megakernel.py::_dec_loss_bwd_kernel, done deterministically. Each block
-// owns one 64 x 64 tile of dW (or 64 columns of db) and walks its rows in a
-// fixed order; when the tiles alone cannot fill the card, the rows are
-// split into `chunks` whose partial tiles a second kernel adds in chunk
-// order. No atomics, so a gradient has the same bits on every run. In bf16
-// both operands of the product are rounded to bf16 (fp32 accumulation), as
-// the reference's _mm_tn does; db sums D unrounded, as jnp.sum does.
+// owns one 128 x 128 tile of dW and walks its rows in a fixed order, in
+// slices of 32; the blocks of the first row of tiles also sum db from the
+// same staged slices of D. When the tiles alone cannot fill the card, the
+// rows are split into `chunks` whose partial tiles a second kernel adds in
+// chunk order. No atomics, so a gradient has the same bits on every run.
+// In bf16 both operands of the product are rounded to bf16 (fp32
+// accumulation), as the reference's _mm_tn does; db sums D unrounded, as
+// jnp.sum does.
 //
 // What bounds them. stack_bwd does three products per layer and row (the
 // rematerialized forward and the backward chain) on weights streamed from
@@ -35,10 +37,18 @@
 // peak for 1024 rows); its shared memory holds two TM-row buffers as wide
 // as the widest of the input, the hidden layers and the stacked head
 // cotangents (784 floats for the image decoder: TM = 32 still fits).
-// wgrad at B = 16384 does 6.5 GFMA for the image encoder's first layer
-// alone: fp32 FMA throughput, with operands staged through shared memory
-// in 16-row slices, each loaded value feeding 4 FMAs per thread. Tensor
-// cores (wgmma) for bf16 are later work.
+// wgrad at B = 16384 on the image encoder's first layer (M = 784, N = 500)
+// does 6.4 GFMA over 84 MB of fp32 operands. In fp32 that is FMA
+// throughput (0.19 ms at 67 TFLOP/s): each thread owns 8 x 8 of the tile
+// and reads its fragments as 16-byte shared loads, 64 FMAs per 4 loads.
+// In bf16 the tensor cores need 13 us and the bytes 25 us: mma.sync.m16n8k16
+// (8 warps of 64 x 32) fed by ldmatrix.trans, since both operands are
+// stored M- and N-major. Both precisions stream 32-row slices through a
+// ring of 4 shared-memory stages filled by cp.async (16-byte copies where
+// the widths allow), so 3 slices are in flight while one multiplies; in
+// bf16 each thread rounds the values it copied into a bf16 stage.
+
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -142,94 +152,232 @@ __global__ void __launch_bounds__(kThreads)
   vae::layer<TM, BF16>(cur, stride, in_w, n_in, nullptr, in_k, n_in, edx);
 }
 
-constexpr int kTile = 64;  // dW tile edge
-constexpr int kSlice = 16;  // rows staged per step
+constexpr int kTile = 128;       // dW tile edge
+constexpr int kSlice = 32;       // rows per staged slice
+constexpr int kWStages = 4;      // slices in the cp.async ring
+constexpr int kLdF = kTile + 4;  // fp32 slice row
+constexpr int kLdH = kTile + 8;  // bf16 slice row: 272 B, ldmatrix conflict-free
+constexpr int kRing = 2 * kSlice * kLdF;  // one ring stage: the A and D slices
+constexpr int kHalf = 2 * kSlice * kLdH;  // one bf16 stage
 
-// Grid: x over N tiles, y over M tiles plus one row of db blocks, z over
-// row chunks. Chunk c covers rows [c * rows_per_chunk, ...).
+// Copies 4 consecutive values of row b of src [.., ld] from column c into
+// dst, zeros at columns >= lim or when !in: one 16-byte cp.async when
+// `vec` (ld, lim and src 16-byte aligned), else four of 4 bytes.
+__device__ __forceinline__ void copy4(float* dst, const float* src, int ld,
+                                      int b, int c, int lim, bool vec,
+                                      bool in) {
+  const float* p = src + (size_t)b * ld + c;
+  if (vec) {
+    const bool ok = in && c < lim;
+    vae::cp_async16(dst, ok ? p : src, ok);
+  } else {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const bool ok = in && c + e < lim;
+      vae::cp_async4(dst + e, ok ? p + e : src, ok);
+    }
+  }
+}
+
+// The output rows: dW [m, n] and db [n], or chunk z's partial [m + 1, n].
+__device__ __forceinline__ float* wgrad_out(float* dw, float* partial, int m,
+                                            int n, int row) {
+  return gridDim.z > 1
+             ? partial + ((size_t)blockIdx.z * (m + 1) + row) * n
+             : dw + (size_t)row * n;
+}
+
+// fp32: thread (tm, tn) owns rows 4 tm ... and 64 + 4 tm ..., columns
+// 4 tn ... and 64 + 4 tn ... of the tile.
+__device__ __forceinline__ void mac_f32(const float* as, const float* ds,
+                                        float (&acc)[8][8]) {
+  const int tm = threadIdx.x >> 4, tn = threadIdx.x & 15;
+#pragma unroll 4
+  for (int k = 0; k < kSlice; ++k) {
+    const float4 a0 = *reinterpret_cast<const float4*>(as + k * kLdF + 4 * tm);
+    const float4 a1 = *reinterpret_cast<const float4*>(as + k * kLdF + 64 + 4 * tm);
+    const float4 d0 = *reinterpret_cast<const float4*>(ds + k * kLdF + 4 * tn);
+    const float4 d1 = *reinterpret_cast<const float4*>(ds + k * kLdF + 64 + 4 * tn);
+    const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+    const float dv[8] = {d0.x, d0.y, d0.z, d0.w, d1.x, d1.y, d1.z, d1.w};
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], dv[j], acc[i][j]);
+  }
+}
+
+// bf16: warp (wm, wn) owns rows 64 wm ... and columns 32 wn ...: 4 x 4
+// mma tiles per 16 staged rows. Both slices are stored [row][column], so
+// the fragments of A^T (M x K) and of D (K x N) come from ldmatrix.trans.
+__device__ __forceinline__ void mac_bf16(const __nv_bfloat16* as,
+                                         const __nv_bfloat16* ds,
+                                         float (&acc)[4][4][4]) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int wm = warp >> 2, wn = warp & 3;
+#pragma unroll
+  for (int ks = 0; ks < kSlice; ks += 16) {
+    uint32_t af[4][4];
+#pragma unroll
+    for (int mt = 0; mt < 4; ++mt)
+      vae::ldmatrix_x4_trans(
+          af[mt], as + (ks + (lane >> 4) * 8 + (lane & 7)) * kLdH + 64 * wm +
+                      16 * mt + ((lane >> 3) & 1) * 8);
+    uint32_t bf[4][2];
+#pragma unroll
+    for (int np = 0; np < 2; ++np) {
+      uint32_t r[4];
+      vae::ldmatrix_x4_trans(
+          r, ds + (ks + ((lane >> 3) & 1) * 8 + (lane & 7)) * kLdH + 32 * wn +
+                 16 * np + (lane >> 4) * 8);
+      bf[2 * np][0] = r[0], bf[2 * np][1] = r[1];
+      bf[2 * np + 1][0] = r[2], bf[2 * np + 1][1] = r[3];
+    }
+#pragma unroll
+    for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+        vae::mma_bf16(acc[mt][nt], af[mt], bf[nt][0], bf[nt][1]);
+  }
+}
+
+// A thread's share of the tile: 4 x 4 mma tiles (bf16) or 8 x 8 values.
 template <bool BF16>
-__global__ void __launch_bounds__(kThreads)
+struct WgradAcc {
+  float v[8][8];
+};
+template <>
+struct WgradAcc<true> {
+  float v[4][4][4];
+};
+
+// Grid: x over N tiles, y over M tiles, z over row chunks. Chunk c covers
+// rows [c * rows_per_chunk, ...). Blocks with blockIdx.y == 0 also write
+// db (or row m of the partial). The slices of the chunk stream through a
+// ring of kWStages fp32 stages filled by cp.async (thread t copies rows
+// t / 32 + 8 i, columns 4 (t % 32) ... of both operands); in bf16 each
+// thread rounds the slots it copied into a double-buffered bf16 stage.
+template <bool BF16>
+__global__ void __launch_bounds__(kThreads, 1)
     wgrad(const float* __restrict__ a, int lda, const float* __restrict__ d,
           int ldd, int batch, int m, int n, int rows_per_chunk, float* dw,
           float* db, float* partial) {
-  __shared__ __align__(16) float as[kSlice][kTile];
-  __shared__ __align__(16) float ds[kSlice][kTile];
-  const int n0 = blockIdx.x * kTile;
-  const int m_tiles = gridDim.y - 1;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  auto* ring = reinterpret_cast<float*>(smem_raw);  // [kWStages][A, D][kSlice][kLdF]
+  auto* half = reinterpret_cast<__nv_bfloat16*>(ring + kWStages * kRing);  // [2][A, D][kSlice][kLdH]
+  const int n0 = blockIdx.x * kTile, m0 = blockIdx.y * kTile;
   const int b_begin = blockIdx.z * rows_per_chunk;
   const int b_end = min(batch, b_begin + rows_per_chunk);
-  const bool split = gridDim.z > 1;
-
-  if ((int)blockIdx.y == m_tiles) {
-    // db: 4 row groups per column, each in row order, then added in order.
-    const int c = threadIdx.x % kTile;
-    const int q = threadIdx.x / kTile;
-    float s = 0.f;
-    if (n0 + c < n) {
-      for (int b = b_begin + q; b < b_end; b += kThreads / kTile)
-        s += d[(size_t)b * ldd + n0 + c];
+  const int nslices = b_end > b_begin ? (b_end - b_begin + kSlice - 1) / kSlice : 0;
+  const bool with_db = blockIdx.y == 0;
+  const bool vec_a = lda % 4 == 0 && m % 4 == 0 &&
+                     reinterpret_cast<uintptr_t>(a) % 16 == 0;
+  const bool vec_d = ldd % 4 == 0 && n % 4 == 0 &&
+                     reinterpret_cast<uintptr_t>(d) % 16 == 0;
+  const int col = 4 * (threadIdx.x & 31);
+  auto issue = [&](int j) {
+    if (j < nslices) {
+      float* st = ring + (j % kWStages) * kRing;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = (threadIdx.x >> 5) + 8 * i;
+        const int b = b_begin + j * kSlice + r;
+        copy4(st + r * kLdF + col, a, lda, b, m0 + col, m, vec_a, b < b_end);
+        copy4(st + (kSlice + r) * kLdF + col, d, ldd, b, n0 + col, n, vec_d,
+              b < b_end);
+      }
     }
-    as[q][c] = s;
+    vae::cp_async_commit();  // empty past the last slice: uniform counts
+  };
+
+  for (int j = 0; j < kWStages - 1; ++j) issue(j);
+  WgradAcc<BF16> acc{};
+  float dsum[4] = {0.f, 0.f, 0.f, 0.f};
+  for (int j = 0; j < nslices; ++j) {
+    vae::cp_async_wait<kWStages - 2>();
+    const float* st = ring + (j % kWStages) * kRing;
+    __nv_bfloat16* hs = half + (j & 1) * kHalf;
+    if (BF16 || with_db) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = (threadIdx.x >> 5) + 8 * i;
+        const float4 dv = *reinterpret_cast<const float4*>(st + (kSlice + r) * kLdF + col);
+        if (with_db) {  // unrounded D; rows past the chunk are zero
+          dsum[0] += dv.x, dsum[1] += dv.y, dsum[2] += dv.z, dsum[3] += dv.w;
+        }
+        if constexpr (BF16) {
+          *reinterpret_cast<uint2*>(hs + r * kLdH + col) = vae::pack_bf16x4(
+              *reinterpret_cast<const float4*>(st + r * kLdF + col));
+          *reinterpret_cast<uint2*>(hs + (kSlice + r) * kLdH + col) =
+              vae::pack_bf16x4(dv);
+        }
+      }
+    }
+    __syncthreads();  // slice j is whole; slice j - 1 is consumed
+    issue(j + kWStages - 1);
+    if constexpr (BF16)
+      mac_bf16(hs, hs + kSlice * kLdH, acc.v);
+    else
+      mac_f32(st, st + kSlice * kLdF, acc.v);
+  }
+  vae::cp_async_wait<0>();
+
+  if constexpr (BF16) {
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int g = lane >> 2, cq = lane & 3;
+#pragma unroll
+    for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int row = m0 + 64 * (warp >> 2) + 16 * mt + g + 8 * hh;
+        if (row >= m) continue;
+        float* out = wgrad_out(dw, partial, m, n, row);
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+          const int c = n0 + 32 * (warp & 3) + 8 * nt + 2 * cq;
+          if (c < n) out[c] = acc.v[mt][nt][2 * hh];
+          if (c + 1 < n) out[c + 1] = acc.v[mt][nt][2 * hh + 1];
+        }
+      }
+  } else {
+    const int tm = threadIdx.x >> 4, tn = threadIdx.x & 15;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int row = m0 + (i < 4 ? 4 * tm + i : 64 + 4 * tm + i - 4);
+      if (row >= m) continue;
+      float* out = wgrad_out(dw, partial, m, n, row);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int c = n0 + 64 * h + 4 * tn;
+        if (n % 4 == 0) {
+          if (c < n)
+            *reinterpret_cast<float4*>(out + c) =
+                make_float4(acc.v[i][4 * h], acc.v[i][4 * h + 1],
+                            acc.v[i][4 * h + 2], acc.v[i][4 * h + 3]);
+        } else {
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            if (c + j < n) out[c + j] = acc.v[i][4 * h + j];
+        }
+      }
+    }
+  }
+
+  if (with_db) {
+    // 8 row groups per column, each in row order, then added in order.
+    __syncthreads();  // the ring is free
+    float* red = ring;  // [8][kTile]
+#pragma unroll
+    for (int j = 0; j < 4; ++j) red[(threadIdx.x >> 5) * kTile + col + j] = dsum[j];
     __syncthreads();
-    if (threadIdx.x < kTile && n0 + c < n) {
-      float t = as[0][c];
-      for (int g = 1; g < kThreads / kTile; ++g) t += as[g][c];
-      if (split)
+    const int c = threadIdx.x;
+    if (c < kTile && n0 + c < n) {
+      float t = red[c];
+      for (int g = 1; g < kThreads / 32; ++g) t += red[g * kTile + c];
+      if (gridDim.z > 1)
         partial[((size_t)blockIdx.z * (m + 1) + m) * n + n0 + c] = t;
       else
         db[n0 + c] = t;
-    }
-    return;
-  }
-
-  const int m0 = blockIdx.y * kTile;
-  const int tx = threadIdx.x % 16;  // 4 columns of the tile each
-  const int ty = threadIdx.x / 16;  // 4 rows of the tile each
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
-  for (int b0 = b_begin; b0 < b_end; b0 += kSlice) {
-    for (int i = threadIdx.x; i < kSlice * kTile; i += kThreads) {
-      const int kk = i / kTile;
-      const int c = i - kk * kTile;
-      const int b = b0 + kk;
-      const bool row = b < b_end;
-      as[kk][c] = row && m0 + c < m
-                      ? vae::operand<BF16>(a[(size_t)b * lda + m0 + c])
-                      : 0.f;
-      ds[kk][c] = row && n0 + c < n
-                      ? vae::operand<BF16>(d[(size_t)b * ldd + n0 + c])
-                      : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kSlice; ++kk) {
-      const float4 av = *reinterpret_cast<const float4*>(&as[kk][ty * 4]);
-      const float4 dv = *reinterpret_cast<const float4*>(&ds[kk][tx * 4]);
-      const float ar[4] = {av.x, av.y, av.z, av.w};
-      const float dr[4] = {dv.x, dv.y, dv.z, dv.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(ar[i], dr[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int mm = m0 + ty * 4 + i;
-    if (mm >= m) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int nn = n0 + tx * 4 + j;
-      if (nn >= n) continue;
-      if (split)
-        partial[((size_t)blockIdx.z * (m + 1) + mm) * n + nn] = acc[i][j];
-      else
-        dw[(size_t)mm * n + nn] = acc[i][j];
     }
   }
 }
@@ -339,21 +487,22 @@ extern "C" int vae_wgrad(const void* a, int lda, const void* d, int ldd,
       (long long)rows_per_chunk * chunks < batch ||
       (chunks > 1 && partial == nullptr))
     return (int)cudaErrorInvalidValue;
-  const dim3 grid((n + kTile - 1) / kTile, (m + kTile - 1) / kTile + 1,
-                  chunks);
+  const dim3 grid((n + kTile - 1) / kTile, (m + kTile - 1) / kTile, chunks);
   auto st = static_cast<cudaStream_t>(stream);
   const auto* as = static_cast<const float*>(a);
   const auto* ds = static_cast<const float*>(d);
   auto* o_w = static_cast<float*>(dw);
   auto* o_b = static_cast<float*>(db);
   auto* part = static_cast<float*>(partial);
-  if (bf16)
-    wgrad<true><<<grid, kThreads, 0, st>>>(as, lda, ds, ldd, batch, m, n,
-                                           rows_per_chunk, o_w, o_b, part);
-  else
-    wgrad<false><<<grid, kThreads, 0, st>>>(as, lda, ds, ldd, batch, m, n,
-                                            rows_per_chunk, o_w, o_b, part);
-  cudaError_t e = cudaGetLastError();
+  const int smem = kWStages * kRing * (int)sizeof(float) +
+                   (bf16 ? 2 * kHalf * (int)sizeof(__nv_bfloat16) : 0);
+  auto k = bf16 ? wgrad<true> : wgrad<false>;
+  int per_sm = 0;
+  cudaError_t e = vae::launch_info((const void*)k, smem, &per_sm);
+  if (e != cudaSuccess) return (int)e;
+  k<<<grid, kThreads, smem, st>>>(as, lda, ds, ldd, batch, m, n,
+                                  rows_per_chunk, o_w, o_b, part);
+  e = cudaGetLastError();
   if (e != cudaSuccess || chunks == 1) return (int)e;
   const size_t total = (size_t)(m + 1) * n;
   const int blocks = (int)((total + kThreads - 1) / kThreads);

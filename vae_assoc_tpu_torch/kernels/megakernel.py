@@ -201,7 +201,7 @@ def _launch_fwd(flat, x, eps, seed, kind, cd):
     if batch == 0:
         return outs
     lib = _build.load()
-    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    n_sm = kmlp.sm_count(dev)
     tile, stride = fwd_plan(dims, batch, n_sm)
     with torch.cuda.device(dev):
         err = lib.vae_mega_fwd(
@@ -239,7 +239,7 @@ def _launch_dec_loss_bwd(x, z, dec_flat, grec, kind, cd):
     dz = buf(n_z)
     if batch:
         lib = _build.load()
-        n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+        n_sm = kmlp.sm_count(dev)
         tile, wide, hid = dec_bwd_plan(n_x, n_z + n_cond, h1d, h2d, batch, n_sm)
         with torch.cuda.device(dev):
             err = lib.vae_mega_dec_loss_bwd(

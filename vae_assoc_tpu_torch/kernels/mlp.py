@@ -24,6 +24,7 @@ the tile height adapts down to one row, and a width beyond even that raises.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -137,7 +138,7 @@ def _launch(name, x, hidden, heads, compute_dtype):
     if batch == 0:
         return outs
     lib = _build.load()
-    n_sm = torch.cuda.get_device_properties(x.device).multi_processor_count
+    n_sm = sm_count(x.device)
     tile, stride = tile_plan(
         x.shape[1], [l.w.shape[1] for l in hidden], batch, n_sm
     )
@@ -374,27 +375,51 @@ ENC_BWD_MAX_HIDDEN = 16
 """Hidden layers the stack-backward kernel's by-value layer table holds
 (``kMaxHidden`` in csrc/mlp_bwd.cu), for the encoder and the decoder."""
 
-WGRAD_TILE = 64
-WGRAD_SLICE = 16
+WGRAD_TILE = 128
+WGRAD_SLICE = 32
 WGRAD_MIN_ROWS = 512
 
 
+@functools.lru_cache(maxsize=256)
 def wgrad_plan(batch: int, m: int, n: int, n_sm: int):
     """(rows_per_chunk, chunks) for dW = Aᵀ·D with A [batch, m], D [batch, n].
 
-    The kernel has one block per 64×64 tile of dW (plus one row of blocks
-    for db); when those cannot fill two waves of ``n_sm`` blocks, the rows
+    The kernel has one block per 128×128 tile of dW (the blocks of the
+    first row of tiles also sum db) and holds one block per SM. The rows
     split into chunks of at least ``WGRAD_MIN_ROWS`` (a multiple of the
-    16-row slice) whose partial tiles a second launch adds in order."""
+    32-row slice) whose partial tiles a second launch adds in order; the
+    chunk count minimizes the rows a block walks times the waves of
+    ``n_sm`` blocks (a partial wave costs a whole one), the fewest chunks
+    among equals."""
     tiles = -(-m // WGRAD_TILE) * -(-n // WGRAD_TILE)
-    chunks = max(1, min(-(-2 * n_sm // tiles), batch // WGRAD_MIN_ROWS))
-    rows = -(-batch // chunks)
-    rows = -(-rows // WGRAD_SLICE) * WGRAD_SLICE
+    best = None
+    for chunks in range(1, max(1, batch // WGRAD_MIN_ROWS) + 1):
+        rows = -(-batch // chunks)
+        rows = -(-rows // WGRAD_SLICE) * WGRAD_SLICE
+        cost = -(-tiles * chunks // n_sm) * rows
+        if best is None or cost < best[0]:
+            best = (cost, rows)
+    rows = best[1]
     return rows, -(-batch // rows)
 
 
 def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+_sm_counts: dict = {}
+
+
+def sm_count(device) -> int:
+    """Streaming multiprocessors of a CUDA device, queried once per device
+    and process (every kernel wrapper's tile plans read it)."""
+    index = torch.device(device).index
+    if index is None:
+        index = torch.cuda.current_device()
+    n = _sm_counts.get(index)
+    if n is None:
+        n = _sm_counts[index] = torch.cuda.get_device_properties(index).multi_processor_count
+    return n
 
 
 def _check_f32(t: torch.Tensor, device, name: str, shape=None):
@@ -425,7 +450,7 @@ def weight_grads(a, d, *, compute_dtype="float32"):
     if batch == 0:
         return dw.zero_(), db.zero_()
     lib = _build.load()
-    n_sm = torch.cuda.get_device_properties(a.device).multi_processor_count
+    n_sm = sm_count(a.device)
     rows, chunks = wgrad_plan(batch, m, n, n_sm)
     partial = (torch.empty(chunks * (m + 1) * n, dtype=torch.float32, device=a.device)
                if chunks > 1 else None)
@@ -471,7 +496,7 @@ def _stack_bwd(name, hidden, heads, x, cts, cd):
     table = (ctypes.c_longlong * len(rows))(*rows)
     if batch:
         lib = _build.load()
-        n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+        n_sm = sm_count(dev)
         tile, stride = stack_bwd_plan(n_in, widths, len(heads) * n_g, batch, n_sm,
                                       what=f"{name} kernel")
         with torch.cuda.device(dev):
