@@ -44,9 +44,9 @@ Phases, each of which raises on failure (nothing is caught):
 6c. The conv kernels against their twins on the card, batches 1 to 16384,
    fp32 and bf16: conv_fwd on all four layer shapes of the conv tower, as
    the layer's forward and as its input gradient (the four uses of the
-   primitive; each gives identical bits on a second call), conv_dw on all
-   four, conv_enc (every output) and conv_dec (every output, kinds
-   bernoulli and gaussian).
+   primitive), conv_dw on all four, conv_enc (every output) and conv_dec
+   (every output, kinds bernoulli and gaussian); conv_fwd, conv_dw and
+   conv_dec give identical bits on a second call.
 7. Training, the port's second main path: config 3 at full width from
    seed 0, trained through train_loop on the kernels (use_pallas="mega")
    and on the plain path. Step-0 gradients agree within phase 6's
@@ -71,6 +71,11 @@ Phases, each of which raises on failure (nothing is caught):
    exactly the per-step launch counts of CONV_PER_STEP or SHIPPED_PER_STEP
    (counts reset just before), its first 20 per-step totals agree with the
    plain path's within rtol 1e-3, and its loss falls.
+7d. Training baseline configs 1 (image only) and 2 (trajectory only), one
+   modality and lambda = 0, at full width from one seed on the mega and
+   composable paths against the plain path: step-0 totals and gradients
+   within phase 6's tolerances, 200 steps with exactly ONE_TOWER_PER_STEP's
+   launches, 20-step curves within rtol 1e-3, and the loss falls.
 8. Times: train_loop_fused samples/s, interleaved plain first and last, at
    batch 16384 bf16 (steps_per_call=4) and batch 64 fp32 (mega and plain
    paths), and at config 5's settings (all three paths), on 65,536
@@ -83,19 +88,19 @@ Phases, each of which raises on failure (nothing is caught):
 8d. Times of config 4: train_loop_fused samples/s at batch 64 fp32 and
    batch 2048 bf16 on the plain, conv mega, conv_pallas mega and
    conv_pallas composable paths in turns, plain first and last; at B = 1024
-   and 16384, conv_fwd in all eight uses (each layer's forward and input
-   gradient), fp32 and bf16, against its twin and one cuDNN call checked
-   to compute the same function (F.conv2d, F.conv_transpose2d or
-   torch.nn.grad.conv2d_input), conv_dw on conv2 against its twin and
-   torch.nn.grad.conv2d_weight, conv_enc and conv_dec against their twins;
-   and each layer's conv_dw at B = 16384.
+   and 16384, fp32 and bf16, conv_fwd in all eight uses (each layer's
+   forward and input gradient) and conv_dw on all four layers, each against
+   its twin and one cuDNN call checked to compute the same function in fp32
+   (F.conv2d, F.conv_transpose2d, torch.nn.grad.conv2d_input or
+   torch.nn.grad.conv2d_weight); conv_enc (fp32) and conv_dec (fp32 and
+   bf16) against their twins.
 
 The line before the last is the kernel record as JSON, each kernel with
 its bound: the larger of the bytes it must move over 3.35 TB/s and its
 operations over 67 TFLOP/s (fp32, no tensor cores) or, for a bf16 call,
-989 TFLOP/s (tensor cores), the H100 SXM data sheet's rates. The two
-kernels with a bf16 route on tensor cores (wgrad, conv_fwd) also carry a
-"bf16" object with the same fields. The last line is {"ok": true, "device": {...}}. Without a
+989 TFLOP/s (tensor cores), the H100 SXM data sheet's rates. The kernels
+with a bf16 route on tensor cores (wgrad, conv_fwd, conv_dw, conv_dec)
+also carry a "bf16" object with the same fields. The last line is {"ok": true, "device": {...}}. Without a
 CUDA device, or without the package beside this file, the script exits
 non-zero and prints no result.
 """
@@ -812,10 +817,13 @@ def check_conv_kernels(rng, batches=TRAIN_BATCHES):
                 gdw = kconv.conv_dw(x, dy, s, dil, pads, oh, compute_dtype=cd)
                 wdw = kconv.conv_dw_plain(x, dy, s, dil, pads, oh, cd)
                 again = (kconv.conv_fwd(x, w2d, s, dil, pads, oh, compute_dtype=cd),
-                         kconv.conv_dx(dy, w2d, cin, s, dil, pads, h, compute_dtype=cd))
+                         kconv.conv_dx(dy, w2d, cin, s, dil, pads, h, compute_dtype=cd),
+                         kconv.conv_dw(x, dy, s, dil, pads, oh, compute_dtype=cd))
                 torch.cuda.synchronize()
                 if not (torch.equal(got, again[0]) and torch.equal(gdx, again[1])):
                     failed.append(f"conv_fwd {name} B={b} {cd}: two calls differ")
+                if not torch.equal(gdw, again[2]):
+                    failed.append(f"conv_dw {name} B={b} {cd}: two calls differ")
                 for key, pairs in ((("conv_fwd", name, b, cd), [("y", got, want, False)]),
                                    (("conv_fwd", f"{name} dx", b, cd), [("dx", gdx, wdx, False)]),
                                    (("conv_dw", name, b, cd), [("dw", gdw, wdw, True)])):
@@ -832,7 +840,10 @@ def check_conv_kernels(rng, batches=TRAIN_BATCHES):
             for kind in LOSS_KINDS:
                 got = kcm.conv_dec(flat[10:], z, x3, kind=kind, compute_dtype=cd)
                 want = kcm.conv_dec_plain(flat[10:], z, x3, kind=kind, compute_dtype=cd)
+                again = kcm.conv_dec(flat[10:], z, x3, kind=kind, compute_dtype=cd)
                 torch.cuda.synchronize()
+                if not all(torch.equal(g, a) for g, a in zip(got, again)):
+                    failed.append(f"conv_dec {kind} B={b} {cd}: two calls differ")
                 line.setdefault(("conv_dec", kind), []).append(record(
                     ("conv_dec", kind, b, cd),
                     [(n, g, w, False) for n, g, w in zip(("rec", "g1", "g2", "d1p", "r"),
@@ -972,6 +983,80 @@ def train_conv_and_check(card):
     return main
 
 
+ONE_TOWER_PER_STEP = {
+    "mega": {"mega_fwd": 1, "mega_dec_loss_bwd": 1, "enc_bwd": 1, "wgrad": 7},
+    "composable": {"enc_fwd": 1, "reparam": 1, "dec_fwd": 1, "loss_fwd": 1, "loss_bwd": 1,
+                   "dec_bwd": 1, "enc_bwd": 1, "wgrad": 7},
+}
+"""Hand-written launches per training step of a one-modality model
+(baseline configs 1 and 2) on the kernel paths: one tower, the joint loss
+kernel at K = 1 on the composable path, 3 + 4 weight-gradient launches."""
+
+
+def train_one_modality_and_check(card):
+    """Phase 7d: baseline configs 1 (image) and 2 (trajectory), one modality
+    and λ = 0, at full width from one seed (so one ε) on the mega and
+    composable paths against the plain path: step-0 totals and gradients
+    within phase 6's tolerances, 200 steps with exactly ONE_TOWER_PER_STEP's
+    launches (counts reset just before), the first 20 per-step totals within
+    rtol 1e-3 of the plain path's, and the loss falls."""
+    import dataclasses
+
+    from vae_assoc_tpu_torch.configs import baseline_config
+    from vae_assoc_tpu_torch.data import PairedDataset
+    from vae_assoc_tpu_torch.kernels import launch_counts, reset_launches
+    from vae_assoc_tpu_torch.models import assoc as assoc_mod
+    from vae_assoc_tpu_torch.train import init_train_state, train_loop
+
+    for milestone in (1, 2):
+        cfg, tc = baseline_config(milestone)
+        (mod,) = cfg.modalities
+        feats = list(PairedDataset.from_synthetic(tc.batch_size, seed=0, device="cuda").features())
+        batch = [feats[("image", "trajectory").index(mod.name)]]
+        model = assoc_mod.init_assoc(0, cfg, device="cuda")
+        params = list(model.parameters())
+        names = [key for key, _ in model.named_parameters()]
+        tol = TOL[tc.compute_dtype]
+        print(f"training: baseline config {milestone} ({mod.name} only, lambda "
+              f"{cfg.assoc_lambda}), {sum(p.numel() for p in params)} parameters, batch "
+              f"{tc.batch_size}, compute_dtype={tc.compute_dtype}", flush=True)
+        total, _ = assoc_mod.assoc_loss_fn(model, batch, cfg, seed=123,
+                                           compute_dtype=tc.compute_dtype, use_pallas=False)
+        want, want_total = torch.autograd.grad(total, params), float(total.detach())
+        for path in ONE_TOWER_PER_STEP:
+            total, _ = assoc_mod.assoc_loss_fn(model, batch, cfg, seed=123,
+                                               compute_dtype=tc.compute_dtype,
+                                               use_pallas=PATHS[path])
+            got = torch.autograd.grad(total, params)
+            worst, bad = _grads_close(names, got, want, tol)
+            rel = abs(float(total.detach()) - want_total) / abs(want_total)
+            print(f"config {milestone} step 0, {path} path vs plain: total "
+                  f"{float(total.detach()):.4f} vs {want_total:.4f} (rel {rel:.3e}); "
+                  f"{len(params)} grads, max abs err {worst:.3e} (rtol {tol}, atol {tol} x "
+                  "max|want|)", flush=True)
+            assert rel <= tol and not bad, f"config {milestone} step 0, {path}: " + "; ".join(bad)
+
+        def run(up, steps, per_step):
+            t = dataclasses.replace(tc, use_pallas=up, steps_per_call=1)
+            state = init_train_state(cfg, t, device="cuda")
+            reset_launches()
+            state, h = train_loop(cfg, t, batch, epochs=steps, state=state)
+            launches = launch_counts()
+            want = {k: per_step.get(k, 0) * state.step for k in launches}
+            assert state.step == steps and launches == want, f"launch counts {launches} != {want}"
+            return np.array([e["total"] for e in h])
+
+        plain = run(False, 20, {})
+        for path, per_step in ONE_TOWER_PER_STEP.items():
+            curve = run(PATHS[path], 200, per_step)
+            rel = float(np.max(np.abs(curve[:20] - plain) / np.abs(plain)))
+            print(f"config {milestone} {path} path: 200 steps with exactly {per_step} launches "
+                  f"per step; 20-step curve vs plain: max rel err {rel:.3e} (rtol 1e-3); total "
+                  f"{curve[0]:.4f} at step 1, {curve[-1]:.4f} at step 200", flush=True)
+            assert np.isfinite(curve).all() and rel <= 1e-3, f"config {milestone} {path}: curves"
+            assert curve[-1] < curve[0], f"config {milestone} {path}: the loss did not fall"
+
+
 def time_conv_training(card):
     """Phase 8d: train_loop_fused samples/s on config 4, the four paths in
     turns with plain first and last."""
@@ -1076,26 +1161,48 @@ def _time_case(label, fns, card, bound=None, n=5):
     return {"call": call, "device": busy}
 
 
+def _dw_library(name, x, dy, cd):
+    """One cuDNN call that computes conv_dw's function on a layer, on NCHW
+    copies of x and dy in the compute dtype (made here, not timed), and the
+    map of its result to [9·cin, cout] fp32: conv2d_weight on the input
+    padded (0, 1) for the stride-2 convs; for the transposed convs the same
+    call with the roles of input and output gradient swapped (the transposed
+    conv is the adjoint of a stride-2 conv with the flipped weight): dy
+    padded (0, 1) as the input, x as the output gradient, the result
+    flipped back."""
+    cin, _, cout, _, dil, *_ = CONV_LAYERS[name]
+    dt = torch.bfloat16 if cd == "bfloat16" else torch.float32
+    xn = x.permute(0, 3, 1, 2).to(dt).contiguous()
+    dyn = dy.permute(0, 3, 1, 2).to(dt).contiguous()
+    pad = torch.nn.functional.pad
+    if not dil:
+        xp = pad(xn, (0, 1, 0, 1))
+        return (lambda: torch.nn.grad.conv2d_weight(xp, (cout, cin, 3, 3), dyn, stride=2),
+                lambda g: g.permute(2, 3, 1, 0).reshape(9 * cin, cout).float())
+    dp = pad(dyn, (0, 1, 0, 1))
+    return (lambda: torch.nn.grad.conv2d_weight(dp, (cin, cout, 3, 3), xn, stride=2),
+            lambda g: g.permute(2, 3, 0, 1).flip(0, 1).reshape(9 * cin, cout).float())
+
+
 def time_conv_kernels(rng, card):
     """Phase 8d: device ms per call of the conv kernels at B = 1024 and
-    16384: conv_fwd in each of its eight uses (the four layers' forward and
-    input gradient), fp32 and bf16, against its twin and one cuDNN call
-    (_conv_library, checked to compute the same function); conv_dw on conv2
-    against its twin and torch.nn.grad.conv2d_weight (on the input padded
-    (0, 1), NCHW), conv_enc and conv_dec against their twins (fp32); then
-    conv_dw on each layer at B = 16384 (CUDA events)."""
+    16384, fp32 and bf16: conv_fwd in each of its eight uses (the four
+    layers' forward and input gradient) and conv_dw on each layer, each
+    against its twin and one cuDNN call checked to compute the same
+    function in fp32 (_conv_library, _dw_library; conv_dw's fp32 calls
+    with TF32 off, so that cuDNN sums in fp32 as the kernel does);
+    conv_enc (fp32) and conv_dec against their twins."""
     from vae_assoc_tpu_torch.kernels import conv as kconv
     from vae_assoc_tpu_torch.kernels import conv_mega as kcm
 
     m = _conv_model(5)
     flat = [t.detach() for t in kcm.flatten(m)]
-    w2 = m.recog["conv2"].w.detach()
-    w_oihw = w2.permute(3, 2, 0, 1).contiguous()
     times = {}
 
     def t(*shape, lo=-1.0):
         return torch.from_numpy(rng.uniform(lo, 1.0, shape).astype(np.float32)).cuda()
 
+    tf32 = torch.backends.cudnn.allow_tf32
     with torch.no_grad():
         for b in TRAIN_TIMED:
             for cd in TOL:
@@ -1114,31 +1221,38 @@ def time_conv_kernels(rng, card):
                         times[("conv_fwd", name, use, b, cd)] = _time_case(
                             f"conv_fwd {name} {use} B={b} {cd}", fns, card,
                             _bound(*_conv_work(b, name), cd))
-            x, dy, x3, z = t(b, 14, 14, 32), t(b, 7, 7, 64), t(b, 28, 28, lo=0.0), t(b, 20)
-            xp = torch.nn.functional.pad(x.permute(0, 3, 1, 2), (0, 1, 0, 1)).contiguous()
-            dyn = dy.permute(0, 3, 1, 2).contiguous()
-            cases = {
-                "conv_dw": {"kernel": lambda: kconv.conv_dw(x, dy, 2, False, (0, 1), 7),
-                            "plain": lambda: kconv.conv_dw_plain(x, dy, 2, False, (0, 1), 7),
-                            "library": lambda: torch.nn.grad.conv2d_weight(
-                                xp, w_oihw.shape, dyn, stride=2)},
-                "conv_enc": {"kernel": lambda: kcm.conv_enc(flat[:10], x3),
-                             "plain": lambda: kcm.conv_enc_plain(flat[:10], x3)},
-                "conv_dec": {"kernel": lambda: kcm.conv_dec(flat[10:], z, x3, kind="bernoulli"),
-                             "plain": lambda: kcm.conv_dec_plain(flat[10:], z, x3,
-                                                                 kind="bernoulli")},
-            }
-            got, lib = cases["conv_dw"]["kernel"](), cases["conv_dw"]["library"]()
-            assert _close(lib.permute(2, 3, 1, 0).reshape(288, 64), got, 1e-4, summed=True)[1], \
-                "conv2d_weight is another function"
-            for name, fns in cases.items():
-                times[(name, b)] = _time_case(f"{name} B={b} float32", fns, card)
-        b = TRAIN_TIMED[-1]
-        for name, (cin, h, cout, s, dil, pads, oh) in CONV_LAYERS.items():
-            x, dy = t(b, h, h, cin), t(b, oh, oh, cout)
-            ms = _device_ms(lambda: kconv.conv_dw(x, dy, s, dil, pads, oh), n=3)
-            print(f"time conv_dw, layer {name} B={b} float32, ms per call (CUDA events): "
-                  f"{ms:.4f} [{card}]", flush=True)
+                torch.backends.cudnn.allow_tf32 = False
+                try:
+                    for name, (cin, h, cout, s, dil, pads, oh) in CONV_LAYERS.items():
+                        x, dy = t(b, h, h, cin), t(b, oh, oh, cout)
+                        library, to_dw = _dw_library(name, x, dy, cd)
+                        fns = {"kernel": lambda: kconv.conv_dw(x, dy, s, dil, pads, oh,
+                                                               compute_dtype=cd),
+                               "plain": lambda: kconv.conv_dw_plain(x, dy, s, dil, pads, oh, cd),
+                               "library": library}
+                        if cd == "float32":
+                            assert _close(to_dw(library()), fns["kernel"](), 1e-4,
+                                          summed=True)[1], \
+                                f"the library call of conv_dw {name} is another function"
+                        times[("conv_dw", name, b, cd)] = _time_case(
+                            f"conv_dw {name} B={b} {cd}", fns, card,
+                            _bound(*_conv_work(b, name), cd))
+                finally:
+                    torch.backends.cudnn.allow_tf32 = tf32
+            x3, z = t(b, 28, 28, lo=0.0), t(b, 20)
+            times[("conv_enc", b)] = _time_case(
+                f"conv_enc B={b} float32",
+                {"kernel": lambda: kcm.conv_enc(flat[:10], x3),
+                 "plain": lambda: kcm.conv_enc_plain(flat[:10], x3)}, card,
+                _bound(*_conv_enc_work(b)))
+            for cd in TOL:
+                times[("conv_dec", b, cd)] = _time_case(
+                    f"conv_dec B={b} {cd}",
+                    {"kernel": lambda: kcm.conv_dec(flat[10:], z, x3, kind="bernoulli",
+                                                    compute_dtype=cd),
+                     "plain": lambda: kcm.conv_dec_plain(flat[10:], z, x3, kind="bernoulli",
+                                                         compute_dtype=cd)}, card,
+                    _bound(*_conv_dec_work(b), cd))
     return times
 
 
@@ -1495,6 +1609,8 @@ def main() -> int:
     composable_launches = train_composable_and_check(card)
     # Phase 7c
     conv_launches = train_conv_and_check(card)
+    # Phase 7d
+    train_one_modality_and_check(card)
 
     # Phase 8
     time_training(card)
@@ -1546,17 +1662,23 @@ def main() -> int:
          train_times[("conv_fwd", "conv2", "fwd", big, "float32")],
          _bound(*_conv_work(big, "conv2"))),
         ("conv_dw", CSRC + "conv.cu", "vae_assoc_tpu/kernels/conv.py:125", conv_launches,
-         ("conv_dw", "conv2", big, "float32"), train_times[("conv_dw", big)],
+         ("conv_dw", "conv2", big, "float32"), train_times[("conv_dw", "conv2", big, "float32")],
          _bound(*_conv_work(big, "conv2"))),
         ("conv_enc", CSRC + "conv_mega.cu", "vae_assoc_tpu/kernels/conv_mega.py:189",
          conv_launches, ("conv_enc", "image", big, "float32"), train_times[("conv_enc", big)],
          _bound(*_conv_enc_work(big))),
         ("conv_dec", CSRC + "conv_mega.cu", "vae_assoc_tpu/kernels/conv_mega.py:209",
          conv_launches, ("conv_dec", "bernoulli", big, "float32"),
-         train_times[("conv_dec", big)], _bound(*_conv_dec_work(big))),
+         train_times[("conv_dec", big, "float32")], _bound(*_conv_dec_work(big))),
     ]
-    # The two kernels this record also gives in bf16: (times, bound, error key).
+    # The kernels this record also gives in bf16: (times, bound, error key).
     bf16 = {
+        "conv_dw": (train_times[("conv_dw", "conv2", big, "bfloat16")],
+                    _bound(*_conv_work(big, "conv2"), "bfloat16"),
+                    ("conv_dw", "conv2", big, "bfloat16")),
+        "conv_dec": (train_times[("conv_dec", big, "bfloat16")],
+                     _bound(*_conv_dec_work(big), "bfloat16"),
+                     ("conv_dec", "bernoulli", big, "bfloat16")),
         "wgrad": (train_times[("wgrad", big, "bfloat16")],
                   _bound(*_wgrad_work(big), "bfloat16"), ("wgrad", "image", big, "bfloat16")),
         "conv_fwd": (train_times[("conv_fwd", "conv2", "fwd", big, "bfloat16")],

@@ -359,16 +359,62 @@ def test_kernel_tower_matches_banded_jax(cd):
            jkb.decode_conv_fused(jp, jnp.asarray(z), compute_dtype=jdt), *tol)
 
 
-@pytest.mark.parametrize("rows,k,cout,want", [
-    (1024 * 49, 288, 64, (960, 53)),      # conv2: 5 column tiles × 53 chunks fill two waves
-    (16384 * 784, 288, 1, (48656, 264)),  # convt2: one tile, 264 chunks
-    (64 * 196, 9, 32, (528, 24)),         # conv1 at batch 64: chunks of at least 512 rows
-    (7 * 49, 576, 32, (352, 1)),          # too few pixels to split
+@pytest.mark.parametrize("pixels,waves,want", [
+    (1024 * 49, 2, (98, 512)),        # conv2 (and convt1) at batch 1024: chunks of 512
+    (16384 * 196, 4, (526, 6112)),    # conv1 and convt2, thin: ≈ 4 waves of 132
+    (16384 * 49, 2, (262, 3072)),     # conv2 and convt1 at 16384: ≈ 2 waves
+    (7 * 49, 2, (1, 512)),            # too few pixels to split
 ])
-def test_dw_plan(rows, k, cout, want):
-    per, chunks = tkc.dw_plan(rows, k, cout, n_sm=132)
-    assert (per, chunks) == want
-    assert per % tkc.DW_SLICE == 0 and per * chunks >= rows > per * (chunks - 1)
+def test_dw_plan(pixels, waves, want):
+    chunks, per = tkc.dw_plan(pixels, n_sm=132, waves=waves)
+    assert (chunks, per) == want
+    assert per % tkc.DW_SLICE == 0 and per * chunks >= pixels > per * (chunks - 1)
+
+
+DW_CASES = [(n, cd) for n in sorted(LAYERS) for cd in ("float32", "bfloat16")]
+
+
+@pytest.mark.parametrize("name,cd", DW_CASES)
+@torch.no_grad()
+def test_dw_phase_mirror_matches_pallas(name, cd):
+    # conv_dw's plan run in torch (per class and tap on conv2 and convt1,
+    # per tap of the thin route on conv1 and convt2) against the
+    # reference's _dw_kernel. 1e-5 of the largest value in both dtypes:
+    # only the order of the fp32 sums differs (a bf16 × bf16 product is
+    # exact in fp32).
+    x, _, _, dy, geom = _layer(name)
+    want = jkc._dw_impl(jnp.asarray(x), jnp.asarray(dy), *geom, cd)
+    got = tkc.conv_dw_phase_plain(torch.from_numpy(x), torch.from_numpy(dy), *geom, cd)
+    _close_summed(got, want, 1e-5, err_msg=f"{name} {cd}")
+
+
+@pytest.mark.parametrize("name,cd", DW_CASES)
+def test_dw_route_and_shared_memory(name, cd):
+    x, _, _, dy, (stride, dilate, pads, oh) = _layer(name)
+    cin, cout = x.shape[-1], dy.shape[-1]
+    plan = tkc.phase_plan(stride, dilate, pads[0], oh)
+    route = tkc.dw_route(plan, cin, cout, cd)
+    assert route == ("thin" if 1 in (cin, cout) else "mma" if cd == "bfloat16" else "ffma")
+    gathered = tkc.dw_gathered(plan)
+    assert gathered == ("x" if LAYERS[name][3] == "conv" else "dy")
+    smem = tkc.dw_smem(route, cout if gathered == "x" else cin)
+    assert smem + 64 <= 232448 and (smem == 0) == (route == "thin")
+    # The 9 taps, each weight row once: the conv reads x at 2q + k; the
+    # transposed conv's input pixel p meets output 2p + 2 − k.
+    taps = tkc.dw_taps(plan, gathered)
+    want = [(3 * ky + kx, ky, kx) if gathered == "x" else (3 * ky + kx, 2 - ky, 2 - kx)
+            for ky in range(3) for kx in range(3)]
+    assert sorted(taps) == sorted(want)
+
+
+def test_dw_route_raises_on_other_layers():
+    conv = tkc.phase_plan(2, False, 0, 7)
+    with pytest.raises(ValueError, match="weight-gradient kernel takes"):
+        tkc.dw_route(conv, 16, 64)   # 16 gathered channels
+    with pytest.raises(ValueError, match="weight-gradient kernel takes"):
+        tkc.dw_route(conv, 32, 128)  # 128 direct channels
+    with pytest.raises(ValueError, match="stride-2 conv and the"):
+        tkc.dw_gathered(tkc.phase_plan(1, True, 2, 14)[:2])  # not every tap
 
 
 def test_cpu_conv_path_launches_nothing():

@@ -254,13 +254,33 @@ def test_non_cpu_tensors_never_take_the_plain_path():
                                            (48, 300, 4)])
 def test_tower_tile_plans(hr, batch, want):
     assert tcm.enc_plan(hr, batch, n_sm=132) == want
-    assert tcm.dec_plan(hr, 20, batch, n_sm=132) == want
+    # The decoder: 64 rows a block whatever the batch; its dense stages keep
+    # z and g1 (fp32 transposed, 68 floats a column; bf16 rows of k + 8) and
+    # a ring of three 32 × 132 fp32 weight slices (bf16: and two rounded
+    # 32 × 136 slices); the transposed convs fit in the same bytes.
+    kz, kg = 32, -(-hr // 32) * 32
+    # convt1: a ring of three fp32 slices of 256 (bf16: 128) pixels × 36,
+    # the tile's pixel rows twice and the class's weight (bf16: and two
+    # rounded slices).
+    f32 = max(4 * 68 * (kz + kg) + 4 * 3 * 32 * 132,
+              4 * 3 * 256 * 36 + 2 * 16 * 256 + 4 * 256 * 32)
+    b16 = max(2 * 64 * (kz + 8 + kg + 8) + 4 * 3 * 32 * 132 + 2 * 2 * 32 * 136,
+              4 * 3 * 128 * 36 + 2 * 16 * 128 + 2 * 32 * 264 + 2 * 2 * 128 * 40)
+    assert tcm.dec_plan(hr, 20, "float32") == (64, f32)
+    assert tcm.dec_plan(hr, 20, "bfloat16") == (64, b16)
 
 
 def test_tile_plans_raise_past_one_row():
     assert tcm.enc_plan(40000, 64, n_sm=132) == 1
     with pytest.raises(ValueError, match="shared memory"):
         tcm.enc_plan(60000, 64, n_sm=132)
+    # The decoder's 64-row tile: g1 up to 608 wide in fp32, 1216 in bf16.
+    assert tcm.dec_plan(608, 20)[1] <= 232448 - 188
+    assert tcm.dec_plan(1216, 20, "bfloat16")[1] <= 232448 - 188
+    with pytest.raises(ValueError, match="shared memory"):
+        tcm.dec_plan(640, 20)
+    with pytest.raises(ValueError, match="shared memory"):
+        tcm.dec_plan(1248, 20, "bfloat16")
 
 
 # --- the joint objective on a config-4-shaped model --------------------------------------

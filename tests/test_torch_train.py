@@ -119,6 +119,34 @@ def test_assoc_loss_fn_matches_jax(use_pallas, form, n_cond):
     _assert_trees(tg, jg, 1e-5)
 
 
+ONE_MODALITY = {"image": (0, "bernoulli"), "trajectory": (1, "gaussian")}
+
+
+@pytest.mark.parametrize("modality", sorted(ONE_MODALITY))
+@pytest.mark.parametrize("use_pallas", [False, "mega", True])
+def test_one_modality_loss_matches_jax(modality, use_pallas):
+    # Baseline configs 1 and 2: one modality, λ = 0 (the joint loss kernel at
+    # K = 1, the megakernel over a single tower), at the helpers' widths.
+    which, recon = ONE_MODALITY[modality]
+    arch = _archs()[which]
+    jc, tc_ = (c.AssocConfig([c.ModalityConfig(modality, arch, recon=recon)], assoc_lambda=0.0)
+               for c in (jcfg, tcfg))
+    jp, tm = _models(jc, tc_)
+    xs, eps = _batch()
+    x, e = xs[which], eps[which]
+    (jt, jm), jg = jax.value_and_grad(
+        lambda p: jassoc.assoc_loss_fn(p, [jnp.asarray(x)], jc, eps=[jnp.asarray(e)],
+                                       use_pallas=use_pallas), has_aux=True)(jp)
+    tt, tmets = tassoc.assoc_loss_fn(tm, [torch.from_numpy(x)], tc_, eps=[torch.from_numpy(e)],
+                                     use_pallas=use_pallas)
+    tt.backward()
+    assert set(tmets) == set(jm)
+    for k in jm:
+        np.testing.assert_allclose(tmets[k].item(), float(jm[k]), rtol=1e-5, atol=1e-6, err_msg=k)
+    np.testing.assert_allclose(tt.item(), float(jt), rtol=1e-5)
+    _assert_trees(_port_grads(tm), _jax_flat(jg), 1e-5)
+
+
 def test_parity_mode_matches_jax():
     (jt, jm, jg), (tt, tm, tg) = _loss_both(False, "mean_l2", 0, parity_mode=True)
     for k in jm:

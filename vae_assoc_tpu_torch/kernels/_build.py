@@ -153,15 +153,15 @@ def load() -> ctypes.CDLL:
                 ptr, i32, ptr,
             ]
             lib.vae_conv_dw.argtypes = [
-                ptr, i32, i32, i32, i32, ptr, i32, i32, i32, i32, i32, i32,
+                ptr, i32, i32, i32, i32, ptr, i32, i32, ptr, i32, i32, i32,
                 i32, i32, ptr, ptr, i32, ptr,
             ]
             lib.vae_conv_enc.argtypes = [
                 ptr, i32, ptr, i32, i32, ptr, ptr, ptr, ptr, ptr, i32, i32, ptr,
             ]
             lib.vae_conv_dec.argtypes = [
-                ptr, ptr, i32, ptr, i32, i32, i32, ptr, ptr, ptr, ptr, ptr, i32,
-                i32, ptr,
+                ptr, ptr, i32, ptr, i32, i32, i32, ptr, ptr, ptr, ptr, ptr, ptr,
+                ptr, i32, i32, ptr,
             ]
             for fn in (lib.vae_mega_fwd, lib.vae_mega_dec_loss_bwd,
                        lib.vae_mlp_enc_bwd, lib.vae_mlp_dec_bwd, lib.vae_wgrad,

@@ -21,6 +21,16 @@ runs the same plan in torch, and :func:`fwd_tile_plan` picks the kernel's
 route (register-tiled fp32, bf16 tensor cores, or the thin layers' lane
 groups and tap loads).
 
+``conv_dw`` runs the same plan with its taps rewritten per pixel of the
+layer's undilated side (:func:`dw_taps`: dy of the stride-2 conv, x of the
+transposed conv), where each tap meets the other side at 2·pixel + an
+offset: dW is then one product over those pixels, [9·32 gathered values]ᵀ
+× [the pixel's channels], with no dilation zeros (:func:`dw_route`: fp32
+register tiles or bf16 tensor cores for conv2 and convt1; a byte-bound
+thin route for conv1 and convt2). :func:`conv_dw_phase_plain` runs it in
+torch; :func:`dw_plan` splits the pixels into chunks whose partials a
+second launch adds in order.
+
 ``conv3x3_s2`` and ``convt3x3_s2`` call one ``torch.autograd.Function``
 (the reference's ``_conv_im2col`` custom VJP) whose backward is the kernels
 again: dx is ``conv_fwd`` on the flipped, channel-transposed weight with the
@@ -51,8 +61,6 @@ from vae_assoc_tpu_torch.models import conv as conv_mod
 from vae_assoc_tpu_torch.models import networks
 
 K = conv_mod.K
-DW_SLICE = 16
-DW_MIN_ROWS = 512
 MAX_COUT = 64
 """Output channels the kernels take (``kMaxCout`` in csrc/conv.cu)."""
 ROUTES = ("taps", "dot", "ffma", "mma")
@@ -66,6 +74,17 @@ FWD_THREADS = 256
 MAX_CLASSES = 4
 PLAN_BYTES = 4 * (4 + 5 * MAX_CLASSES + 3 * K * K)
 """The plan as the kernel keeps it in shared memory (``PhasePlan``)."""
+DW_ROUTES = ("ffma", "mma", "thin")
+"""conv_dw's routes (``DwRoute`` in csrc/conv.cu)."""
+DW_SLICE, DW_STAGES = 32, 3
+"""Pixels per staged slice and slices in the cp.async ring of conv_dw's
+tiled routes (``kDwSlice``, ``kDwStages``)."""
+DW_GATHERED = 32
+"""Channels of the gathered side on conv_dw's tiled routes (``kDwG``)."""
+DW_WAVES = {"ffma": 2, "mma": 2, "thin": 4}
+"""Chunks per SM that conv_dw's plan aims at, per route."""
+DW_MIN_PIXELS = 16 * DW_SLICE
+"""The fewest pixels a conv_dw chunk takes."""
 
 # The input gradient of each layer geometry: (stride, dilate, pads) of the
 # forward → those of the conv that computes dx from dy (the reference's
@@ -251,28 +270,95 @@ def fwd_tile_plan(plan: tuple, cin: int, cout: int, compute_dtype="float32"):
     return route, tile, smem
 
 
-def _chan_threads(cout: int) -> int:
-    """Threads across the channels (csrc/conv.cu::chan_threads)."""
-    rc = min(4, cout)
-    need = -(-cout // rc)
-    ct = 1
-    while ct < need:
-        ct *= 2
-    return ct
+def dw_gathered(plan: tuple) -> str:
+    """The side conv_dw gathers at the taps (the other, "direct" side is
+    the layer's undilated one, read once per pixel): ``"x"`` for a
+    stride-2 conv, whose one class of 9 taps covers its output pixels;
+    ``"dy"`` for a transposed conv, each of whose input pixels meets one
+    output pixel under each tap. Raises for another plan."""
+    if sum(len(c.taps) for c in plan) == K * K:
+        if len(plan) == 1 and plan[0].istep == 2 and plan[0].ostep == 1 \
+                and plan[0].oy0 == plan[0].ox0 == 0:
+            return "x"
+        if all(c.istep == 1 and c.ostep == 2 for c in plan):
+            return "dy"
+    raise ValueError("the conv weight-gradient kernel takes the stride-2 conv and the "
+                     "stride-2 transposed conv")
 
 
-def dw_plan(rows: int, k: int, cout: int, n_sm: int):
-    """(rows_per_chunk, chunks) for conv_dw over ``rows`` output pixels: the
-    kernel has one block per tile of 4·(256 / channel threads) patch
-    columns; when those cannot fill two waves of ``n_sm`` blocks, the pixels
-    split into chunks of at least ``DW_MIN_ROWS`` (a multiple of the 16-row
-    slice) whose partials a second launch adds in order."""
-    tk = 4 * (256 // _chan_threads(cout))
-    tiles = -(-k // tk)
-    chunks = max(1, min(-(-2 * n_sm // tiles), rows // DW_MIN_ROWS))
-    per = -(-rows // chunks)
+def dw_taps(plan: tuple, gathered: str) -> tuple:
+    """The plan's 9 taps as conv_dw reads them: (wrow, oy, ox), direct
+    pixel (y, x) meeting the gathered side at (2y + oy, 2x + ox). Gathered
+    x: output pixel q reads x at 2q + (dy, dx). Gathered dy: input pixel p
+    is tap (dy, dx) of its class's output pixel q = p − (dy, dx), at
+    (oy0, ox0) + 2q."""
+    if gathered == "x":
+        return tuple(t for c in plan for t in c.taps)
+    return tuple((w, c.oy0 - 2 * dy, c.ox0 - 2 * dx) for c in plan for w, dy, dx in c.taps)
+
+
+def dw_route(plan: tuple, cin: int, cout: int, compute_dtype="float32") -> str:
+    """conv_dw's route: ``thin`` for one channel on the gathered side and
+    4-32 on the other (conv1, convt2); the tiled routes for 32 gathered
+    channels and 32 or 64 direct ones (conv2, convt1), bf16 on tensor cores
+    (``mma``), fp32 on FFMA (``ffma``). Raises for other layers."""
+    gathered = dw_gathered(plan)
+    cg, cd = (cin, cout) if gathered == "x" else (cout, cin)
+    if cg == 1 and cd in (4, 8, 16, 32):
+        return "thin"
+    if cg == DW_GATHERED and cd in (32, 64):
+        return "mma" if networks.dtype_name(compute_dtype) == "bfloat16" else "ffma"
+    raise ValueError(f"the conv weight-gradient kernel takes 1 or {DW_GATHERED} channels on "
+                     f"the gathered side ({gathered}) and 4-64 on the other; got cin {cin}, "
+                     f"cout {cout}")
+
+
+def dw_smem(route: str, cd: int) -> int:
+    """Dynamic shared memory of conv_dw for ``cd`` direct channels: the
+    tiled routes' ring of slices (gathered rows of 288 + 4 floats, direct
+    rows of cd + 4) and, in bf16, two rounded slices (rows of 288 + 8 and
+    cd + 8); the thin route takes none (csrc/conv.cu::dw_smem)."""
+    if route == "thin":
+        return 0
+    ring = 4 * DW_STAGES * DW_SLICE * (K * K * DW_GATHERED + 4 + cd + 4)
+    if route == "ffma":
+        return ring
+    return ring + 2 * 2 * DW_SLICE * (K * K * DW_GATHERED + 8 + cd + 8)
+
+
+def dw_plan(pixels: int, n_sm: int, waves: int):
+    """(chunks, pixels per chunk) for conv_dw over the direct side's
+    ``pixels``: about ``waves`` × ``n_sm`` chunks, none below
+    ``DW_MIN_PIXELS``, each a whole number of ``DW_SLICE``-pixel slices. A
+    second launch adds the chunks' partials in order."""
+    per = max(-(-pixels // (waves * n_sm)), DW_MIN_PIXELS)
     per = -(-per // DW_SLICE) * DW_SLICE
-    return per, -(-rows // per)
+    return -(-pixels // per), per
+
+
+def conv_dw_phase_plain(x, dy, stride, dilate, pads, out_hw, compute_dtype="float32"):
+    """The weight-gradient kernel's plan run in torch: per tap
+    (:func:`dw_taps`), the gathered side at (2y + oy, 2x + ox) (zero
+    outside it) against the direct side at (y, x), summed over every
+    direct pixel, into the tap's rows of dW. The kernel's arithmetic
+    (operands rounded under ``compute_dtype``, sums in fp32) in the plain
+    twin's function."""
+    cd = networks.dtype_name(compute_dtype)
+    cin, cout = x.shape[3], dy.shape[3]
+    xr = networks.round_operand(x.float(), cd)
+    dr = networks.round_operand(dy.float(), cd)
+    plan = phase_plan(stride, bool(dilate), pads[0], out_hw)
+    gathered = dw_gathered(plan)
+    gv, dv = (xr, dr) if gathered == "x" else (dr, xr)
+    hd, hg = dv.shape[1], gv.shape[1]
+    dw = xr.new_zeros(K * K * cin, cout)
+    for wrow, oy, ox in dw_taps(plan, gathered):
+        ny, nx = 2 * torch.arange(hd) + oy, 2 * torch.arange(hd) + ox
+        inside = ((ny >= 0) & (ny < hg))[:, None] & ((nx >= 0) & (nx < hg))[None, :]
+        g = gv[:, ny.clamp(0, hg - 1)][:, :, nx.clamp(0, hg - 1)] * inside[None, :, :, None]
+        prod = g.reshape(-1, g.shape[3]).T @ dv.reshape(-1, dv.shape[3])  # [cg, cd]
+        dw[wrow * cin:(wrow + 1) * cin] = prod if gathered == "x" else prod.T
+    return dw
 
 
 def _geometry(x, cout, stride, dilate, pads, out_hw):
@@ -295,9 +381,7 @@ def _geometry(x, cout, stride, dilate, pads, out_hw):
 
 def _launch_fwd(x, w2d, stride, dilate, pads, out_hw, cd):
     dev = x.device
-    x = x.detach().float().contiguous()
-    if x.data_ptr() % 16:  # the tiled routes read 16-byte vectors
-        x = x.clone()
+    x = _aligned(x)
     w2d = w2d.detach().float().contiguous()
     cin, cout = x.shape[-1], w2d.shape[1]
     kmlp._check_f32(w2d, dev, "w2d", (K * K * cin, cout))
@@ -318,23 +402,36 @@ def _launch_fwd(x, w2d, stride, dilate, pads, out_hw, cd):
     return y
 
 
+def _aligned(t):
+    """``t`` as fp32, contiguous and at a 16-byte boundary (the kernels
+    read 16-byte vectors)."""
+    t = t.detach().float().contiguous()
+    return t.clone() if t.data_ptr() % 16 else t
+
+
 def _launch_dw(x, dy, stride, dilate, pads, out_hw, cd):
     dev = x.device
-    x = x.detach().float().contiguous()
-    dy = dy.detach().float().contiguous()
+    x, dy = _aligned(x), _aligned(dy)
     b, cin, cout = x.shape[0], x.shape[-1], dy.shape[-1]
     kmlp._check_f32(dy, dev, "dy", (b, out_hw, out_hw, cout))
-    geom = _geometry(x, cout, stride, dilate, pads, out_hw)
+    _, h, w, *_ = _geometry(x, cout, stride, dilate, pads, out_hw)
     dw = torch.empty(K * K * cin, cout, dtype=torch.float32, device=dev)
     if b == 0:
         return dw.zero_()
-    lib = _build.load()
-    rows, chunks = dw_plan(b * out_hw * out_hw, K * K * cin, cout, kmlp.sm_count(dev))
+    plan = phase_plan(stride, bool(dilate), pads[0], out_hw)
+    route = dw_route(plan, cin, cout, cd)
+    gathered = dw_gathered(plan)
+    pixels = b * (out_hw * out_hw if gathered == "x" else h * w)
+    chunks, per = dw_plan(pixels, kmlp.sm_count(dev), DW_WAVES[route])
+    smem = dw_smem(route, cout if gathered == "x" else cin)
+    taps = (ctypes.c_int * (3 * K * K))(*itertools.chain(*dw_taps(plan, gathered)))
     partial = (torch.empty(chunks * dw.numel(), dtype=torch.float32, device=dev)
                if chunks > 1 else None)
+    lib = _build.load()
     with torch.cuda.device(dev):
-        err = lib.vae_conv_dw(x.data_ptr(), *geom[:4], dy.data_ptr(), *geom[4:], rows,
-                              chunks, dw.data_ptr(),
+        err = lib.vae_conv_dw(x.data_ptr(), b, h, w, cin, dy.data_ptr(), cout, out_hw,
+                              taps, int(gathered == "x"), DW_ROUTES.index(route), per,
+                              chunks, smem, dw.data_ptr(),
                               partial.data_ptr() if partial is not None else None,
                               int(cd == "bfloat16"), kmlp._stream(x))
     _build.check(lib, err, "conv weight-gradient kernel launch")

@@ -6,8 +6,8 @@ runs one conv modality's whole tower in one forward launch per direction:
 conv1 → softplus → conv2 → softplus → dense → softplus → μ, logσ² heads),
 then z = μ + e^{½logσ²}·ε in torch, then ``conv_dec`` (replacing
 ``_dec_kernel``: dense1 → dense2 → convt1 → softplus → convt2 → per-row
-Bernoulli or Gaussian loss). Each kernel writes the post-activations the
-backward needs, in NHWC.
+Bernoulli or Gaussian loss, 64 rows a block: :func:`dec_plan`). Each
+kernel writes the post-activations the backward needs, in NHWC.
 
 The backward, a ``torch.autograd.Function``, is the reference's
 ``_conv_tower_bwd`` formula by formula: σ(pre) recovered from the saved
@@ -46,6 +46,14 @@ from vae_assoc_tpu_torch.ops.sampling import philox_normal
 
 KINDS = ("bernoulli", "gaussian")
 MAX_TILE_ROWS = 8
+"""Rows per block of the encoder kernel, at most."""
+DEC_TILE_ROWS = 64
+"""Rows per block of the decoder kernel (``kDecTM`` in csrc/conv_mega.cu)."""
+_DEC_K, _DEC_N = 32, 128
+_DEC_STAGES = _DEC_CONV_STAGES = 3
+"""Weight rows per staged slice, columns per tile and ring stages of the
+decoder's dense layers (``kDK``, ``kDN``, ``kDStages``); slices in its
+convt1 ring (``kCStages``)."""
 IMG, MID, SMALL = conv_mod.IMG_SIZE, conv_mod.MID, conv_mod.SMALL
 C1, C2, FLAT = conv_mod.C1, conv_mod.C2, conv_mod.FLAT
 _ENC_LAYERS = (("recog", "conv1"), ("recog", "conv2"), ("recog", "dense"),
@@ -125,12 +133,40 @@ def enc_plan(hr: int, batch: int, n_sm: int) -> int:
                           what="conv encoder kernel")
 
 
-def dec_plan(hg: int, n_z: int, batch: int, n_sm: int) -> int:
-    """Rows per block of the decoder kernel: per row z, g1, g2 and the
-    per-element loss in shared memory (d1p goes through device memory)."""
-    per_row = 4 * (kmlp._pad4(n_z) + kmlp._pad4(hg) + FLAT + IMG * IMG)
-    return kmlp.rows_plan(per_row, batch, n_sm, max_rows=MAX_TILE_ROWS,
-                          what="conv decoder kernel")
+def _pad32(n: int) -> int:
+    return -(-n // 32) * 32
+
+
+def dec_plan(hg: int, n_z: int, compute_dtype="float32"):
+    """(rows per block, dynamic shared memory in bytes) of the decoder
+    kernel; csrc/conv_mega.cu computes the same bytes and refuses a launch
+    that disagrees. Its dense stages keep the 64 rows' z and g1 (fp32
+    transposed, rows padded to 68; bf16 [row][k + 8], k padded to 32), a
+    ring of 3 weight slices of 32 × 128 fp32 and, in bf16, two rounded
+    slices; the transposed convs reuse it (convt1: conv_fwd's tile routes
+    fed by a cp.async ring, over a class of at most 4 taps × 64 channels). Raises when that does not fit a
+    block's shared memory."""
+    cd = networks.dtype_name(compute_dtype)
+    ring = 4 * _DEC_STAGES * _DEC_K * (_DEC_N + 4)
+    k = 4 * C2  # convt1's largest class: 4 taps × 64 channels
+    if cd == "bfloat16":
+        tile = kconv.MMA_TILE
+        dense = (2 * DEC_TILE_ROWS * (_pad32(n_z) + 8 + _pad32(hg) + 8) + ring
+                 + 2 * 2 * _DEC_K * (_DEC_N + 8))
+        weight = 2 * C1 * (k + 8) + 2 * 2 * tile * (kconv.STAGE_K + 8)
+    else:
+        tile = kconv.FFMA_TILE
+        dense = 4 * (DEC_TILE_ROWS + 4) * (_pad32(n_z) + _pad32(hg)) + ring
+        weight = 4 * k * C1
+    # convt1: a ring of 3 slices of the tile's pixels × 32 channels (fp32),
+    # the tile's pixel rows twice, the class's weight rows.
+    conv = 4 * _DEC_CONV_STAGES * tile * (kconv.STAGE_K + 4) + 2 * 16 * tile + weight
+    smem = max(dense, conv)
+    if smem + kconv.PLAN_BYTES > kmlp.SMEM_BYTES:
+        raise ValueError(f"the conv decoder kernel keeps {DEC_TILE_ROWS} rows of z and g1 "
+                         f"(n_z {n_z}, hg {hg}) and its weight ring in {smem} bytes of shared "
+                         f"memory, more than a block has")
+    return DEC_TILE_ROWS, smem
 
 
 def _ptrs(tensors):
@@ -181,12 +217,13 @@ def _launch_dec(dec_flat, z, x3, kind, cd):
     rec, g1, g2, d1p, r = buf(), buf(hg), buf(SMALL, SMALL, C2), buf(MID, MID, C1), buf(IMG, IMG, 1)
     if b:
         lib = _build.load()
-        tile = dec_plan(hg, n_z, b, kmlp.sm_count(dev))
+        _, smem = dec_plan(hg, n_z, cd)
+        plans = [kconv._plan_table(kconv.phase_plan(1, True, 2, out)) for out in (MID, IMG)]
         with torch.cuda.device(dev):
             err = lib.vae_conv_dec(z.data_ptr(), x3.data_ptr(), b, _ptrs(flat), hg, n_z,
                                    int(kind == "bernoulli"),
-                                   *(t.data_ptr() for t in (rec, g1, g2, d1p, r)), tile,
-                                   int(cd == "bfloat16"), kmlp._stream(x3))
+                                   *(t.data_ptr() for t in (rec, g1, g2, d1p, r)), *plans,
+                                   smem, int(cd == "bfloat16"), kmlp._stream(x3))
         _build.check(lib, err, "conv decoder kernel launch")
         _launches.count(_launches.TRAINING, "conv_dec")
     return rec, g1, g2, d1p, r

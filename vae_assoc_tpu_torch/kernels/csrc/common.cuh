@@ -286,6 +286,15 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src,
                : "memory");
 }
 
+// The same through L1, for values that neighbouring copies read again.
+__device__ __forceinline__ void cp_async16_ca(void* dst, const void* src,
+                                              bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 16, %2;\n"
+               :
+               : "r"(smem_u32(dst)), "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
 __device__ __forceinline__ void cp_async4(void* dst, const void* src,
                                           bool valid) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
@@ -302,6 +311,25 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Copies 4 consecutive values of row b of src [.., ld] from column c into
+// dst, zeros at columns >= lim or when !in: one 16-byte cp.async when
+// `vec` (ld, lim and src 16-byte aligned), else four of 4 bytes.
+__device__ __forceinline__ void copy4(float* dst, const float* src, int ld,
+                                      int b, int c, int lim, bool vec,
+                                      bool in) {
+  const float* p = src + (size_t)b * ld + c;
+  if (vec) {
+    const bool ok = in && c < lim;
+    vae::cp_async16(dst, ok ? p : src, ok);
+  } else {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const bool ok = in && c + e < lim;
+      vae::cp_async4(dst + e, ok ? p + e : src, ok);
+    }
+  }
 }
 
 // Four floats rounded to bf16 (to nearest even, as torch's .bfloat16()),

@@ -61,115 +61,44 @@
 // shared-memory cap and reads its occupancy once per process
 // (vae::launch_info); the SM count comes from the wrapper, cached there.
 //
-// conv_dw: a block owns a tile of patch columns times all cout and loops
-// over a fixed chunk of output pixels in slices of 16, gathering the patch
-// slice and the dy slice into shared memory. With more than one chunk,
-// each chunk writes a partial and a second kernel adds the partials in
-// chunk order: no atomics, so the same inputs give the same bits (the
-// scheme of wgrad in mlp_bwd.cu). Its geometry is a runtime argument.
+// conv_dw runs the same phase plan, its taps rewritten per pixel of the
+// layer's undilated side (kernels/conv.py::dw_taps): dy's pixels for the
+// stride-2 conv (its one class), x's for the transposed conv, each of whose
+// input pixels meets exactly one output pixel under each tap. At direct
+// pixel (y, x), tap t meets the other, gathered side at (2 y, 2 x) + an
+// offset, so dW is one product over the direct pixels, [9 taps x cg
+// gathered values]^T . [cd direct values], every (pixel, tap) once: no
+// dilation zeros, and one pass over the pixels where the four classes of
+// a dilated layer would stage each of them four times.
+// - ffma / mma (cg = 32, cd 32 or 64: conv2 and convt1, the same
+//   288 x 64 product). A block owns all of it and a chunk of pixels,
+//   streamed 32 at a time through a cp.async ring (one address and bounds
+//   check per (pixel, tap), 16-byte copies). fp32 keeps it in registers,
+//   72 FMAs per staged pixel for 5 shared loads; bf16 runs mma.sync with
+//   the pixels as k, fragments by ldmatrix.trans. Bound by fp32 FMAs
+//   (0.44 ms for conv2 at B = 16384), or in bf16 by the bytes of x and dy.
+// - thin (conv1: cin = 1; convt2: cout = 1). Bound by bytes: the direct
+//   side (32 channels) is read once as float4s and each of its pixels meets
+//   9 single-channel values of the other side.
+// The pixels split into chunks whose partials a second kernel adds in chunk
+// order: no atomics, so the same inputs give the same bits (the scheme of
+// wgrad in mlp_bwd.cu).
+//
+// The plan, a class's pixels and taps, and the tiled routes' slice
+// products live in conv_tile.cuh, which conv_mega.cu's decoder shares.
 
 #include <algorithm>
 #include <cstring>
 
-#include "common.cuh"
+#include "conv_tile.cuh"
 
 namespace {
 
-using vae::kThreads;
-
-// ---- conv_fwd ----
-
-constexpr int kMaxTaps = 9;
-constexpr int kMaxClasses = 4;
-constexpr int kStageK = 32;        // patch columns per staged slice
-constexpr int kFfmaTile = 256;     // q positions per tile, fp32 route
-constexpr int kMmaTile = 128;      // bf16 route
-constexpr int kDotTile = 128;      // cout = 1: 32 lane groups x 4 positions
-constexpr int kTapsPix = 2;        // positions a thread owns per step, taps route
-constexpr int kLdF = kStageK + 4;  // fp32 slice row: 144 B, rows on distinct banks
-constexpr int kLdH = kStageK + 8;  // bf16 slice row: 80 B, ldmatrix conflict-free
-constexpr int kMaxCout = 64;
-
 enum Route { kTaps = 0, kDot = 1, kFfma = 2, kMma = 3 };
 
-// The phase plan (kernels/conv.py::_plan_table). Class c covers q
-// positions qy < cnqy[c], qx < cnqx[c], whose output pixel is (oy0[c] +
-// ostep qy, ox0[c] + ostep qx), and owns the taps [tap_end[c - 1],
-// tap_end[c]); tap t reads x at (istep qy + dy[t], istep qx + dx[t])
-// against weight rows wrow[t] cin ... blockIdx.y picks the class.
-struct PhasePlan {
-  int ncls, ntaps, istep, ostep;
-  int oy0[kMaxClasses], ox0[kMaxClasses], cnqy[kMaxClasses],
-      cnqx[kMaxClasses], tap_end[kMaxClasses];
-  int wrow[kMaxTaps], dy[kMaxTaps], dx[kMaxTaps];
-};
-constexpr int kPlanInts = 4 + 5 * kMaxClasses + 3 * kMaxTaps;
-static_assert(sizeof(PhasePlan) == 4 * kPlanInts, "PLAN_BYTES in conv.py");
-
-struct Fwd {
-  const float* x;    // [batch, h, w, cin]
-  const float* w2d;  // [9 cin, cout]
-  float* y;          // [batch, out_hw, out_hw, cout]
-  int batch, h, w, cin, cout, out_hw;
-};
-
-template <bool BF16>
-__device__ __forceinline__ float rnd(float v) {
-  return BF16 ? __bfloat162float(__float2bfloat16(v)) : v;
-}
-
-__device__ __forceinline__ float rnd(float v, int bf16) {
-  return bf16 ? rnd<true>(v) : v;
-}
-
-// The plan into shared memory (one int per thread), then a barrier.
-__device__ __forceinline__ void load_plan(const PhasePlan& plan, PhasePlan& p) {
-  if (threadIdx.x < kPlanInts)
-    reinterpret_cast<int*>(&p)[threadIdx.x] =
-        reinterpret_cast<const int*>(&plan)[threadIdx.x];
-  __syncthreads();
-}
-
-// The block's class: its first tap, its tap count, its pixel count.
-struct Cls {
-  int c, t0, nt, mc;
-  __device__ Cls(const Fwd& f, const PhasePlan& p)
-      : c(blockIdx.y),
-        t0(blockIdx.y ? p.tap_end[blockIdx.y - 1] : 0),
-        nt(p.tap_end[blockIdx.y] - t0),
-        mc(f.batch * p.cnqy[blockIdx.y] * p.cnqx[blockIdx.y]) {}
-};
-
-// Output pixel m of class c: (x offset of its image or -1 past the class,
-// istep qy, istep qx, y offset of the pixel).
-__device__ __forceinline__ int4 pixel_row(const Fwd& f, const PhasePlan& p,
-                                          const Cls& k, int m) {
-  if (m >= k.mc) return make_int4(-1, 0, 0, 0);
-  const int nqx = p.cnqx[k.c], per = p.cnqy[k.c] * nqx;
-  const int b = m / per;
-  const int r = m - b * per;
-  const int qy = r / nqx;
-  const int qx = r - qy * nqx;
-  return make_int4(b * f.h * f.w * f.cin, p.istep * qy, p.istep * qx,
-                   ((b * f.out_hw + p.oy0[k.c] + p.ostep * qy) * f.out_hw +
-                    p.ox0[k.c] + p.ostep * qx) * f.cout);
-}
-
-// x at pixel row r shifted by tap t, or nullptr outside the image.
-__device__ __forceinline__ const float* tap_ptr(const Fwd& f,
-                                                const PhasePlan& p, int4 r,
-                                                int t) {
-  const int iy = r.y + p.dy[t], ix = r.z + p.dx[t];
-  if (r.x < 0 || iy < 0 || ix < 0 || iy >= f.h || ix >= f.w) return nullptr;
-  return f.x + r.x + (iy * f.w + ix) * f.cin;
-}
-
-// Weight row of patch column k = t cin + ci (the plan's taps in order).
-__device__ __forceinline__ const float* weight_row(const Fwd& f,
-                                                   const PhasePlan& p, int k) {
-  const int t = k / f.cin;
-  return f.w2d + (size_t)(p.wrow[t] * f.cin + (k - t * f.cin)) * f.cout;
-}
+constexpr int kDotTile = 128;  // cout = 1: 32 lane groups x 4 positions
+constexpr int kTapsPix = 2;    // positions a thread owns per step, taps route
+constexpr int kMaxCout = 64;
 
 // Slice s of the class (its tap s / (cin / 32), channels 32 (s % (cin /
 // 32)) ...) of the tile's patch matrix, 4 channels per slot: slot i of a
@@ -190,40 +119,6 @@ __device__ __forceinline__ void gather(const Fwd& f, const PhasePlan& p,
   }
 }
 
-// fp32 route: the slice's 8 pixels x 4 channels of this thread per column,
-// pixels tm + 32 i, channels 4 tn ... and 32 + 4 tn ... (CN = 8).
-template <int CN>
-__device__ __forceinline__ void mac_ffma(const float* a, const float* w,
-                                         int tm, int tn,
-                                         float (&acc)[8][CN]) {
-  constexpr int kCout = 8 * CN;
-#pragma unroll 2
-  for (int kk = 0; kk < kStageK; kk += 4) {
-    float4 av[8];
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-      av[i] = *reinterpret_cast<const float4*>(a + (tm + 32 * i) * kLdF + kk);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const float* wr = w + (kk + j) * kCout + 4 * tn;
-      float bv[CN];
-      const float4 b0 = *reinterpret_cast<const float4*>(wr);
-      bv[0] = b0.x, bv[1] = b0.y, bv[2] = b0.z, bv[3] = b0.w;
-      if constexpr (CN == 8) {
-        const float4 b1 = *reinterpret_cast<const float4*>(wr + 32);
-        bv[4] = b1.x, bv[5] = b1.y, bv[6] = b1.z, bv[7] = b1.w;
-      }
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const float xv = j == 0 ? av[i].x : j == 1 ? av[i].y
-                       : j == 2 ? av[i].z : av[i].w;
-#pragma unroll
-        for (int q = 0; q < CN; ++q) acc[i][q] = fmaf(xv, bv[q], acc[i][q]);
-      }
-    }
-  }
-}
-
 template <int CN>
 __global__ void __launch_bounds__(kThreads, 1)
     conv_ffma(Fwd f, PhasePlan plan, int /*bf16*/) {
@@ -232,7 +127,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   extern __shared__ __align__(16) float smem[];
   __shared__ PhasePlan p;
   load_plan(plan, p);
-  const Cls k(f, p);
+  const Cls k(f, p, blockIdx.y);
   const int K = k.nt * f.cin;
   float* ws = smem;                 // [K][cout], the class's taps
   float* as = ws + K * kCout;       // [2][tile][kLdF]
@@ -283,40 +178,6 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-// bf16 route: warp (wm, wn) owns pixels 32 wm ... and channels
-// cout/2 wn ...: 2 x NT mma tiles per 16 patch columns.
-template <int COUT>
-__device__ __forceinline__ void mac_mma(const __nv_bfloat16* a,
-                                        const __nv_bfloat16* wt, int ldw,
-                                        int k0, float (&acc)[2][COUT / 16][4]) {
-  constexpr int NT = COUT / 16;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int wm = warp & 3, wn = warp >> 2;
-#pragma unroll
-  for (int ks = 0; ks < kStageK; ks += 16) {
-    uint32_t af[2][4];
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
-      vae::ldmatrix_x4(af[mt], a + (32 * wm + 16 * mt + (lane & 15)) * kLdH +
-                                   ks + (lane >> 4) * 8);
-    uint32_t bf[NT][2];
-#pragma unroll
-    for (int np = 0; np < NT / 2; ++np) {
-      uint32_t r[4];
-      vae::ldmatrix_x4(r, wt + (wn * (COUT / 2) + 16 * np + (lane & 7) +
-                                (lane >> 4) * 8) * ldw +
-                              k0 + ks + ((lane >> 3) & 1) * 8);
-      bf[2 * np][0] = r[0], bf[2 * np][1] = r[1];
-      bf[2 * np + 1][0] = r[2], bf[2 * np + 1][1] = r[3];
-    }
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt)
-        vae::mma_bf16(acc[mt][nt], af[mt], bf[nt][0], bf[nt][1]);
-  }
-}
-
 template <int COUT>
 __global__ void __launch_bounds__(kThreads, 2)
     conv_mma(Fwd f, PhasePlan plan, int /*bf16*/) {
@@ -325,7 +186,7 @@ __global__ void __launch_bounds__(kThreads, 2)
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ PhasePlan p;
   load_plan(plan, p);
-  const Cls k(f, p);
+  const Cls k(f, p, blockIdx.y);
   const int K = k.nt * f.cin;
   const int ldw = K + 8;  // rows of 16 B x odd: ldmatrix conflict-free
   auto* wt = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [cout][ldw], the class's taps
@@ -395,7 +256,7 @@ __global__ void __launch_bounds__(kThreads)
   extern __shared__ __align__(16) float smem[];
   __shared__ PhasePlan p;
   load_plan(plan, p);
-  const Cls k(f, p);
+  const Cls k(f, p, blockIdx.y);
   const int K = k.nt * f.cin;
   float* ws = smem;  // [K], the class's rows, rounded
   for (int i = threadIdx.x; i < K; i += kThreads)
@@ -470,7 +331,7 @@ __global__ void __launch_bounds__(kThreads)
   extern __shared__ __align__(16) float smem[];
   __shared__ PhasePlan p;
   load_plan(plan, p);
-  const Cls k(f, p);
+  const Cls k(f, p, blockIdx.y);
   const int groups = (f.cout + CG - 1) / CG;
   const int cs = groups * CG;  // weight row stride
   const int K = k.nt * f.cin;
@@ -544,198 +405,310 @@ int fwd_smem(int route, int cout, int k) {
   return 4 * k * cg * ((cout + cg - 1) / cg);
 }
 
-// The plan from its ints; false for a plan the kernels cannot run (taps,
-// steps or outputs out of range).
-bool read_plan(const int* in, int out_hw, PhasePlan* p) {
-  if (in == nullptr) return false;
-  std::memcpy(p, in, sizeof(PhasePlan));
-  if (p->ncls < 1 || p->ncls > kMaxClasses || p->ntaps < 1 ||
-      p->ntaps > kMaxTaps || p->istep < 1 ||
-      p->istep > 2 || p->ostep < 1 || p->ostep > 2)
-    return false;
-  int prev = 0;
-  for (int c = 0; c < p->ncls; ++c) {
-    if (p->tap_end[c] <= prev || p->cnqy[c] < 1 || p->cnqx[c] < 1 ||
-        p->oy0[c] < 0 ||
-        p->ox0[c] < 0 || p->oy0[c] + p->ostep * (p->cnqy[c] - 1) >= out_hw ||
-        p->ox0[c] + p->ostep * (p->cnqx[c] - 1) >= out_hw)
-      return false;
-    prev = p->tap_end[c];
-  }
-  if (prev != p->ntaps) return false;
-  for (int t = 0; t < p->ntaps; ++t)
-    if (p->wrow[t] < 0 || p->wrow[t] >= kMaxTaps) return false;
-  return true;
-}
-
 // ---- conv_dw ----
 
-constexpr int kMaxCh = 4;   // channels a thread owns
-constexpr int kSlice = 16;  // output pixels per slice
-constexpr int kDwRows = 4;  // patch columns a thread owns
+constexpr int kDwSlice = 32;           // pixels per staged slice, tiled routes
+constexpr int kDwStages = 3;           // slices in the tiled routes' cp.async ring
+constexpr int kDwG = 32;               // gathered channels, tiled routes
+constexpr int kDwK = kMaxTaps * kDwG;  // 288 rows of the tiled product
+constexpr int kLdGa = kDwK + 4;        // fp32 staged row of gathered values
+constexpr int kLdGh = kDwK + 8;        // bf16 row: 592 B, ldmatrix conflict-free
 
-struct Geom {
-  int batch, h, w, cin, cout;
-  int stride, dilate, lo;
-  int hd, wd;  // the input's size after dilation
-  int out_hw;  // oh == ow
+enum DwRoute { kDwFfma = 0, kDwMma = 1, kDwThin = 2 };
+
+// conv_dw's view of the layer: the phase plan's taps rewritten per pixel
+// of the layer's undilated side, the "direct" side (dy of a stride-2 conv,
+// whose one class is its output pixels; x of a transposed conv, each of
+// whose input pixels meets one output pixel under each tap). Direct pixel
+// (y, x) meets the other, "gathered" side at (2 y + oy[t], 2 x + ox[t])
+// under tap t, zero outside it, and adds gathered^T direct to weight row
+// wrow[t] (kernels/conv.py::dw_taps). Each (output pixel, tap meeting
+// nonzero input) comes once: no dilation zeros, and one pass over the
+// pixels for all 9 taps.
+struct DwTaps {
+  const float* direct;    // [batch, hd, hd, cd]
+  const float* gathered;  // [batch, hg, hg, cg]
+  int batch, hd, hg, cd, cg;
+  int gathered_x;  // gathered = x: dW row wrow cg + g, column d; else row wrow cd + d, column g
+  int wrow[kMaxTaps], oy[kMaxTaps], ox[kMaxTaps];
 };
 
-// Channels a thread owns and the number of channel threads (a power of two
-// covering cout), shared with kernels/conv.py's dw_plan.
-__host__ __device__ inline int chans_per_thread(int cout) {
-  return cout >= kMaxCh ? kMaxCh : cout;
-}
-__host__ __device__ inline int chan_threads(int cout) {
-  const int rc = chans_per_thread(cout);
-  const int need = (cout + rc - 1) / rc;
-  int ct = 1;
-  while (ct < need) ct *= 2;
-  return ct;
+// A block's result: dw itself, or its chunk's partial when the pixels
+// split into more than one chunk (a second launch adds them in order).
+__device__ __forceinline__ float* dw_out(float* dw, float* partial, int n) {
+  return gridDim.x > 1 ? partial + (size_t)blockIdx.x * n : dw;
 }
 
-// Per output pixel m: the image's offset in x and the padded coordinates of
-// its patch's top-left tap.
-struct RowInfo {
-  int base, py, px;
+// Direct pixel m: (image, y, x).
+__device__ __forceinline__ int3 dw_pixel(const DwTaps& t, int m) {
+  const int hw2 = t.hd * t.hd;
+  const int b = m / hw2;
+  const int r = m - b * hw2;
+  const int y = r / t.hd;
+  return make_int3(b, y, r - y * t.hd);
+}
+
+// Index in dw of row kk = tap i, gathered channel g, and direct channel d.
+__device__ __forceinline__ int dw_index(const DwTaps& t, const int* wrow, int i,
+                                        int g, int d) {
+  return t.gathered_x ? (wrow[i] * t.cg + g) * t.cd + d : (wrow[i] * t.cd + d) * t.cg + g;
+}
+
+// A thread's share of the product: fp32 rows 4 tm ..., 128 + 4 tm ... and
+// 256 + tm by columns 4 tn ... (and 32 + 4 tn ...); bf16 up to 3 x CD / 8
+// mma tiles.
+template <int CD, bool BF16>
+struct DwAcc {
+  float v[9][CD / 8];
+};
+template <int CD>
+struct DwAcc<CD, true> {
+  float v[3][CD / 8][4];
 };
 
-__device__ __forceinline__ RowInfo row_info(const Geom& g, int m) {
-  const int per_img = g.out_hw * g.out_hw;
-  const int b = m / per_img;
-  const int rem = m - b * per_img;
-  const int oy = rem / g.out_hw;
-  const int ox = rem - oy * g.out_hw;
-  return {b * g.h * g.w * g.cin, g.stride * oy, g.stride * ox};
-}
-
-// Patch column k packed as (ky, kx, c).
-__device__ __forceinline__ int col_info(const Geom& g, int k) {
-  const int tap = k / g.cin;
-  const int c = k - tap * g.cin;
-  return (tap / 3) | ((tap % 3) << 2) | (c << 4);
-}
-
-// xt at (py + ky, px + kx, c): zero in the padding and at dilation zeros.
-__device__ __forceinline__ float patch_value(const float* __restrict__ x,
-                                             const Geom& g, RowInfo r,
-                                             int col) {
-  int y = r.py + (col & 3) - g.lo;
-  int xx = r.px + ((col >> 2) & 3) - g.lo;
-  if (y < 0 || xx < 0 || y >= g.hd || xx >= g.wd) return 0.f;
-  if (g.dilate) {
-    if ((y | xx) & 1) return 0.f;
-    y >>= 1;
-    xx >>= 1;
-  }
-  return __ldg(x + (size_t)r.base + ((size_t)y * g.w + xx) * g.cin +
-               (col >> 4));
-}
-
-// dw (or a chunk's partial) [K, cout] over output pixels
-// [chunk * rows_per_chunk, min(M, (chunk + 1) * rows_per_chunk)).
-__global__ void __launch_bounds__(kThreads)
-    conv_dw(const float* __restrict__ x, const float* __restrict__ dy,
-            float* __restrict__ dw, float* __restrict__ partial, Geom g,
-            int rows_per_chunk, int bf16) {
-  extern __shared__ __align__(16) float smem[];
-  const int K = 9 * g.cin;
-  const int rc = chans_per_thread(g.cout);
-  const int ct = chan_threads(g.cout);
-  const int rt = kThreads / ct;
-  const int tk = rt * kDwRows;
-  const int k0 = blockIdx.x * tk;
-  const int kn = min(tk, K - k0);
-  const int ld = tk + 1;
-  float* ps = smem;                       // [kSlice, ld] patch slice
-  float* ds = ps + kSlice * ld;           // [kSlice, cout] dy slice
-  int* cols = reinterpret_cast<int*>(ds + kSlice * g.cout);  // [kn]
-  RowInfo* rows = reinterpret_cast<RowInfo*>(cols + tk);     // [kSlice]
-  for (int k = threadIdx.x; k < kn; k += kThreads) cols[k] = col_info(g, k0 + k);
-  const int M = g.batch * g.out_hw * g.out_hw;
-  const int mbeg = blockIdx.y * rows_per_chunk;
-  const int mend = min(M, mbeg + rows_per_chunk);
-  const int cx = threadIdx.x % ct, pr = threadIdx.x / ct;
-  const int co0 = cx * rc;
-
-  float acc[kDwRows][kMaxCh];
+// Tiled routes (32 gathered channels, cd = 32 or 64: conv2 and convt1):
+// P [288, cd] = sum over direct pixels p of G[p]^T D[p], G[p] the gathered
+// side's 32 channels at the 9 taps, D[p] the direct side's channels. A
+// block owns all of P (in registers) and a chunk of pixels, streamed 32 at
+// a time through a ring of kDwStages shared-memory stages filled by
+// cp.async: thread t copies pixel t / 8's channels 4 (t % 8) ... of each
+// tap (one address and bounds check per (pixel, tap), 16 bytes through L1,
+// where neighbouring pixels' taps hit, zero-filled outside the image) and
+// of D, so two slices are in flight while one multiplies. fp32: up to 72
+// FMAs per 5 shared loads a pixel. bf16: each thread rounds the values it
+// copied into a double-buffered bf16 slice; mma.sync with the pixels as k,
+// fragments of G^T and D by ldmatrix.trans (both are pixel-major); warp w
+// owns the 16-row tiles w, w + 8, w + 16.
+template <int CD, bool BF16>
+__global__ void __launch_bounds__(kThreads, 1)
+    dw_tiled(DwTaps t, int per, float* dw, float* partial) {
+  constexpr int kLdD = CD + 4, kLdDh = CD + 8;
+  constexpr int kStage = kDwSlice * (kLdGa + kLdD);   // floats
+  constexpr int kHalf = kDwSlice * (kLdGh + kLdDh);   // bf16 values
+  constexpr int CN = CD / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ int wrow[kMaxTaps];
+  auto* ring = reinterpret_cast<float*>(smem_raw);  // [kDwStages][G, D]
+  auto* half = reinterpret_cast<__nv_bfloat16*>(ring + kDwStages * kStage);  // [2][G, D]
+  if (threadIdx.x < kMaxTaps) wrow[threadIdx.x] = t.wrow[threadIdx.x];
+  const int M = t.batch * t.hd * t.hd;
+  const int m0 = blockIdx.x * per, m1 = min(M, m0 + per);
+  const int nsl = m1 > m0 ? (m1 - m0 + kDwSlice - 1) / kDwSlice : 0;
+  const int gp = threadIdx.x >> 3, c0 = 4 * (threadIdx.x & 7);
+  auto issue = [&](int j) {
+    if (j < nsl) {
+      float* st = ring + (j % kDwStages) * kStage;
+      const int m = m0 + j * kDwSlice + gp;
+      const bool in = m < m1;
+      const int3 q = dw_pixel(t, in ? m : m0);
+      const float* img = t.gathered + (size_t)q.x * t.hg * t.hg * kDwG + c0;
 #pragma unroll
-  for (int i = 0; i < kDwRows; ++i)
+      for (int i = 0; i < kMaxTaps; ++i) {
+        const int y = 2 * q.y + t.oy[i], x = 2 * q.z + t.ox[i];
+        const bool ok = in && y >= 0 && x >= 0 && y < t.hg && x < t.hg;
+        vae::cp_async16_ca(st + gp * kLdGa + i * kDwG + c0,
+                           ok ? img + (y * t.hg + x) * kDwG : t.gathered, ok);
+      }
+      const float* dp = t.direct + (size_t)(in ? m : m0) * CD + c0;
 #pragma unroll
-    for (int j = 0; j < kMaxCh; ++j) acc[i][j] = 0.f;
-  for (int ms = mbeg; ms < mend; ms += kSlice) {
-    __syncthreads();  // the previous slice is consumed
-    for (int s = threadIdx.x; s < kSlice; s += kThreads)
-      rows[s] = ms + s < mend ? row_info(g, ms + s) : RowInfo{-1, 0, 0};
-    for (int i = threadIdx.x; i < kSlice * g.cout; i += kThreads) {
-      const int s = i / g.cout;
-      ds[i] = ms + s < mend ? rnd(dy[(size_t)ms * g.cout + i], bf16) : 0.f;
+      for (int u = 0; u < CD / 32; ++u)
+        vae::cp_async16(st + kDwSlice * kLdGa + gp * kLdD + c0 + 32 * u, dp + 32 * u, in);
     }
-    __syncthreads();
-    for (int i = threadIdx.x; i < kSlice * kn; i += kThreads) {
-      const int s = i / kn;
-      const int kk = i - s * kn;
-      const RowInfo r = rows[s];
-      ps[s * ld + kk] =
-          r.base >= 0 ? rnd(patch_value(x, g, r, cols[kk]), bf16) : 0.f;
+    vae::cp_async_commit();  // empty past the last slice: uniform counts
+  };
+  for (int j = 0; j < kDwStages - 1; ++j) issue(j);
+  const int tn = threadIdx.x & 7, tm = threadIdx.x >> 3;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  DwAcc<CD, BF16> acc{};
+  for (int j = 0; j < nsl; ++j) {
+    vae::cp_async_wait<kDwStages - 2>();
+    const float* st = ring + (j % kDwStages) * kStage;
+    const float* ds = st + kDwSlice * kLdGa;
+    __nv_bfloat16* hs = half + (j & 1) * kHalf;
+    if constexpr (BF16) {  // the values this thread copied, rounded
+#pragma unroll
+      for (int i = 0; i < kMaxTaps; ++i)
+        *reinterpret_cast<uint2*>(hs + gp * kLdGh + i * kDwG + c0) = vae::pack_bf16x4(
+            *reinterpret_cast<const float4*>(st + gp * kLdGa + i * kDwG + c0));
+#pragma unroll
+      for (int u = 0; u < CD / 32; ++u)
+        *reinterpret_cast<uint2*>(hs + kDwSlice * kLdGh + gp * kLdDh + c0 + 32 * u) =
+            vae::pack_bf16x4(*reinterpret_cast<const float4*>(ds + gp * kLdD + c0 + 32 * u));
     }
-    __syncthreads();
-    if (co0 < g.cout) {
-      for (int s = 0; s < kSlice; ++s) {
-        float dv[kMaxCh];
+    __syncthreads();  // slice j is whole; slice j - 1 is consumed
+    issue(j + kDwStages - 1);
+    if constexpr (BF16) {
+      const __nv_bfloat16* gs = hs;
+      const __nv_bfloat16* dh = hs + kDwSlice * kLdGh;
 #pragma unroll
-        for (int j = 0; j < kMaxCh; ++j)
-          dv[j] = j < rc && co0 + j < g.cout ? ds[s * g.cout + co0 + j] : 0.f;
+      for (int ks = 0; ks < kDwSlice; ks += 16) {
+        uint32_t bf[CN][2];
 #pragma unroll
-        for (int i = 0; i < kDwRows; ++i) {
-          const float a = ps[s * ld + pr + i * rt];  // < tk; unused past kn
-#pragma unroll
-          for (int j = 0; j < kMaxCh; ++j) acc[i][j] = fmaf(a, dv[j], acc[i][j]);
+        for (int np = 0; np < CN / 2; ++np) {
+          uint32_t r[4];
+          vae::ldmatrix_x4_trans(
+              r, dh + (ks + ((lane >> 3) & 1) * 8 + (lane & 7)) * kLdDh + 16 * np +
+                     (lane >> 4) * 8);
+          bf[2 * np][0] = r[0], bf[2 * np][1] = r[1];
+          bf[2 * np + 1][0] = r[2], bf[2 * np + 1][1] = r[3];
         }
+#pragma unroll
+        for (int i = 0; i < 3; ++i) {
+          const int mt = warp + 8 * i;
+          if (mt >= kDwK / 16) continue;
+          uint32_t af[4];
+          vae::ldmatrix_x4_trans(
+              af, gs + (ks + (lane >> 4) * 8 + (lane & 7)) * kLdGh + 16 * mt +
+                      ((lane >> 3) & 1) * 8);
+#pragma unroll
+          for (int n = 0; n < CN; ++n) vae::mma_bf16(acc.v[i][n], af, bf[n][0], bf[n][1]);
+        }
+      }
+    } else {
+#pragma unroll 2
+      for (int px = 0; px < kDwSlice; ++px) {
+        const float* gp_ = st + px * kLdGa;
+        const float4 a0 = *reinterpret_cast<const float4*>(gp_ + 4 * tm);
+        const float4 a1 = *reinterpret_cast<const float4*>(gp_ + 128 + 4 * tm);
+        const float av[9] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w, gp_[256 + tm]};
+        float dv[CN];
+        const float4 d0 = *reinterpret_cast<const float4*>(ds + px * kLdD + 4 * tn);
+        dv[0] = d0.x, dv[1] = d0.y, dv[2] = d0.z, dv[3] = d0.w;
+        if constexpr (CN == 8) {
+          const float4 d1 = *reinterpret_cast<const float4*>(ds + px * kLdD + 32 + 4 * tn);
+          dv[4] = d1.x, dv[5] = d1.y, dv[6] = d1.z, dv[7] = d1.w;
+        }
+#pragma unroll
+        for (int r = 0; r < 9; ++r)
+#pragma unroll
+          for (int q = 0; q < CN; ++q) acc.v[r][q] = fmaf(av[r], dv[q], acc.v[r][q]);
       }
     }
   }
-  float* out = partial != nullptr ? partial + (size_t)blockIdx.y * K * g.cout : dw;
+  vae::cp_async_wait<0>();
+  __syncthreads();  // wrow is staged even when the chunk is empty
+  float* out = dw_out(dw, partial, kMaxTaps * kDwG * CD);
+  if constexpr (BF16) {
+    const int g = lane >> 2, cq = lane & 3;
 #pragma unroll
-  for (int i = 0; i < kDwRows; ++i) {
-    const int kk = pr + i * rt;
-    if (kk >= kn) continue;
+    for (int i = 0; i < 3; ++i) {
+      const int mt = warp + 8 * i;
+      if (mt >= kDwK / 16) continue;
 #pragma unroll
-    for (int j = 0; j < kMaxCh; ++j) {
-      const int co = co0 + j;
-      if (j < rc && co < g.cout) out[(size_t)(k0 + kk) * g.cout + co] = acc[i][j];
+      for (int hh = 0; hh < 2; ++hh) {
+        const int kk = 16 * mt + g + 8 * hh;
+#pragma unroll
+        for (int n = 0; n < CN; ++n)
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            out[dw_index(t, wrow, kk / kDwG, kk % kDwG, 8 * n + 2 * cq + e)] =
+                acc.v[i][n][2 * hh + e];
+      }
+    }
+  } else {
+#pragma unroll
+    for (int r = 0; r < 9; ++r) {
+      const int kk = r < 4 ? 4 * tm + r : r < 8 ? 124 + 4 * tm + r : 256 + tm;
+#pragma unroll
+      for (int q = 0; q < CN; ++q)
+        out[dw_index(t, wrow, kk / kDwG, kk % kDwG, q < 4 ? 4 * tn + q : 28 + 4 * tn + q)] =
+            acc.v[r][q];
     }
   }
 }
 
-// Adds the chunks' partial [n] arrays in chunk order.
+// Thin route (one channel on the gathered side: conv1's x, convt2's dy;
+// cd = 4 ... 32 on the direct side). Bound by bytes: the direct side is
+// read once with 16-byte loads (cd / 4 lanes per pixel) and each pixel's 9
+// gathered values come from L1/L2. Each lane keeps the 9 taps x 4 channels
+// of its pixels' products; the lanes of one channel group, then the warps,
+// add in a fixed order.
+template <bool BF16>
 __global__ void __launch_bounds__(kThreads)
-    dw_reduce(const float* __restrict__ partial, int chunks, int n,
-              float* __restrict__ dw) {
-  for (int i = blockIdx.x * kThreads + threadIdx.x; i < n;
-       i += gridDim.x * kThreads) {
-    float s = partial[i];
-    for (int c = 1; c < chunks; ++c) s += partial[(size_t)c * n + i];
-    dw[i] = s;
+    dw_thin(DwTaps t, int per, float* dw, float* partial) {
+  __shared__ float red[kThreads / 32][kMaxTaps * 32];
+  const int lpp = t.cd / 4, ppw = 32 / lpp;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane / lpp, q = lane - g * lpp;
+  const int M = t.batch * t.hd * t.hd;
+  const int m0 = blockIdx.x * per, m1 = min(M, m0 + per);
+  float acc[kMaxTaps][4];
+#pragma unroll
+  for (int i = 0; i < kMaxTaps; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+#pragma unroll 2
+  for (int m = m0 + warp * ppw + g; m < m1; m += (kThreads / 32) * ppw) {
+    const int3 px = dw_pixel(t, m);
+    float4 wv = __ldg(reinterpret_cast<const float4*>(t.direct + (size_t)m * t.cd + 4 * q));
+    wv = make_float4(rnd<BF16>(wv.x), rnd<BF16>(wv.y), rnd<BF16>(wv.z), rnd<BF16>(wv.w));
+    const float* nb = t.gathered + (size_t)px.x * t.hg * t.hg;
+    float nv[kMaxTaps];
+#pragma unroll
+    for (int i = 0; i < kMaxTaps; ++i) {
+      const int ny = 2 * px.y + t.oy[i], nx = 2 * px.z + t.ox[i];
+      nv[i] = ny >= 0 && nx >= 0 && ny < t.hg && nx < t.hg
+                  ? rnd<BF16>(__ldg(nb + ny * t.hg + nx)) : 0.f;
+    }
+#pragma unroll
+    for (int i = 0; i < kMaxTaps; ++i) {
+      acc[i][0] = fmaf(nv[i], wv.x, acc[i][0]);
+      acc[i][1] = fmaf(nv[i], wv.y, acc[i][1]);
+      acc[i][2] = fmaf(nv[i], wv.z, acc[i][2]);
+      acc[i][3] = fmaf(nv[i], wv.w, acc[i][3]);
+    }
+  }
+  for (int o = lpp; o < 32; o <<= 1)
+#pragma unroll
+    for (int i = 0; i < kMaxTaps; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] += __shfl_xor_sync(0xffffffffu, acc[i][j], o);
+  if (g == 0)
+#pragma unroll
+    for (int i = 0; i < kMaxTaps; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) red[warp][i * t.cd + 4 * q + j] = acc[i][j];
+  __syncthreads();
+  float* out = dw_out(dw, partial, kMaxTaps * t.cd);
+  for (int i = threadIdx.x; i < kMaxTaps * t.cd; i += kThreads) {
+    float s = red[0][i];
+#pragma unroll
+    for (int w = 1; w < kThreads / 32; ++w) s += red[w][i];
+    const int tap = i / t.cd;
+    out[t.wrow[tap] * t.cd + i - tap * t.cd] = s;
   }
 }
 
-// The geometry, or false when the kernels do not take it.
-bool make_geom(int batch, int h, int w, int cin, int cout, int stride,
-               int dilate, int lo, int hi, int out_hw, Geom* g) {
-  if (batch <= 0 || h <= 0 || w <= 0 || cin <= 0 || cout <= 0 ||
-      cout > kMaxCout || (stride != 1 && stride != 2) || lo < 0 || hi < 0 ||
-      out_hw <= 0 || cin >= (1 << 26))
-    return false;
-  const int hd = dilate ? 2 * h - 1 : h;
-  const int wd = dilate ? 2 * w - 1 : w;
-  // Every tap of every output lies inside the padded input.
-  if (stride * (out_hw - 1) + 3 > hd + lo + hi ||
-      stride * (out_hw - 1) + 3 > wd + lo + hi)
-    return false;
-  *g = Geom{batch, h, w, cin, cout, stride, dilate ? 1 : 0, lo, hd, wd,
-            out_hw};
-  return true;
+// Adds the chunks' partial [n] arrays in chunk order: block x owns 32
+// consecutive values, warp w the chunks [w q, (w + 1) q), q = chunks / 8
+// rounded up, each in order; the 8 warp sums then add in warp order.
+__global__ void __launch_bounds__(kThreads)
+    dw_reduce(const float* __restrict__ partial, int chunks, int n,
+              float* __restrict__ dw) {
+  constexpr int kWarps = kThreads / 32;
+  __shared__ float red[kWarps][32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int i = blockIdx.x * 32 + lane;
+  const int q = (chunks + kWarps - 1) / kWarps;
+  float s = 0.f;
+  if (i < n)
+    for (int c = warp * q; c < min(chunks, (warp + 1) * q); ++c)
+      s += partial[(size_t)c * n + i];
+  red[warp][lane] = s;
+  __syncthreads();
+  if (warp == 0 && i < n) {
+    float t = red[0][lane];
+#pragma unroll
+    for (int w = 1; w < kWarps; ++w) t += red[w][lane];
+    dw[i] = t;
+  }
+}
+
+// Shared memory of a tiled dw route for cd direct channels: the ring and,
+// in bf16, the two rounded slices (kernels/conv.py::dw_smem).
+int dw_smem(int route, int cd) {
+  const int ring = 4 * kDwStages * kDwSlice * (kLdGa + cd + 4);
+  return route == kDwMma ? ring + 2 * 2 * kDwSlice * (kLdGh + cd + 8) : ring;
 }
 
 }  // namespace
@@ -807,42 +780,64 @@ extern "C" int vae_conv_fwd(const void* x, int batch, int h, int w, int cin,
 
 // dw [9 cin, cout] = sum over the output pixels of patch^T . dy for the conv
 // of vae_conv_fwd with the same geometry; dy [batch, out_hw, out_hw, cout].
-// The pixels split into `chunks` of `rows_per_chunk`; with chunks > 1,
-// `partial` holds chunks * 9 cin * cout floats of scratch and a second
-// launch adds them in order.
+// `taps` holds the 9 taps' (wrow, oy, ox) as 27 ints (kernels/conv.py::
+// dw_taps); the gathered side is x when `gathered_x`, else dy. `route` is
+// kernels/conv.py::dw_route's; the direct side's pixels split into `chunks`
+// of `per` pixels; `smem` is dw_smem's. With chunks > 1, `partial` holds
+// chunks * 9 cin * cout floats of scratch and a second launch adds them in
+// order.
 extern "C" int vae_conv_dw(const void* x, int batch, int h, int w, int cin,
-                           const void* dy, int cout, int stride, int dilate,
-                           int lo, int hi, int out_hw, int rows_per_chunk,
-                           int chunks, void* dw, void* partial, int bf16,
-                           void* stream) {
-  Geom g;
-  if (!make_geom(batch, h, w, cin, cout, stride, dilate, lo, hi, out_hw, &g))
+                           const void* dy, int cout, int out_hw,
+                           const int* taps, int gathered_x, int route, int per,
+                           int chunks, int smem, void* dw, void* partial,
+                           int bf16, void* stream) {
+  if (batch <= 0 || h <= 0 || h != w || cin <= 0 || cout <= 0 || out_hw <= 0 ||
+      taps == nullptr || chunks < 1 || per < 1 || (chunks > 1 && partial == nullptr) ||
+      route < kDwFfma || route > kDwThin ||
+      reinterpret_cast<uintptr_t>(x) % 16 != 0 || reinterpret_cast<uintptr_t>(dy) % 16 != 0)
     return (int)cudaErrorInvalidValue;
-  const long long M = (long long)batch * out_hw * out_hw;
-  if (chunks < 1 || rows_per_chunk < 1 ||
-      (long long)rows_per_chunk * chunks < M ||
-      (chunks > 1 && partial == nullptr))
+  DwTaps t{static_cast<const float*>(gathered_x ? dy : x),
+           static_cast<const float*>(gathered_x ? x : dy), batch,
+           gathered_x ? out_hw : h, gathered_x ? h : out_hw,
+           gathered_x ? cout : cin, gathered_x ? cin : cout, gathered_x ? 1 : 0,
+           {}, {}, {}};
+  for (int i = 0; i < kMaxTaps; ++i) {
+    t.wrow[i] = taps[3 * i];
+    t.oy[i] = taps[3 * i + 1];
+    t.ox[i] = taps[3 * i + 2];
+    if (t.wrow[i] < 0 || t.wrow[i] >= kMaxTaps) return (int)cudaErrorInvalidValue;
+  }
+  if ((long long)per * chunks < (long long)batch * t.hd * t.hd)
     return (int)cudaErrorInvalidValue;
-  const int rt = kThreads / chan_threads(cout);
-  const int tk = rt * kDwRows;
-  const int K = 9 * cin;
-  const size_t smem = sizeof(float) * ((size_t)kSlice * (tk + 1) + (size_t)kSlice * cout) +
-                      sizeof(int) * tk + sizeof(RowInfo) * kSlice;
-  if (smem > 232448) return (int)cudaErrorInvalidValue;
-  int per_sm = 0;
-  cudaError_t e = vae::launch_info((const void*)conv_dw, (int)smem, &per_sm);
-  if (e != cudaSuccess) return (int)e;
   auto st = static_cast<cudaStream_t>(stream);
+  float* dwp = static_cast<float*>(dw);
   float* part = chunks > 1 ? static_cast<float*>(partial) : nullptr;
-  const dim3 grid((K + tk - 1) / tk, chunks);
-  conv_dw<<<grid, kThreads, smem, st>>>(
-      static_cast<const float*>(x), static_cast<const float*>(dy),
-      static_cast<float*>(dw), part, g, rows_per_chunk, bf16);
+  cudaError_t e;
+  if (route == kDwThin) {
+    if (t.cg != 1 || (t.cd != 4 && t.cd != 8 && t.cd != 16 && t.cd != 32) || smem != 0)
+      return (int)cudaErrorInvalidValue;
+    auto kern = bf16 ? dw_thin<true> : dw_thin<false>;
+    kern<<<chunks, kThreads, 0, st>>>(t, per, dwp, part);
+  } else {
+    if (t.cg != kDwG || (t.cd != 32 && t.cd != 64) || (route == kDwMma) != (bf16 != 0) ||
+        smem != dw_smem(route, t.cd) || smem + 64 > vae::kSmemLimit)
+      return (int)cudaErrorInvalidValue;
+    const void* fn = route == kDwFfma
+        ? (t.cd == 64 ? (const void*)dw_tiled<64, false> : (const void*)dw_tiled<32, false>)
+        : (t.cd == 64 ? (const void*)dw_tiled<64, true> : (const void*)dw_tiled<32, true>);
+    int per_sm = 0;
+    e = vae::launch_info(fn, smem, &per_sm);
+    if (e != cudaSuccess) return (int)e;
+    void* args[] = {&t, &per, &dwp, &part};
+    e = cudaLaunchKernel(fn, dim3(chunks), dim3(kThreads), args, smem, st);
+    if (e != cudaSuccess) {
+      cudaGetLastError();
+      return (int)e;
+    }
+  }
   e = cudaGetLastError();
   if (e != cudaSuccess || chunks == 1) return (int)e;
-  const int n = K * cout;
-  const int blocks = (n + kThreads - 1) / kThreads;
-  dw_reduce<<<blocks < 1024 ? blocks : 1024, kThreads, 0, st>>>(
-      part, chunks, n, static_cast<float*>(dw));
+  const int n = 9 * cin * cout;
+  dw_reduce<<<(n + 31) / 32, kThreads, 0, st>>>(part, chunks, n, dwp);
   return (int)cudaGetLastError();
 }

@@ -160,25 +160,6 @@ constexpr int kLdH = kTile + 8;  // bf16 slice row: 272 B, ldmatrix conflict-fre
 constexpr int kRing = 2 * kSlice * kLdF;  // one ring stage: the A and D slices
 constexpr int kHalf = 2 * kSlice * kLdH;  // one bf16 stage
 
-// Copies 4 consecutive values of row b of src [.., ld] from column c into
-// dst, zeros at columns >= lim or when !in: one 16-byte cp.async when
-// `vec` (ld, lim and src 16-byte aligned), else four of 4 bytes.
-__device__ __forceinline__ void copy4(float* dst, const float* src, int ld,
-                                      int b, int c, int lim, bool vec,
-                                      bool in) {
-  const float* p = src + (size_t)b * ld + c;
-  if (vec) {
-    const bool ok = in && c < lim;
-    vae::cp_async16(dst, ok ? p : src, ok);
-  } else {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const bool ok = in && c + e < lim;
-      vae::cp_async4(dst + e, ok ? p + e : src, ok);
-    }
-  }
-}
-
 // The output rows: dW [m, n] and db [n], or chunk z's partial [m + 1, n].
 __device__ __forceinline__ float* wgrad_out(float* dw, float* partial, int m,
                                             int n, int row) {
@@ -282,8 +263,8 @@ __global__ void __launch_bounds__(kThreads, 1)
       for (int i = 0; i < 4; ++i) {
         const int r = (threadIdx.x >> 5) + 8 * i;
         const int b = b_begin + j * kSlice + r;
-        copy4(st + r * kLdF + col, a, lda, b, m0 + col, m, vec_a, b < b_end);
-        copy4(st + (kSlice + r) * kLdF + col, d, ldd, b, n0 + col, n, vec_d,
+        vae::copy4(st + r * kLdF + col, a, lda, b, m0 + col, m, vec_a, b < b_end);
+        vae::copy4(st + (kSlice + r) * kLdF + col, d, ldd, b, n0 + col, n, vec_d,
               b < b_end);
       }
     }
