@@ -34,8 +34,11 @@ Phases, each of which raises on failure (nothing is caught):
    conditional image tower (n_cond=10), batches 1 to 16384, fp32
    (rtol = atol = 1e-4) and bf16 (2e-2); a gradient summed over the batch
    takes atol = tol × max|want|. The weight-gradient kernel also runs on
-   widths that are not multiples of 4 (the conditional tower's 510 × 794)
-   and gives identical bits on a second call.
+   widths that are not multiples of 4 (the conditional tower's 510 × 794);
+   it and the decoder+loss backward (dz and the six weight grads) give
+   identical bits on a second call. The batches take every row tile of the
+   backward (16, 32 and 64 rows a block; 16 rows also shared by two blocks),
+   printed with its shared memory.
 6b. The composable training path's kernels against their twins on the
    card: the decoder backward (image, trajectory, conditional and depth-3
    decoders, fp32 and bf16), the sampler (ε at rtol = atol = 1e-6, z) and
@@ -45,8 +48,10 @@ Phases, each of which raises on failure (nothing is caught):
    fp32 and bf16: conv_fwd on all four layer shapes of the conv tower, as
    the layer's forward and as its input gradient (the four uses of the
    primitive), conv_dw on all four, conv_enc (every output) and conv_dec
-   (every output, kinds bernoulli and gaussian); conv_fwd, conv_dw and
-   conv_dec give identical bits on a second call.
+   (every output, kinds bernoulli and gaussian); conv_fwd, conv_dw,
+   conv_enc and conv_dec give identical bits on a second call. The batches
+   take every row tile of conv_enc (16, 32 and 64 rows a block), printed
+   with its shared memory.
 7. Training, the port's second main path: config 3 at full width from
    seed 0, trained through train_loop on the kernels (use_pallas="mega")
    and on the plain path. Step-0 gradients agree within phase 6's
@@ -81,10 +86,11 @@ Phases, each of which raises on failure (nothing is caught):
    paths), and at config 5's settings (all three paths), on 65,536
    synthetic pairs featurized on the card; and each training kernel's
    time per call against its twin's (and, for the weight-gradient kernel,
-   torch.matmul's), fp32 and bf16: CUDA events around the calls, and the
-   device's busy time from torch.profiler, which leaves out the device
-   waiting for the host (what the JSON record reports where the profiler
-   measured it).
+   torch.matmul's; for the decoder+loss backward, also without its three
+   weight-gradient launches), fp32 and bf16: CUDA events around the calls,
+   and the device's busy time from torch.profiler, which leaves out the
+   device waiting for the host (what the JSON record reports where the
+   profiler measured it).
 8d. Times of config 4: train_loop_fused samples/s at batch 64 fp32 and
    batch 2048 bf16 on the plain, conv mega, conv_pallas mega and
    conv_pallas composable paths in turns, plain first and last; at B = 1024
@@ -92,15 +98,17 @@ Phases, each of which raises on failure (nothing is caught):
    forward and input gradient) and conv_dw on all four layers, each against
    its twin and one cuDNN call checked to compute the same function in fp32
    (F.conv2d, F.conv_transpose2d, torch.nn.grad.conv2d_input or
-   torch.nn.grad.conv2d_weight); conv_enc (fp32) and conv_dec (fp32 and
-   bf16) against their twins.
+   torch.nn.grad.conv2d_weight); conv_enc and conv_dec (fp32 and bf16)
+   against their twins.
 
 The line before the last is the kernel record as JSON, each kernel with
 its bound: the larger of the bytes it must move over 3.35 TB/s and its
 operations over 67 TFLOP/s (fp32, no tensor cores) or, for a bf16 call,
 989 TFLOP/s (tensor cores), the H100 SXM data sheet's rates. The kernels
-with a bf16 route on tensor cores (wgrad, conv_fwd, conv_dw, conv_dec)
-also carry a "bf16" object with the same fields. The last line is {"ok": true, "device": {...}}. Without a
+with a bf16 route on tensor cores (mega_dec_loss_bwd, wgrad, conv_fwd,
+conv_dw, conv_enc, conv_dec) also carry a "bf16" object with the same
+fields; mega_dec_loss_bwd's time includes its three weight-gradient
+launches, and "alone_ms" is the kernel's without them. The last line is {"ok": true, "device": {...}}. Without a
 CUDA device, or without the package beside this file, the script exits
 non-zero and prints no result.
 """
@@ -290,7 +298,11 @@ def check_train_kernels(rng, batches=TRAIN_BATCHES):
                 grec = torch.from_numpy(rng.uniform(0.5, 1.5, b).astype(np.float32)).cuda() / b
                 got = km.dec_loss_bwd(x, z, flat[8:], grec, kind=kind, compute_dtype=cd)
                 want = km.dec_loss_bwd_plain(x, z, flat[8:], grec, kind=kind, compute_dtype=cd)
+                again = km.dec_loss_bwd(x, z, flat[8:], grec, kind=kind, compute_dtype=cd)
                 torch.cuda.synchronize()
+                if not all(torch.equal(g, a) for g, a in zip([got[0], *got[1]],
+                                                             [again[0], *again[1]])):
+                    failed.append(f"mega_dec_loss_bwd {tower} B={b} {cd}: two calls differ")
                 pairs = [("dz", got[0], want[0], False)]
                 pairs += [(f"grad{i}", g, w, True) for i, (g, w) in enumerate(zip(got[1], want[1]))]
                 line["mega_dec_loss_bwd"].append(record(("mega_dec_loss_bwd", tower, b, cd), pairs, tol))
@@ -320,6 +332,15 @@ def check_train_kernels(rng, batches=TRAIN_BATCHES):
             for k, v in line.items():
                 print(f"check {tower} {k} {cd} (tol {tol}): " + " ".join(
                     f"B={b}:{e:.2e}" for b, e in zip(batches, v)), flush=True)
+    n_sm = kmlp.sm_count(torch.device("cuda", 0))
+
+    def plan(b):
+        rows, f32 = km.dec_bwd_plan(b, n_sm)
+        return (f"B={b}: {rows} x {km.dec_bwd_parts(b, rows, n_sm)} "
+                f"({f32}, {km.dec_bwd_plan(b, n_sm, 'bfloat16')[1]})")
+
+    print("mega_dec_loss_bwd rows per block x blocks sharing them (fp32 and bf16 shared "
+          "memory in bytes): " + ", ".join(plan(b) for b in batches), flush=True)
     if failed:
         raise AssertionError("training kernel disagrees with its plain twin: "
                              + "; ".join(failed[:20]))
@@ -654,7 +675,9 @@ def time_training(card):
 def time_train_kernels(rng, card):
     """Phase 8b: device ms per launch of each training kernel (its wrapper,
     weight-gradient launches included) against its twin, image tower; the
-    weight-gradient kernel also against one torch.matmul (``library``)."""
+    decoder+loss backward also alone (``alone``, without its three
+    weight-gradient launches), the weight-gradient kernel also against one
+    torch.matmul (``library``)."""
     from vae_assoc_tpu_torch.kernels import loss as kloss
     from vae_assoc_tpu_torch.kernels import megakernel as km
     from vae_assoc_tpu_torch.kernels import mlp as kmlp
@@ -706,10 +729,15 @@ def time_train_kernels(rng, card):
                 op = torch.bfloat16 if cd == "bfloat16" else torch.float32
                 a_lib, d_lib = a.to(op), d.to(op)
                 library = {"wgrad": lambda: torch.matmul(a_lib.T, d_lib)}
+                # The backward kernel without its three weight-gradient launches.
+                alone = {"mega_dec_loss_bwd": lambda: km._dec_loss_bwd_kernel(
+                    x, z, flat[8:], g, kind, cd)}
                 for name, (kern, plain) in cases.items():
                     fns = {"kernel": kern, "plain": plain}
                     if name in library:
                         fns["library"] = library[name]
+                    if name in alone:
+                        fns["alone"] = alone[name]
                     bound = _bound(*_wgrad_work(b), cd) if name == "wgrad" else None
                     times[(name, b, cd)] = _time_case(f"{name} image B={b} {cd}", fns, card,
                                                       bound, n=10)
@@ -794,6 +822,7 @@ def check_conv_kernels(rng, batches=TRAIN_BATCHES):
     """Phase 6c; returns {(kernel, case, batch, dtype): max_abs_err}."""
     from vae_assoc_tpu_torch.kernels import conv as kconv
     from vae_assoc_tpu_torch.kernels import conv_mega as kcm
+    from vae_assoc_tpu_torch.kernels import mlp as kmlp
 
     errs, failed = {}, []
     record = _recorder(errs, failed)
@@ -831,7 +860,10 @@ def check_conv_kernels(rng, batches=TRAIN_BATCHES):
             x3 = t(b, 28, 28, lo=0.0)
             got = kcm.conv_enc(flat[:10], x3, compute_dtype=cd)
             want = kcm.conv_enc_plain(flat[:10], x3, compute_dtype=cd)
+            again = kcm.conv_enc(flat[:10], x3, compute_dtype=cd)
             torch.cuda.synchronize()
+            if not all(torch.equal(g, a) for g, a in zip(got, again)):
+                failed.append(f"conv_enc B={b} {cd}: two calls differ")
             line.setdefault(("conv_enc", "image"), []).append(record(
                 ("conv_enc", "image", b, cd),
                 [(n, g, w, False) for n, g, w in zip(("mu", "lv", "a1", "a2", "h"), got, want)],
@@ -851,6 +883,10 @@ def check_conv_kernels(rng, batches=TRAIN_BATCHES):
         for (k, case), v in line.items():
             print(f"check {k} {case} {cd} (tol {tol}): " + " ".join(
                 f"B={b}:{e:.2e}" for b, e in zip(batches, v)), flush=True)
+    n_sm = kmlp.sm_count(torch.device("cuda", 0))
+    print("conv_enc rows per block (fp32 and bf16 shared memory in bytes): " + ", ".join(
+        f"B={b}: {kcm.enc_plan(b, n_sm)[0]} ({kcm.enc_plan(b, n_sm)[1]}, "
+        f"{kcm.enc_plan(b, n_sm, 'bfloat16')[1]})" for b in batches), flush=True)
     if failed:
         raise AssertionError("conv kernel disagrees with its plain twin: "
                              + "; ".join(failed[:20]))
@@ -1141,17 +1177,17 @@ def _conv_library(m, name, use, x, cd):
 
 def _time_case(label, fns, card, bound=None, n=5):
     """{"call": CUDA-event ms per call, "device": profiler busy ms per call}
-    of each function in ``fns`` (kernel, plain, and library where given):
-    two warm-up rounds, then plain, kernel, kernel, plain and the library
-    twice, ``n`` calls each."""
+    of each function in ``fns`` (kernel, plain, and where given the library
+    call or other variants of the kernel): two warm-up rounds, then plain,
+    kernel, kernel, plain and each other function twice, ``n`` calls each."""
     for _ in range(2):
         for fn in fns.values():
             fn()
     runs = {which: [] for which in fns}
     for which in ("plain", "kernel", "kernel", "plain"):
         runs[which].append(_device_ms(fns[which], n=n))
-    if "library" in fns:
-        runs["library"] += [_device_ms(fns["library"], n=n) for _ in range(2)]
+    for which in fns.keys() - {"kernel", "plain"}:
+        runs[which] += [_device_ms(fns[which], n=n) for _ in range(2)]
     call = {which: float(np.mean(r)) for which, r in runs.items()}
     busy = {which: _profiled_ms(fn, n=n) for which, fn in fns.items()}
     tail = "" if bound is None else f"; bound {bound[0]:.4f} ({bound[1]})"
@@ -1191,7 +1227,7 @@ def time_conv_kernels(rng, card):
     against its twin and one cuDNN call checked to compute the same
     function in fp32 (_conv_library, _dw_library; conv_dw's fp32 calls
     with TF32 off, so that cuDNN sums in fp32 as the kernel does);
-    conv_enc (fp32) and conv_dec against their twins."""
+    conv_enc and conv_dec against their twins."""
     from vae_assoc_tpu_torch.kernels import conv as kconv
     from vae_assoc_tpu_torch.kernels import conv_mega as kcm
 
@@ -1240,12 +1276,12 @@ def time_conv_kernels(rng, card):
                 finally:
                     torch.backends.cudnn.allow_tf32 = tf32
             x3, z = t(b, 28, 28, lo=0.0), t(b, 20)
-            times[("conv_enc", b)] = _time_case(
-                f"conv_enc B={b} float32",
-                {"kernel": lambda: kcm.conv_enc(flat[:10], x3),
-                 "plain": lambda: kcm.conv_enc_plain(flat[:10], x3)}, card,
-                _bound(*_conv_enc_work(b)))
             for cd in TOL:
+                times[("conv_enc", b, cd)] = _time_case(
+                    f"conv_enc B={b} {cd}",
+                    {"kernel": lambda: kcm.conv_enc(flat[:10], x3, compute_dtype=cd),
+                     "plain": lambda: kcm.conv_enc_plain(flat[:10], x3, compute_dtype=cd)},
+                    card, _bound(*_conv_enc_work(b), cd))
                 times[("conv_dec", b, cd)] = _time_case(
                     f"conv_dec B={b} {cd}",
                     {"kernel": lambda: kcm.conv_dec(flat[10:], z, x3, kind="bernoulli",
@@ -1665,14 +1701,21 @@ def main() -> int:
          ("conv_dw", "conv2", big, "float32"), train_times[("conv_dw", "conv2", big, "float32")],
          _bound(*_conv_work(big, "conv2"))),
         ("conv_enc", CSRC + "conv_mega.cu", "vae_assoc_tpu/kernels/conv_mega.py:189",
-         conv_launches, ("conv_enc", "image", big, "float32"), train_times[("conv_enc", big)],
-         _bound(*_conv_enc_work(big))),
+         conv_launches, ("conv_enc", "image", big, "float32"),
+         train_times[("conv_enc", big, "float32")], _bound(*_conv_enc_work(big))),
         ("conv_dec", CSRC + "conv_mega.cu", "vae_assoc_tpu/kernels/conv_mega.py:209",
          conv_launches, ("conv_dec", "bernoulli", big, "float32"),
          train_times[("conv_dec", big, "float32")], _bound(*_conv_dec_work(big))),
     ]
     # The kernels this record also gives in bf16: (times, bound, error key).
+    dec_bwd_work = _stack_bwd_work(big, IMAGE_DEC, heads=1, remat_head=True, extra_in=785)
     bf16 = {
+        "mega_dec_loss_bwd": (train_times[("mega_dec_loss_bwd", big, "bfloat16")],
+                              _bound(*dec_bwd_work, "bfloat16"),
+                              ("mega_dec_loss_bwd", "image", big, "bfloat16")),
+        "conv_enc": (train_times[("conv_enc", big, "bfloat16")],
+                     _bound(*_conv_enc_work(big), "bfloat16"),
+                     ("conv_enc", "image", big, "bfloat16")),
         "conv_dw": (train_times[("conv_dw", "conv2", big, "bfloat16")],
                     _bound(*_conv_work(big, "conv2"), "bfloat16"),
                     ("conv_dw", "conv2", big, "bfloat16")),
@@ -1702,11 +1745,15 @@ def main() -> int:
             "ms": ms(timed, "kernel"), "plain_ms": ms(timed, "plain"), "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": ms(timed, "library"),
         }
+        if "alone" in timed["call"]:  # the kernel without its weight-gradient launches
+            row["alone_ms"] = ms(timed, "alone")
         if name in bf16:
             t16, (b16_ms, b16_by), key16 = bf16[name]
             row["bf16"] = {"max_abs_err": train_errs[key16], "ms": ms(t16, "kernel"),
                            "plain_ms": ms(t16, "plain"), "bound_ms": b16_ms,
                            "bound_by": b16_by, "library_ms": ms(t16, "library")}
+            if "alone" in t16["call"]:
+                row["bf16"]["alone_ms"] = ms(t16, "alone")
         kernels.append(row)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -250,35 +250,53 @@ def test_non_cpu_tensors_never_take_the_plain_path():
         tcm.conv_dec(flat[10:], torch.zeros(3, 8, device="meta"), x3, kind="bernoulli")
 
 
-@pytest.mark.parametrize("hr,batch,want", [(500, 16384, 8), (500, 1024, 8), (500, 7, 1),
-                                           (48, 300, 4)])
-def test_tower_tile_plans(hr, batch, want):
-    assert tcm.enc_plan(hr, batch, n_sm=132) == want
+@pytest.mark.parametrize("batch,cd,rows", [(16384, "float32", 64), (1024, "bfloat16", 16),
+                                           (64, "float32", 16), (4096, "bfloat16", 32)])
+def test_tower_tile_plans(batch, cd, rows):
+    # The encoder: 16, 32 or 64 rows from the batch (the fewest that keep
+    # it within one block per SM); shared memory as csrc/conv_mega.cu's
+    # enc_smem: conv2's tiled class (fp32: a ring of three 256 × 36 slices,
+    # the pixel rows twice and the 288 × 64 weight; bf16: 128-pixel slices,
+    # the weight as [64][296] and two rounded 128 × 40 slices) or the dense
+    # ring (three stages of a kd × 132 weight and a rows × (kd + 4) a2
+    # slice, kd = 32 at 64 rows and 64 below; bf16: and two rounded kd ×
+    # 136 + rows × (kd + 8) slices), whichever is larger.
+    kd = 32 if rows == 64 else 64
+    ring = 4 * 3 * (kd * 132 + rows * (kd + 4))
+    if cd == "bfloat16":
+        conv2 = 4 * 3 * 128 * 36 + 2 * 16 * 128 + 2 * 64 * 296 + 2 * 2 * 128 * 40
+        ring += 2 * 2 * (kd * 136 + rows * (kd + 8))
+    else:
+        conv2 = 4 * 3 * 256 * 36 + 2 * 16 * 256 + 4 * 288 * 64
+    assert tcm.enc_plan(batch, n_sm=132, compute_dtype=cd) == (rows, max(conv2, ring))
     # The decoder: 64 rows a block whatever the batch; its dense stages keep
-    # z and g1 (fp32 transposed, 68 floats a column; bf16 rows of k + 8) and
+    # z and g1 (fp32 rows of k + 4; bf16 rows of k + 8; k padded to 32) and
     # a ring of three 32 × 132 fp32 weight slices (bf16: and two rounded
-    # 32 × 136 slices); the transposed convs fit in the same bytes.
-    kz, kg = 32, -(-hr // 32) * 32
-    # convt1: a ring of three fp32 slices of 256 (bf16: 128) pixels × 36,
-    # the tile's pixel rows twice and the class's weight (bf16: and two
-    # rounded slices).
-    f32 = max(4 * 68 * (kz + kg) + 4 * 3 * 32 * 132,
+    # 32 × 136 slices); convt1 (a ring of three slices of 256, bf16 128,
+    # pixels × 36, the pixel rows twice and the class's weight, bf16 with
+    # two rounded slices) fits in the same bytes.
+    hg = 500
+    kz, kg = 32, -(-hg // 32) * 32
+    f32 = max(4 * 64 * (kz + 4 + kg + 4) + 4 * 3 * 32 * 132,
               4 * 3 * 256 * 36 + 2 * 16 * 256 + 4 * 256 * 32)
     b16 = max(2 * 64 * (kz + 8 + kg + 8) + 4 * 3 * 32 * 132 + 2 * 2 * 32 * 136,
               4 * 3 * 128 * 36 + 2 * 16 * 128 + 2 * 32 * 264 + 2 * 2 * 128 * 40)
-    assert tcm.dec_plan(hr, 20, "float32") == (64, f32)
-    assert tcm.dec_plan(hr, 20, "bfloat16") == (64, b16)
+    assert tcm.dec_plan(hg, 20, "float32") == (64, f32)
+    assert tcm.dec_plan(hg, 20, "bfloat16") == (64, b16)
 
 
 def test_tile_plans_raise_past_one_row():
-    assert tcm.enc_plan(40000, 64, n_sm=132) == 1
-    with pytest.raises(ValueError, match="shared memory"):
-        tcm.enc_plan(60000, 64, n_sm=132)
-    # The decoder's 64-row tile: g1 up to 608 wide in fp32, 1216 in bf16.
-    assert tcm.dec_plan(608, 20)[1] <= 232448 - 188
+    # The encoder keeps no per-row buffer in shared memory (a1, a2 and h go
+    # through device memory): its plan depends on the batch only, and
+    # raises on an empty one.
+    assert tcm.enc_plan(1, n_sm=132) == (16, tcm.enc_plan(4096, n_sm=132)[1])
+    with pytest.raises(ValueError, match="at least one row"):
+        tcm.enc_plan(0, n_sm=132)
+    # The decoder's 64-row tile: g1 up to 640 wide in fp32, 1216 in bf16.
+    assert tcm.dec_plan(640, 20)[1] <= 232448 - 188
     assert tcm.dec_plan(1216, 20, "bfloat16")[1] <= 232448 - 188
     with pytest.raises(ValueError, match="shared memory"):
-        tcm.dec_plan(640, 20)
+        tcm.dec_plan(672, 20)
     with pytest.raises(ValueError, match="shared memory"):
         tcm.dec_plan(1248, 20, "bfloat16")
 

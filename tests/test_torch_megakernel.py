@@ -9,11 +9,15 @@ batch: atol = 1e-5 × max|want|); bf16 2e-2 (an activation rounded to bf16
 between layers can land on the other side of a rounding boundary).
 """
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax.experimental import pallas as pl
+from jax.experimental.pallas import tpu as pltpu
 
 from vae_assoc_tpu.kernels import megakernel as jmk
 from vae_assoc_tpu.kernels import mlp as jmlp
@@ -137,6 +141,47 @@ def test_explicit_bf16_backward_is_not_autograd_of_the_twin(cd):
         assert rel > 1e-4
 
 
+def _pallas_dec_loss_bwd(jp, x, z, grec, kind, cd, n_cond):
+    """The Pallas _dec_loss_bwd_kernel alone, one grid step over the batch
+    in interpret mode: (dz, [dd1, dc1, dd2, dc2, ddo, dco])."""
+    dec = jmk._flatten(jp)[8:]
+    b, n_in = x.shape
+    n_z = z.shape[1]
+    shapes = [jax.ShapeDtypeStruct(w.shape, jnp.float32) for w in dec]
+    full = [pl.BlockSpec(s.shape, lambda i: (0, 0), memory_space=pltpu.VMEM) for s in shapes]
+    out = pl.pallas_call(
+        functools.partial(jmk._dec_loss_bwd_kernel, jnp.dtype(cd), kind, b, n_cond),
+        grid=(1,),
+        in_specs=[jmk._row_spec(b, n_in), jmk._row_spec(b, n_z)] + jmk._full_specs(6)
+        + [jmk._row_spec(b, 1)],
+        out_specs=tuple([jmk._row_spec(b, n_z)] + full),
+        out_shape=tuple([jax.ShapeDtypeStruct((b, n_z), jnp.float32)] + shapes),
+        interpret=True,
+    )(jnp.asarray(x), jnp.asarray(z), *dec, jnp.asarray(grec)[:, None])
+    dz, *grads = (np.asarray(o) for o in out)
+    return dz, [g[0] if i % 2 else g for i, g in enumerate(grads)]  # biases [1, n] → [n]
+
+
+@pytest.mark.parametrize("kind,n_cond,cd", CASES)
+def test_dec_loss_bwd_mirror_matches_pallas(kind, n_cond, cd):
+    # The backward kernel's arithmetic (σ of each hidden pre-activation
+    # recovered from the saved post-activation as −expm1(−g)) against the
+    # Pallas kernel, which takes σ of the pre-activation: dz and the six
+    # decoder weight grads, fp32 1e-5 and bf16 2e-2.
+    jp, tp = _pair(n_cond=n_cond)
+    x, cond, eps, cts = _inputs(kind, n_cond, 37)
+    xin = x if cond is None else np.concatenate([x, cond], 1)
+    z = (0.7 * eps).astype(np.float32)
+    grec = cts[2]
+    want_dz, want = _pallas_dec_loss_bwd(jp, xin, z, grec, kind, cd, n_cond)
+    got_dz, got = tmk.dec_loss_bwd_mirror(torch.from_numpy(xin), torch.from_numpy(z),
+                                          tmk.flatten(tp)[8:], torch.from_numpy(grec),
+                                          kind=kind, compute_dtype=cd)
+    tol = TOL[cd]
+    np.testing.assert_allclose(got_dz.numpy(), want_dz, rtol=tol, atol=tol)
+    _assert_grads([g.detach().numpy() for g in got], want, tol)
+
+
 @pytest.mark.parametrize("depth,n_cond,cd", [(1, 0, "float32"), (2, 3, "float32"),
                                              (3, 0, "bfloat16"), (2, 0, "bfloat16")])
 def test_encoder_backward_twin_matches_jax_vjp(depth, n_cond, cd):
@@ -247,29 +292,44 @@ def test_forward_tile_plan(dims, batch, want):
     assert tile * 4 * (2 * stride + 2 * dims[3]) <= tmlp.SMEM_BYTES
 
 
-@pytest.mark.parametrize("dims,batch,want", [
-    ((784, 20, 500, 500), 16384, (16, 784, 500)),
-    ((784, 30, 500, 500), 4096, (16, 784, 500)),
-    ((200, 20, 500, 500), 257, (2, 200, 500)),
-    ((784, 20, 500, 500), 1, (1, 784, 500)),
-])
-def test_backward_tile_plan(dims, batch, want):
-    tile, wide, hid = tmk.dec_bwd_plan(*dims, batch, n_sm=132)
-    assert (tile, wide, hid) == want
-    assert tile * 4 * (wide + 4 * hid) <= tmlp.SMEM_BYTES
+@pytest.mark.parametrize("batch,cd,rows", [(16384, "float32", 64), (1024, "bfloat16", 16),
+                                           (4096, "float32", 32), (64, "bfloat16", 16)])
+def test_backward_tile_plan(batch, cd, rows):
+    # 16, 32 or 64 rows from the batch; shared memory as csrc/mega.cu's
+    # bwd_smem: a ring of three stages, each a 128 × kd slice of W (read as
+    # W^T; rows of kd + 4) and a rows × kd slice of the streamed A, kd = 32
+    # at 64 rows and 64 below; bf16 also two rounded slices (rows of kd +
+    # 8). No width enters it.
+    kd = 32 if rows == 64 else 64
+    smem = 4 * 3 * (128 + rows) * (kd + 4)
+    if cd == "bfloat16":
+        smem += 2 * 2 * (128 + rows) * (kd + 8)
+    assert tmk.dec_bwd_plan(batch, n_sm=132, compute_dtype=cd) == (rows, smem)
+    assert smem <= tmlp.SMEM_BYTES
 
 
 def test_tile_plans_lower_the_rows_and_raise_only_past_one_row():
-    # 16 rows of 784 + 4 × 500 floats fit (178,176 B); 3000-wide hidden
-    # layers fit 4 rows; past one row the plan raises instead of falling back.
-    assert tmk.dec_bwd_plan(784, 20, 3000, 3000, 16384, 132)[0] == 4
-    assert tmk.dec_bwd_plan(784, 20, 14000, 14000, 16384, 132)[0] == 1
-    with pytest.raises(ValueError, match="shared memory"):
-        tmk.dec_bwd_plan(784, 20, 14600, 14600, 16384, 132)
+    # The backward's rows fall with the batch, 64 down to 16 (the fewest
+    # that keep it within one block per SM), and no width bounds them: every
+    # operand streams from device memory. An empty batch raises.
+    assert [tmk.dec_bwd_plan(b, 132)[0] for b in (16384, 4225, 4224, 2113, 2112, 1)] == [
+        64, 64, 32, 32, 16, 16]
+    with pytest.raises(ValueError, match="at least one row"):
+        tmk.dec_bwd_plan(0, 132)
     assert tmlp.enc_bwd_plan(784, [500, 500], 20, 16384, 132) == (32, 784)
     assert tmlp.enc_bwd_plan(20, [29056], 20, 4096, 132) == (1, 29056)
     with pytest.raises(ValueError, match="shared memory"):
         tmlp.enc_bwd_plan(20, [29057], 20, 64, 132)
+
+
+@pytest.mark.parametrize("batch,n_sm,want", [(1024, 132, 2), (2112, 132, 1), (1056, 132, 2),
+                                           (16384, 132, 1)])
+def test_backward_splits_columns_only_where_sms_idle(batch, n_sm, want):
+    # Two blocks share a 16-row tile (each every other column tile) where
+    # the tiles leave at least half the SMs idle; 32- and 64-row tiles never
+    # split.
+    rows, _ = tmk.dec_bwd_plan(batch, n_sm)
+    assert tmk.dec_bwd_parts(batch, rows, n_sm) == want
 
 
 @pytest.mark.parametrize("batch,m,n,want", [

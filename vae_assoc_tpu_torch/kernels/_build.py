@@ -17,6 +17,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -76,7 +77,8 @@ def build() -> Path:
     """Compile the library if this source hash has not been built; return it.
 
     The compiler's output (``-Xptxas=-v``: registers and shared memory per
-    kernel) is kept beside the library as ``build.log``."""
+    kernel) is kept beside the library as ``build.log``, each source headed
+    by the seconds from the start of the build to the end of its compile."""
     nvcc = find_nvcc()
     h = hashlib.sha256(" ".join(nvcc_command()).encode())
     for src in sources() + sorted(CSRC.glob("*.cuh")):
@@ -88,13 +90,23 @@ def build() -> Path:
     out.parent.mkdir(parents=True, exist_ok=True)
     tag = os.getpid()
     objs = [out.with_name(f"{s.stem}.{tag}.o") for s in sources()]
-    procs = [
-        subprocess.Popen(compile_command(nvcc, s, o), stdout=subprocess.PIPE,
-                         stderr=subprocess.STDOUT, text=True)
-        for s, o in zip(sources(), objs)
-    ]
-    logs = [(s.name, p.communicate()[0], p.returncode)
-            for s, p in zip(sources(), procs)]
+    t0 = time.perf_counter()
+    outs = [out.with_name(f"{s.stem}.{tag}.log") for s in sources()]
+    procs = []
+    for s, o, log in zip(sources(), objs, outs):
+        with open(log, "w") as f:
+            procs.append(subprocess.Popen(compile_command(nvcc, s, o), stdout=f,
+                                          stderr=subprocess.STDOUT))
+    ended = {}
+    while len(ended) < len(procs):  # each compile's wall time, as it ends
+        for i, p in enumerate(procs):
+            if i not in ended and p.poll() is not None:
+                ended[i] = time.perf_counter() - t0
+        time.sleep(0.05)
+    logs = [(f"{s.name} ({ended[i]:.1f} s)", outs[i].read_text(), procs[i].returncode)
+            for i, s in enumerate(sources())]
+    for log in outs:
+        log.unlink(missing_ok=True)
     tmp = out.with_name(f"{LIB_NAME}.{tag}.tmp")
     if all(rc == 0 for _, _, rc in logs):
         link = subprocess.run(link_command(nvcc, objs, tmp),
@@ -130,8 +142,7 @@ def load() -> ctypes.CDLL:
                 i32, i32, i32, ptr,
             ]
             lib.vae_mega_dec_loss_bwd.argtypes = [
-                ptr, ptr, ptr, i32, ptr, ptr, ptr, i32, ptr, i32, i32, i32,
-                i32, ptr,
+                ptr, ptr, ptr, i32, ptr, ptr, ptr, i32, ptr, i32, i32, i32, i32, ptr,
             ]
             lib.vae_mlp_enc_bwd.argtypes = [
                 ptr, i32, i32, ptr, i32, ptr, i32, ptr, ptr, ptr, i32, i32,
@@ -157,7 +168,8 @@ def load() -> ctypes.CDLL:
                 i32, i32, ptr, ptr, i32, ptr,
             ]
             lib.vae_conv_enc.argtypes = [
-                ptr, i32, ptr, i32, i32, ptr, ptr, ptr, ptr, ptr, i32, i32, ptr,
+                ptr, i32, ptr, i32, i32, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32,
+                i32, ptr,
             ]
             lib.vae_conv_dec.argtypes = [
                 ptr, ptr, i32, ptr, i32, i32, i32, ptr, ptr, ptr, ptr, ptr, ptr,

@@ -3,11 +3,12 @@
 Counterpart of vae_assoc_tpu/kernels/conv_mega.py. ``conv_tower_fused``
 runs one conv modality's whole tower in one forward launch per direction:
 ``csrc/conv_mega.cu::conv_enc`` (replacing the Pallas ``_enc_kernel``:
-conv1 → softplus → conv2 → softplus → dense → softplus → μ, logσ² heads),
-then z = μ + e^{½logσ²}·ε in torch, then ``conv_dec`` (replacing
-``_dec_kernel``: dense1 → dense2 → convt1 → softplus → convt2 → per-row
-Bernoulli or Gaussian loss, 64 rows a block: :func:`dec_plan`). Each
-kernel writes the post-activations the backward needs, in NHWC.
+conv1 → softplus → conv2 → softplus → dense → softplus → μ, logσ² heads,
+16–64 rows a block: :func:`enc_plan`), then z = μ + e^{½logσ²}·ε in torch,
+then ``conv_dec`` (replacing ``_dec_kernel``: dense1 → dense2 → convt1 →
+softplus → convt2 → per-row Bernoulli or Gaussian loss, 64 rows a block:
+:func:`dec_plan`). Each kernel writes the post-activations the backward
+needs, in NHWC.
 
 The backward, a ``torch.autograd.Function``, is the reference's
 ``_conv_tower_bwd`` formula by formula: σ(pre) recovered from the saved
@@ -45,15 +46,10 @@ from vae_assoc_tpu_torch.ops import losses
 from vae_assoc_tpu_torch.ops.sampling import philox_normal
 
 KINDS = ("bernoulli", "gaussian")
-MAX_TILE_ROWS = 8
-"""Rows per block of the encoder kernel, at most."""
 DEC_TILE_ROWS = 64
 """Rows per block of the decoder kernel (``kDecTM`` in csrc/conv_mega.cu)."""
-_DEC_K, _DEC_N = 32, 128
-_DEC_STAGES = _DEC_CONV_STAGES = 3
-"""Weight rows per staged slice, columns per tile and ring stages of the
-decoder's dense layers (``kDK``, ``kDN``, ``kDStages``); slices in its
-convt1 ring (``kCStages``)."""
+_CONV_STAGES = 3
+"""Slices in the cp.async ring of the kernels' tiled convs (``kCStages``)."""
 IMG, MID, SMALL = conv_mod.IMG_SIZE, conv_mod.MID, conv_mod.SMALL
 C1, C2, FLAT = conv_mod.C1, conv_mod.C2, conv_mod.FLAT
 _ENC_LAYERS = (("recog", "conv1"), ("recog", "conv2"), ("recog", "dense"),
@@ -125,43 +121,52 @@ def conv_dec_plain(dec_flat, z, x3, *, kind, compute_dtype="float32"):
 # ---------------------------------------------------------------------------
 
 
-def enc_plan(hr: int, batch: int, n_sm: int) -> int:
-    """Rows per block of the encoder kernel: per row x, a2 and h in shared
-    memory (a1 is staged through device memory)."""
-    per_row = 4 * (IMG * IMG + FLAT + kmlp._pad4(hr))
-    return kmlp.rows_plan(per_row, batch, n_sm, max_rows=MAX_TILE_ROWS,
-                          what="conv encoder kernel")
-
-
 def _pad32(n: int) -> int:
     return -(-n // 32) * 32
+
+
+def _conv_class_smem(bf16: bool, k: int, cout: int) -> int:
+    """Shared memory of the kernels' tiled conv over one parity class of k
+    patch columns into cout channels (csrc/conv_mega.cu::conv_class_smem): a
+    ring of 3 slices of the tile's pixels × 32 channels (fp32, rows of 36),
+    the tile's pixel rows twice, the class's weight rows (bf16: [cout][k +
+    8], and two rounded slices)."""
+    if bf16:
+        tile = kconv.MMA_TILE
+        weight = 2 * cout * (k + 8) + 2 * 2 * tile * (kconv.STAGE_K + 8)
+    else:
+        tile = kconv.FFMA_TILE
+        weight = 4 * k * cout
+    return 4 * _CONV_STAGES * tile * (kconv.STAGE_K + 4) + 2 * 16 * tile + weight
+
+
+def enc_plan(batch: int, n_sm: int, compute_dtype="float32"):
+    """(rows per block, dynamic shared memory in bytes) of the encoder
+    kernel; csrc/conv_mega.cu computes the same bytes and refuses a launch
+    that disagrees. Rows: 16, 32 or 64 from the batch
+    (:func:`kmlp.dense_tile_rows`). Shared memory: conv2's tiled class (9
+    taps × 32 channels into 64) or the dense layer's ring with a2 streamed,
+    whichever is larger; a1, a2 and h go through device memory, so hr does
+    not bound the tile."""
+    bf16 = networks.dtype_name(compute_dtype) == "bfloat16"
+    rows = kmlp.dense_tile_rows(batch, n_sm)
+    return rows, max(_conv_class_smem(bf16, 9 * C1, C2),
+                     kmlp.dense_ring_bytes(rows, False, True, bf16))
 
 
 def dec_plan(hg: int, n_z: int, compute_dtype="float32"):
     """(rows per block, dynamic shared memory in bytes) of the decoder
     kernel; csrc/conv_mega.cu computes the same bytes and refuses a launch
-    that disagrees. Its dense stages keep the 64 rows' z and g1 (fp32
-    transposed, rows padded to 68; bf16 [row][k + 8], k padded to 32), a
-    ring of 3 weight slices of 32 × 128 fp32 and, in bf16, two rounded
-    slices; the transposed convs reuse it (convt1: conv_fwd's tile routes
-    fed by a cp.async ring, over a class of at most 4 taps × 64 channels). Raises when that does not fit a
-    block's shared memory."""
-    cd = networks.dtype_name(compute_dtype)
-    ring = 4 * _DEC_STAGES * _DEC_K * (_DEC_N + 4)
-    k = 4 * C2  # convt1's largest class: 4 taps × 64 channels
-    if cd == "bfloat16":
-        tile = kconv.MMA_TILE
-        dense = (2 * DEC_TILE_ROWS * (_pad32(n_z) + 8 + _pad32(hg) + 8) + ring
-                 + 2 * 2 * _DEC_K * (_DEC_N + 8))
-        weight = 2 * C1 * (k + 8) + 2 * 2 * tile * (kconv.STAGE_K + 8)
-    else:
-        tile = kconv.FFMA_TILE
-        dense = 4 * (DEC_TILE_ROWS + 4) * (_pad32(n_z) + _pad32(hg)) + ring
-        weight = 4 * k * C1
-    # convt1: a ring of 3 slices of the tile's pixels × 32 channels (fp32),
-    # the tile's pixel rows twice, the class's weight rows.
-    conv = 4 * _DEC_CONV_STAGES * tile * (kconv.STAGE_K + 4) + 2 * 16 * tile + weight
-    smem = max(dense, conv)
+    that disagrees. Its dense stages keep the 64 rows' z and g1 (fp32 rows
+    of k + 4, bf16 rows of k + 8, k padded to 32) and the product's weight
+    ring; the transposed convs reuse it (convt1: the tiled class of at most
+    4 taps × 64 channels into 32). Raises when that does not fit a block's
+    shared memory."""
+    bf16 = networks.dtype_name(compute_dtype) == "bfloat16"
+    pad = 8 if bf16 else 4
+    dense = ((2 if bf16 else 4) * DEC_TILE_ROWS * (_pad32(n_z) + pad + _pad32(hg) + pad)
+             + kmlp.dense_ring_bytes(DEC_TILE_ROWS, False, False, bf16))
+    smem = max(dense, _conv_class_smem(bf16, 4 * C2, C1))
     if smem + kconv.PLAN_BYTES > kmlp.SMEM_BYTES:
         raise ValueError(f"the conv decoder kernel keeps {DEC_TILE_ROWS} rows of z and g1 "
                          f"(n_z {n_z}, hg {hg}) and its weight ring in {smem} bytes of shared "
@@ -193,11 +198,12 @@ def _launch_enc(enc_flat, x3, cd):
     mu, lv, a1, a2, h = buf(n_z), buf(n_z), buf(MID, MID, C1), buf(SMALL, SMALL, C2), buf(hr)
     if b:
         lib = _build.load()
-        tile = enc_plan(hr, b, kmlp.sm_count(dev))
+        rows, smem = enc_plan(b, kmlp.sm_count(dev), cd)
+        plan = kconv._plan_table(kconv.phase_plan(2, False, 0, SMALL))
         with torch.cuda.device(dev):
             err = lib.vae_conv_enc(x3.data_ptr(), b, _ptrs(flat), hr, n_z,
-                                   *(t.data_ptr() for t in (mu, lv, a1, a2, h)), tile,
-                                   int(cd == "bfloat16"), kmlp._stream(x3))
+                                   *(t.data_ptr() for t in (mu, lv, a1, a2, h)), plan, rows,
+                                   smem, int(cd == "bfloat16"), kmlp._stream(x3))
         _build.check(lib, err, "conv encoder kernel launch")
         _launches.count(_launches.TRAINING, "conv_enc")
     return mu, lv, a1, a2, h

@@ -344,15 +344,13 @@ __device__ __forceinline__ uint2 pack_bf16x4(float4 v) {
 }  // namespace vae
 
 // Switch over the tile heights a kernel is built for; `CALL(TM)` launches.
-#define VAE_TM_SWITCH_16(tile_rows, CALL)  \
+#define VAE_TM_SWITCH(tile_rows, CALL)     \
   switch (tile_rows) {                     \
     case 1: return CALL(1);                \
     case 2: return CALL(2);                \
     case 4: return CALL(4);                \
     case 8: return CALL(8);                \
     case 16: return CALL(16);              \
+    case 32: return CALL(32);              \
     default: return cudaErrorInvalidValue; \
   }
-#define VAE_TM_SWITCH(tile_rows, CALL)             \
-  if (tile_rows == 32) return CALL(32);            \
-  VAE_TM_SWITCH_16(tile_rows, CALL)

@@ -23,14 +23,24 @@
 // every run. The price is the round trip of the scratch (dr is [B, 784] for
 // images) through device memory.
 //
-// What bounds them on this card. Per row the image tower does about
-// 1.3 M FMAs forward against 3 KB of input, so the work is arithmetic on
-// weights streamed from L2 (2.6 MB per net fits the 50 MB L2), each weight
-// feeding TM rows. The design is mlp_fwd.cu's: TM rows per block, their
-// activations in shared memory, TM chosen by the wrapper
-// (kernels/megakernel.py) from the per-row shared-memory need and the batch.
-// The backward needs more per row (the decoder input or dr, two
-// activations, two sigmoids): TM <= 16 at the image widths.
+// What bounds them on this card. Per row the image tower does about 1.3 M
+// FMAs each way against 3 KB of input, so the work is arithmetic on weights
+// streamed from L2 (2.6 MB per net fits the 50 MB L2), and the rows that
+// share each weight byte read are what a tile saves.
+// - mega_fwd is mlp_fwd.cu's design: TM rows per block, their activations in
+//   shared memory, TM chosen by the wrapper (kernels/megakernel.py) from the
+//   per-row shared-memory need and the batch.
+// - mega_dec_loss_bwd runs its five products (the decoder [z, cond] -> g1 ->
+//   g2, r with dL/dr formed in the epilogue, then dr Do^T, db2d D2^T and
+//   db1d D1^T) through dense_tile.cuh's block-tiled product over TM = 16,
+//   32 or 64 rows (from the batch): each weight byte a block reads serves
+//   all its rows, fp32 on 4 x 8 register tiles, bf16 on mma.sync. Every
+//   intermediate is a scratch output anyway; each goes to device memory and
+//   streams back as the next product's A, so nothing per row lives in
+//   shared memory and the widths do not bound the tile. The transposed
+//   products read D1, D2 and Do as the forward does (no transposed copies),
+//   and sigmoid(pre) comes from the saved g as -expm1(-g), so no sigmoid
+//   buffer is kept.
 //
 // eps: seeded draws come from a counter-based Philox keyed by the seed and
 // indexed by (row, column), so a draw does not depend on TM (the TPU kernel
@@ -38,6 +48,7 @@
 // Tensor cores (wgmma), TMA and a persistent schedule are later work.
 
 #include "common.cuh"
+#include "dense_tile.cuh"
 
 namespace {
 
@@ -166,9 +177,7 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 struct BwdWeights {
-  // d1 c1 d2 c2 do co, then the transposes d1T [h1d, n_z + n_cond],
-  // d2T [h2d, h1d], doT [n_x, h2d].
-  const float* p[9];
+  const float *d1, *c1, *d2, *c2, *wo, *co;  // d1 [n_z + n_cond, h1d] ... wo = do [h2d, n_x]
 };
 
 struct BwdScratch {
@@ -187,84 +196,110 @@ struct BwdDims {
   int n_in, n_z, n_cond, h1d, h2d, n_x;
 };
 
-template <int TM, bool BF16>
-__global__ void __launch_bounds__(kThreads)
-    mega_dec_loss_bwd(const float* __restrict__ x,
-                      const float* __restrict__ z,
-                      const float* __restrict__ grec, int batch,
-                      BwdWeights wt, BwdScratch s, BwdDims d, int bernoulli,
-                      float* __restrict__ dz, int wide, int hid) {
-  extern __shared__ __align__(16) float smem[];
-  float* W = smem;            // [TM, wide]: decoder input, then dr
-  float* P = W + TM * wide;   // [TM, hid]: g1, then db2d
-  float* Q = P + TM * hid;    // [TM, hid]: g2, then db1d
-  float* S1 = Q + TM * hid;   // [TM, hid]: sigmoid of layer-1 pre-activation
-  float* S2 = S1 + TM * hid;  // [TM, hid]: the same for layer 2
-  const int row0 = blockIdx.x * TM;
-  const int valid = min(TM, batch - row0);
-  const int nz = d.n_z, nzc = d.n_z + d.n_cond, n_x = d.n_x;
+// softplus'(pre) = sigmoid(pre) from the post-activation g = softplus(pre):
+// 1 - e^{-g}, as -expm1(-g) (exact where g is small).
+__device__ __forceinline__ float dsoftplus(float g) { return -expm1f(-g); }
 
-  // Decoder input [z, cond]: rounded into W, as given into the scratch.
-  for (int i = threadIdx.x; i < TM * nzc; i += kThreads) {
-    const int r = i / nzc;
-    const int k = i - r * nzc;
-    float v = 0.f;
-    if (r < valid) {
-      v = k < nz ? z[(size_t)(row0 + r) * nz + k]
-                 : x[(size_t)(row0 + r) * d.n_in + n_x + (k - nz)];
-      s.zin[(size_t)(row0 + r) * nzc + k] = v;
-    }
-    W[r * wide + k] = vae::operand<BF16>(v);
+// Shared memory of the backward (kernels/megakernel.py::dec_bwd_plan): the
+// ring of its largest product mode, W^T with A streamed.
+__host__ __device__ constexpr int bwd_smem(int tm, bool bf16) {
+  return dense_ring_bytes(tm, true, true, bf16);
+}
+
+// The blocks of a cluster wait for each other's writes (release, then
+// acquire at cluster scope); the barrier also spans each block's threads.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// `parts` blocks (a cluster, consecutive in x) own TM rows and run the five
+// products in turn (dense_tile.cuh), each taking every parts-th column
+// tile, each A streamed back from the scratch these blocks wrote before the
+// barrier that ends the last product. Parts > 1 only where the batch leaves
+// SMs idle: each block then streams its share of the weights. At 64 rows
+// two blocks share an SM (at most 128 registers a thread, a 114 KB ring),
+// so one block's barriers and waits overlap the other's products.
+template <int TM, bool BF16>
+__global__ void __launch_bounds__(kThreads, TM == 64 ? 2 : 1)
+    mega_dec_loss_bwd(const float* __restrict__ x, const float* __restrict__ z,
+                      const float* __restrict__ grec, int batch, BwdWeights wt,
+                      BwdScratch s, BwdDims d, int bernoulli, float* __restrict__ dz,
+                      int parts) {
+  extern __shared__ __align__(16) float ring[];
+  const int part = blockIdx.x % parts;
+  const int row0 = blockIdx.x / parts * TM;
+  const int valid = min(TM, batch - row0);
+  auto shared_rows = [&]() {  // the other parts' writes of the last stage
+    if (parts > 1) cluster_sync();
+  };
+  const int nz = d.n_z, nzc = d.n_z + d.n_cond, n_x = d.n_x, h1d = d.h1d, h2d = d.h2d;
+  float* zin = s.zin + (size_t)row0 * nzc;
+  float* g1 = s.g1 + (size_t)row0 * h1d;
+  float* g2 = s.g2 + (size_t)row0 * h2d;
+  float* dr = s.dr + (size_t)row0 * n_x;
+  float* db2d = s.db2d + (size_t)row0 * h2d;
+  float* db1d = s.db1d + (size_t)row0 * h1d;
+  const float* xb = x + (size_t)row0 * d.n_in;
+
+  // The decoder input [z, cond], by the first part.
+  for (int i = threadIdx.x; part == 0 && i < valid * nzc; i += kThreads) {
+    const int r = i / nzc, k = i - r * nzc;
+    zin[i] = k < nz ? z[(size_t)(row0 + r) * nz + k] : xb[(size_t)r * d.n_in + n_x + (k - nz)];
   }
   __syncthreads();
-
-  auto fwd_to = [&](float* out, float* sig, float* glob, int width) {
-    return [=](int r, int j, float y) {
-      const float g = vae::softplus(y);
-      out[r * hid + j] = vae::operand<BF16>(g);
-      sig[r * hid + j] = vae::sigmoid(y);
-      if (r < valid) glob[(size_t)(row0 + r) * width + j] = g;
-    };
+  shared_rows();
+  // The rematerialized decoder: g1 = softplus([z, cond] D1 + c1), g2.
+  auto e1 = [&](int r, int j, float y) {
+    if (r < valid) g1[(size_t)r * h1d + j] = vae::softplus(y + __ldg(wt.c1 + j));
   };
-  auto e1 = fwd_to(P, S1, s.g1, d.h1d);
-  vae::layer<TM, BF16>(W, wide, wt.p[0], d.h1d, wt.p[1], nzc, d.h1d, e1);
-  __syncthreads();
-  auto e2 = fwd_to(Q, S2, s.g2, d.h2d);
-  vae::layer<TM, BF16>(P, hid, wt.p[2], d.h2d, wt.p[3], d.h1d, d.h2d, e2);
-  __syncthreads();
-  // r = g2 Do + co, and dL/dr on chip; r itself is never stored.
+  dense_rows<TM, BF16, false, true>(zin, nullptr, nzc, valid, wt.d1, nzc, h1d, ring,
+                                    e1, part, parts);
+  shared_rows();
+  auto e2 = [&](int r, int j, float y) {
+    if (r < valid) g2[(size_t)r * h2d + j] = vae::softplus(y + __ldg(wt.c2 + j));
+  };
+  dense_rows<TM, BF16, false, true>(g1, nullptr, h1d, valid, wt.d2, h1d, h2d, ring,
+                                    e2, part, parts);
+  shared_rows();
+  // r = g2 Do + co, and dL/dr in the epilogue; r itself is never stored.
   auto edr = [&](int r, int j, float y) {
-    float v = 0.f;
     if (r < valid) {
-      const float xv = x[(size_t)(row0 + r) * d.n_in + j];
-      const float gr = grec[row0 + r];
-      v = bernoulli ? (vae::sigmoid(y) - xv) * gr : 2.f * (y - xv) * gr;
-      s.dr[(size_t)(row0 + r) * n_x + j] = v;
+      const float v = y + __ldg(wt.co + j);
+      const float xv = __ldg(xb + (size_t)r * d.n_in + j);
+      const float gr = __ldg(grec + row0 + r);
+      dr[(size_t)r * n_x + j] = bernoulli ? (vae::sigmoid(v) - xv) * gr : 2.f * (v - xv) * gr;
     }
-    W[r * wide + j] = vae::operand<BF16>(v);
   };
-  vae::layer<TM, BF16>(Q, hid, wt.p[4], n_x, wt.p[5], d.h2d, n_x, edr);
-  __syncthreads();
-  auto bwd_to = [&](float* out, const float* sig, float* glob, int width) {
-    return [=](int r, int j, float y) {
-      const float v = y * sig[r * hid + j];
-      out[r * hid + j] = vae::operand<BF16>(v);
-      if (r < valid) glob[(size_t)(row0 + r) * width + j] = v;
-    };
+  dense_rows<TM, BF16, false, true>(g2, nullptr, h2d, valid, wt.wo, h2d, n_x, ring,
+                                    edr, part, parts);
+  shared_rows();
+  // db2d = (dr Do^T) * sigmoid(b2d), sigmoid from the saved g2.
+  auto e3 = [&](int r, int j, float y) {
+    if (r < valid) db2d[(size_t)r * h2d + j] = y * dsoftplus(g2[(size_t)r * h2d + j]);
   };
-  // db2d = (dr Do^T) * sigmoid(b2d), into P (g1 is in the scratch by now).
-  auto e3 = bwd_to(P, S2, s.db2d, d.h2d);
-  vae::layer<TM, BF16>(W, wide, wt.p[8], d.h2d, nullptr, n_x, d.h2d, e3);
-  __syncthreads();
-  // db1d = (db2d D2^T) * sigmoid(b1d), into Q.
-  auto e4 = bwd_to(Q, S1, s.db1d, d.h1d);
-  vae::layer<TM, BF16>(P, hid, wt.p[7], d.h1d, nullptr, d.h2d, d.h1d, e4);
-  __syncthreads();
-  // dz = db1d D1^T, the z columns only: the cond columns' part is dropped.
+  dense_rows<TM, BF16, true, true>(dr, nullptr, n_x, valid, wt.wo, n_x, h2d, ring, e3, part, parts);
+  shared_rows();
+  // db1d = (db2d D2^T) * sigmoid(b1d).
+  auto e4 = [&](int r, int j, float y) {
+    if (r < valid) db1d[(size_t)r * h1d + j] = y * dsoftplus(g1[(size_t)r * h1d + j]);
+  };
+  dense_rows<TM, BF16, true, true>(db2d, nullptr, h2d, valid, wt.d2, h2d, h1d, ring,
+                                   e4, part, parts);
+  shared_rows();
+  // dz = db1d D1^T, the z columns only (D1's first n_z rows).
   auto edz = [&](int r, int j, float y) {
     if (r < valid) dz[(size_t)(row0 + r) * nz + j] = y;
   };
-  vae::layer<TM, BF16>(Q, hid, wt.p[6], nzc, nullptr, d.h1d, nz, edz);
+  dense_rows<TM, BF16, true, true>(db1d, nullptr, h1d, valid, wt.d1, h1d, nz, ring, edz, part,
+                                   parts);
+}
+
+template <bool BF16>
+const void* bwd_kernel(int tm) {
+  return tm == 16   ? (const void*)mega_dec_loss_bwd<16, BF16>
+         : tm == 32 ? (const void*)mega_dec_loss_bwd<32, BF16>
+                    : (const void*)mega_dec_loss_bwd<64, BF16>;
 }
 
 }  // namespace
@@ -313,43 +348,54 @@ extern "C" int vae_mega_fwd(const void* x, int batch, const void* const* weights
 
 // Per-row half of the decoder+loss backward. x [batch, n_in] (cond columns
 // last), z [batch, n_z], grec [batch] (the cotangent of rec). `weights`:
-// the 9 device pointers of BwdWeights; `scratch`: the 6 of BwdScratch;
-// `dims`: n_in, n_z, n_cond, h1d, h2d, n_x. Writes dz [batch, n_z] and the
-// scratch. `wide` and `hid` are the shared-memory row lengths (multiples of
-// 4) of the wide buffer (>= n_x and n_z + n_cond) and the hidden buffers.
+// the 6 device pointers d1 [n_z + n_cond, h1d] c1 d2 [h1d, h2d] c2
+// do [h2d, n_x] co; `scratch`: the 6 of BwdScratch; `dims`: n_in, n_z,
+// n_cond, h1d, h2d, n_x. Writes dz [batch, n_z] and the scratch.
+// `tile_rows` (16, 32 or 64) and `smem` are kernels/megakernel.py::
+// dec_bwd_plan's; `parts` (1 or 2, kernels/megakernel.py::dec_bwd_parts)
+// blocks, a cluster, share each tile's rows. Launches on `stream` without
+// synchronising and returns the launch's CUDA error.
 extern "C" int vae_mega_dec_loss_bwd(const void* x, const void* z,
                                      const void* grec, int batch,
                                      const void* const* weights,
                                      void* const* scratch, const int* dims,
-                                     int bernoulli, void* dz, int wide,
-                                     int hid, int tile_rows, int bf16,
-                                     void* stream) {
-  if (batch <= 0 || wide % 4 != 0 || hid % 4 != 0)
+                                     int bernoulli, void* dz, int tile_rows,
+                                     int smem, int parts, int bf16, void* stream) {
+  if (batch <= 0 || (tile_rows != 16 && tile_rows != 32 && tile_rows != 64) ||
+      (parts != 1 && parts != 2) ||
+      smem != bwd_smem(tile_rows, bf16 != 0) || smem > vae::kSmemLimit)
     return (int)cudaErrorInvalidValue;
-  BwdWeights wt;
-  for (int i = 0; i < 9; ++i) wt.p[i] = static_cast<const float*>(weights[i]);
+  const float* const* w = reinterpret_cast<const float* const*>(weights);
+  BwdWeights wt{w[0], w[1], w[2], w[3], w[4], w[5]};
   BwdScratch s{static_cast<float*>(scratch[0]), static_cast<float*>(scratch[1]),
                static_cast<float*>(scratch[2]), static_cast<float*>(scratch[3]),
                static_cast<float*>(scratch[4]), static_cast<float*>(scratch[5])};
-  const BwdDims d{dims[0], dims[1], dims[2], dims[3], dims[4], dims[5]};
+  BwdDims d{dims[0], dims[1], dims[2], dims[3], dims[4], dims[5]};
+  if (d.n_z <= 0 || d.n_cond < 0 || d.h1d <= 0 || d.h2d <= 0 || d.n_x <= 0 ||
+      d.n_in != d.n_x + d.n_cond)
+    return (int)cudaErrorInvalidValue;
+  const void* fn = bf16 ? bwd_kernel<true>(tile_rows) : bwd_kernel<false>(tile_rows);
+  int per_sm = 0;
+  cudaError_t e = vae::launch_info(fn, smem, &per_sm);
+  if (e != cudaSuccess) return (int)e;
   const auto* xs = static_cast<const float*>(x);
   const auto* zs = static_cast<const float*>(z);
   const auto* gs = static_cast<const float*>(grec);
   auto* o_dz = static_cast<float*>(dz);
-  auto st = static_cast<cudaStream_t>(stream);
-  const size_t per_tile = (size_t)wide + 4 * (size_t)hid;
-#define VAE_BWD(TM)                                                          \
-  [&]() -> cudaError_t {                                                     \
-    auto k = bf16 ? mega_dec_loss_bwd<TM, true>                              \
-                  : mega_dec_loss_bwd<TM, false>;                            \
-    const size_t smem = (size_t)TM * per_tile * sizeof(float);               \
-    cudaError_t e = vae::set_smem(k, smem);                                  \
-    if (e != cudaSuccess) return e;                                          \
-    k<<<(batch + TM - 1) / TM, kThreads, smem, st>>>(                        \
-        xs, zs, gs, batch, wt, s, d, bernoulli, o_dz, wide, hid);            \
-    return cudaGetLastError();                                               \
-  }()
-  auto run = [&]() -> cudaError_t { VAE_TM_SWITCH_16(tile_rows, VAE_BWD) };
-#undef VAE_BWD
-  return (int)run();
+  void* args[] = {&xs, &zs, &gs, &batch, &wt, &s, &d, &bernoulli, &o_dz, &parts};
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((batch + tile_rows - 1) / tile_rows * parts);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute cluster;
+  cluster.id = cudaLaunchAttributeClusterDimension;
+  cluster.val.clusterDim.x = parts;
+  cluster.val.clusterDim.y = 1;
+  cluster.val.clusterDim.z = 1;
+  cfg.attrs = &cluster;
+  cfg.numAttrs = parts > 1 ? 1 : 0;
+  e = cudaLaunchKernelExC(&cfg, fn, args);
+  const cudaError_t last = cudaGetLastError();  // clears a refused launch
+  return (int)(e != cudaSuccess ? e : last);
 }

@@ -48,7 +48,6 @@ LAUNCHES = _launches.TRAINING
 
 KINDS = ("bernoulli", "gaussian")
 _MASK64 = (1 << 64) - 1
-BWD_MAX_ROWS = 16
 
 
 def flatten(params) -> list:
@@ -120,13 +119,9 @@ def tower_fwd_plain(flat, x, eps, *, kind, compute_dtype="float32"):
     return mu, lv, eps, rec, kl
 
 
-def dec_loss_bwd_plain(x, z, dec_flat, grec, *, kind, compute_dtype="float32"):
-    """Plain twin of the decoder+loss backward and its weight grads:
-    (dz [B, n_z], [dd1, dc1, dd2, dc2, ddo, dco]). Explicit formulas with
-    each product's operands rounded under the bf16 policy, as
-    megakernel.py::_dec_loss_bwd_kernel (autograd of the forward twin would
-    round each product's result instead)."""
-    cd = networks.dtype_name(compute_dtype)
+def _dec_loss_bwd(x, z, dec_flat, grec, kind, cd, dsoftplus):
+    """The decoder+loss backward's formulas; ``dsoftplus(pre, post)`` is
+    softplus'(pre) = σ(pre), from the pre- or the post-activation."""
     d1, c1, d2, c2, do, co = (t.detach() for t in dec_flat)
     n_z = z.shape[1]
     n_cond = d1.shape[0] - n_z
@@ -143,13 +138,31 @@ def dec_loss_bwd_plain(x, z, dec_flat, grec, *, kind, compute_dtype="float32"):
         dr = (torch.sigmoid(r) - x) * grec[:, None]
     else:
         dr = 2.0 * (r - x) * grec[:, None]
-    db2d = _mm(dr, do.T, cd) * torch.sigmoid(b2d)
-    db1d = _mm(db2d, d2.T, cd) * torch.sigmoid(b1d)
+    db2d = _mm(dr, do.T, cd) * dsoftplus(b2d, g2)
+    db1d = _mm(db2d, d2.T, cd) * dsoftplus(b1d, g1)
     dz = _mm(db1d, d1.T, cd)[:, :n_z]
     grads = []
     for a, d in ((z, db1d), (g1, db2d), (g2, dr)):
         grads += list(kmlp.weight_grads_plain(a, d, compute_dtype=cd))
     return dz, grads
+
+
+def dec_loss_bwd_plain(x, z, dec_flat, grec, *, kind, compute_dtype="float32"):
+    """Plain twin of the decoder+loss backward and its weight grads:
+    (dz [B, n_z], [dd1, dc1, dd2, dc2, ddo, dco]). Explicit formulas with
+    each product's operands rounded under the bf16 policy, as
+    megakernel.py::_dec_loss_bwd_kernel (autograd of the forward twin would
+    round each product's result instead)."""
+    return _dec_loss_bwd(x, z, dec_flat, grec, kind, networks.dtype_name(compute_dtype),
+                         lambda pre, post: torch.sigmoid(pre))
+
+
+def dec_loss_bwd_mirror(x, z, dec_flat, grec, *, kind, compute_dtype="float32"):
+    """The kernel's arithmetic in plain torch: the twin's formulas with
+    σ(pre) recovered from the saved post-activation g as −expm1(−g), as
+    csrc/mega.cu's backward does (it keeps no pre-activation)."""
+    return _dec_loss_bwd(x, z, dec_flat, grec, kind, networks.dtype_name(compute_dtype),
+                         lambda pre, post: -torch.expm1(-post))
 
 
 # ---------------------------------------------------------------------------
@@ -167,16 +180,24 @@ def fwd_plan(dims, batch: int, n_sm: int):
     return kmlp.rows_plan(per_row, batch, n_sm, what="tower forward"), stride
 
 
-def dec_bwd_plan(n_x: int, n_in_dec: int, h1d: int, h2d: int, batch: int, n_sm: int):
-    """(tile_rows, wide, hid) for the decoder+loss backward kernel: per row
-    one wide buffer (the decoder input of ``n_in_dec`` = n_z + n_cond
-    columns, then dr) and four hidden-width buffers (two activations, two
-    sigmoids); at most 16 rows."""
-    wide = kmlp._pad4(max(n_x, n_in_dec))
-    hid = kmlp._pad4(max(h1d, h2d))
-    tile = kmlp.rows_plan(4 * (wide + 4 * hid), batch, n_sm,
-                          max_rows=BWD_MAX_ROWS, what="decoder+loss backward")
-    return tile, wide, hid
+def dec_bwd_plan(batch: int, n_sm: int, compute_dtype="float32"):
+    """(rows per block, dynamic shared memory in bytes) for the decoder+loss
+    backward kernel; csrc/mega.cu computes the same bytes and refuses a
+    launch that disagrees. Rows: 16, 32 or 64 from the batch
+    (:func:`kmlp.dense_tile_rows`). Shared memory: the ring of its largest
+    product, W^T with A streamed; every row's operands stream from device
+    memory, so no width bounds the tile."""
+    rows = kmlp.dense_tile_rows(batch, n_sm)
+    bf16 = networks.dtype_name(compute_dtype) == "bfloat16"
+    return rows, kmlp.dense_ring_bytes(rows, True, True, bf16)
+
+
+def dec_bwd_parts(batch: int, rows: int, n_sm: int) -> int:
+    """Blocks that share each row tile of the backward kernel (a cluster,
+    each taking every other column tile of every product): 2 where 16-row
+    tiles leave at least half the SMs idle, so that twice the blocks stream
+    half the weights each; else 1."""
+    return 2 if rows == 16 and 2 * -(-batch // rows) <= n_sm else 1
 
 
 def _ptrs(tensors):
@@ -215,10 +236,12 @@ def _launch_fwd(flat, x, eps, seed, kind, cd):
     return outs
 
 
-def _launch_dec_loss_bwd(x, z, dec_flat, grec, kind, cd):
+def _dec_loss_bwd_kernel(x, z, dec_flat, grec, kind, cd):
+    """The backward kernel alone: dz and the weight grads' (A, D) operand
+    pairs, ([z, cond], db1d), (g1, db2d), (g2, dr), from its scratch."""
     dev = x.device
     n_z = z.shape[1]
-    d1, c1, d2, c2, do, co = (t.detach() for t in dec_flat)
+    d1, c1, d2, c2, do, co = weights = [t.detach() for t in dec_flat]
     batch, n_in = x.shape
     n_cond = d1.shape[0] - n_z
     n_x, h1d, h2d = do.shape[1], d1.shape[1], d2.shape[1]
@@ -227,10 +250,8 @@ def _launch_dec_loss_bwd(x, z, dec_flat, grec, kind, cd):
     kmlp._check_f32(x, dev, "x")
     kmlp._check_f32(z, dev, "z", (batch, n_z))
     kmlp._check_f32(grec, dev, "grec", (batch,))
-    for i, t in enumerate((d1, c1, d2, c2, do, co)):
+    for i, t in enumerate(weights):
         kmlp._check_f32(t, dev, f"decoder weight {i}")
-    weights = [d1, c1, d2, c2, do, co, d1.t().contiguous(), d2.t().contiguous(),
-               do.t().contiguous()]
 
     def buf(n):
         return torch.empty(batch, n, dtype=torch.float32, device=dev)
@@ -240,19 +261,24 @@ def _launch_dec_loss_bwd(x, z, dec_flat, grec, kind, cd):
     if batch:
         lib = _build.load()
         n_sm = kmlp.sm_count(dev)
-        tile, wide, hid = dec_bwd_plan(n_x, n_z + n_cond, h1d, h2d, batch, n_sm)
+        rows, smem = dec_bwd_plan(batch, n_sm, cd)
         with torch.cuda.device(dev):
             err = lib.vae_mega_dec_loss_bwd(
                 x.data_ptr(), z.data_ptr(), grec.data_ptr(), batch, _ptrs(weights),
                 _ptrs([zin, g1, g2, dr, db2d, db1d]),
                 (ctypes.c_int * 6)(n_in, n_z, n_cond, h1d, h2d, n_x),
-                int(kind == "bernoulli"), dz.data_ptr(), wide, hid, tile,
-                int(cd == "bfloat16"), kmlp._stream(x),
+                int(kind == "bernoulli"), dz.data_ptr(), rows, smem,
+                dec_bwd_parts(batch, rows, n_sm), int(cd == "bfloat16"), kmlp._stream(x),
             )
         _build.check(lib, err, "decoder+loss backward kernel launch")
         _launches.count(LAUNCHES, "mega_dec_loss_bwd")
+    return dz, ((zin, db1d), (g1, db2d), (g2, dr))
+
+
+def _launch_dec_loss_bwd(x, z, dec_flat, grec, kind, cd):
+    dz, pairs = _dec_loss_bwd_kernel(x, z, dec_flat, grec, kind, cd)
     grads = []
-    for a, d in ((zin, db1d), (g1, db2d), (g2, dr)):
+    for a, d in pairs:
         grads += list(kmlp.weight_grads(a, d, compute_dtype=cd))
     return dz, grads
 

@@ -353,6 +353,38 @@ def rows_plan(per_row_bytes: int, batch: int, n_sm: int, *, max_rows: int = MAX_
     return min(cap, want)
 
 
+DENSE_N, DENSE_STAGES = 128, 3
+"""The megakernels' block-tiled product (csrc/dense_tile.cuh): output
+columns per tile, slices in its cp.async ring."""
+DENSE_ROWS = (16, 32, 64)
+"""Rows per block it takes: multiples of the mma m16."""
+
+
+def dense_ring_bytes(rows: int, trans: bool, stream: bool, bf16: bool) -> int:
+    """Shared memory of the product's ring (dense_tile.cuh::dense_ring_bytes):
+    3 stages, each a weight slice of kd × 128 fp32 (rows of 132; with
+    ``trans`` 128 × kd, rows of kd + 4) and, with A streamed (``stream``), an
+    A slice of ``rows`` × kd (rows of kd + 4), kd = 32 at 64 rows and 64
+    below; in bf16 also two rounded slices (rows of 136 or kd + 8)."""
+    kd = 32 if rows == 64 else 64
+    w = DENSE_N * (kd + 4) if trans else kd * (DENSE_N + 4)
+    a = rows * (kd + 4) if stream else 0
+    wh = DENSE_N * (kd + 8) if trans else kd * (DENSE_N + 8)
+    ah = rows * (kd + 8) if stream else 0
+    return 4 * DENSE_STAGES * (w + a) + (2 * 2 * (wh + ah) if bf16 else 0)
+
+
+def dense_tile_rows(batch: int, n_sm: int) -> int:
+    """Rows per block of a kernel built on the block-tiled product: the
+    fewest of :data:`DENSE_ROWS` that keep the batch within one block per
+    SM, else the most (each weight byte a block reads serves all its rows,
+    and a small batch still spreads over the SMs). Raises on an empty
+    batch."""
+    if batch < 1:
+        raise ValueError(f"a tile plan needs a batch of at least one row, got {batch}")
+    return next((r for r in DENSE_ROWS if r * n_sm >= batch), DENSE_ROWS[-1])
+
+
 def _pad4(n: int) -> int:
     return -(-n // 4) * 4
 
