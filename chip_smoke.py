@@ -35,15 +35,19 @@ Phases, each of which raises on failure (nothing is caught):
    (rtol = atol = 1e-4) and bf16 (2e-2); a gradient summed over the batch
    takes atol = tol × max|want|. The weight-gradient kernel also runs on
    widths that are not multiples of 4 (the conditional tower's 510 × 794);
-   it and the decoder+loss backward (dz and the six weight grads) give
-   identical bits on a second call. The batches take every row tile of the
-   backward (16, 32 and 64 rows a block; 16 rows also shared by two blocks),
-   printed with its shared memory.
+   it, the decoder+loss backward (dz and the six weight grads) and the
+   encoder backward give identical bits on a second call, and the encoder
+   backward without dx gives the same weight grads bit for bit. The
+   batches take every row tile of the backward kernels (16, 32 and 64 rows
+   a block; 16 rows also shared by two blocks), printed with their shared
+   memory.
 6b. The composable training path's kernels against their twins on the
    card: the decoder backward (image, trajectory, conditional and depth-3
-   decoders, fp32 and bf16), the sampler (ε at rtol = atol = 1e-6, z) and
-   the joint loss forward and backward (kinds bernoulli + gaussian, with
-   and without the association column), batches 1 to 16384.
+   decoders, fp32 and bf16; identical bits on a second call, and the same
+   weight grads without dz; its plans printed), the sampler (ε at rtol =
+   atol = 1e-6, z) and the joint loss forward and backward (kinds
+   bernoulli + gaussian, with and without the association column), batches
+   1 to 16384.
 6c. The conv kernels against their twins on the card, batches 1 to 16384,
    fp32 and bf16: conv_fwd on all four layer shapes of the conv tower, as
    the layer's forward and as its input gradient (the four uses of the
@@ -86,8 +90,10 @@ Phases, each of which raises on failure (nothing is caught):
    paths), and at config 5's settings (all three paths), on 65,536
    synthetic pairs featurized on the card; and each training kernel's
    time per call against its twin's (and, for the weight-gradient kernel,
-   torch.matmul's; for the decoder+loss backward, also without its three
-   weight-gradient launches), fp32 and bf16: CUDA events around the calls,
+   torch.matmul's; for the decoder+loss backward and the stack backward,
+   also without their weight-gradient launches, and for the stack backward
+   also without dx, each beside its bound), fp32 and bf16: CUDA events
+   around the calls,
    and the device's busy time from torch.profiler, which leaves out the
    device waiting for the host (what the JSON record reports where the
    profiler measured it).
@@ -106,11 +112,14 @@ its bound: the larger of the bytes it must move over 3.35 TB/s and its
 operations over 67 TFLOP/s (fp32, no tensor cores) or, for a bf16 call,
 989 TFLOP/s (tensor cores), the H100 SXM data sheet's rates. The kernels
 with a bf16 route on tensor cores (mega_dec_loss_bwd, wgrad, conv_fwd,
-conv_dw, conv_enc, conv_dec) also carry a "bf16" object with the same
-fields; mega_dec_loss_bwd's time includes its three weight-gradient
-launches, and "alone_ms" is the kernel's without them. The last line is {"ok": true, "device": {...}}. Without a
-CUDA device, or without the package beside this file, the script exits
-non-zero and prints no result.
+conv_dw, conv_enc, conv_dec, enc_bwd, dec_bwd) also carry a "bf16" object
+with the same fields; the times of mega_dec_loss_bwd, enc_bwd and dec_bwd
+include their weight-gradient launches, and "alone_ms" is the kernel's
+without them; enc_bwd and dec_bwd also give "nodx_ms" and
+"nodx_bound_ms", with their weight-gradient launches but without dx. The
+last line is {"ok": true, "device": {...}}. Without a CUDA device, or
+without the package beside this file, the script exits non-zero and prints
+no result.
 """
 
 from __future__ import annotations
@@ -230,6 +239,32 @@ def _recorder(errs, failed):
     return record
 
 
+def _same_bits(what, got, again, nodx):
+    """Disagreements of a stack backward's (grads, dx) with a second call
+    (every bit of dx and the grads) and with a call without dx (dx None,
+    every bit of the grads)."""
+    flat = [t for pair in got[0] for t in pair]
+    bad = []
+    if not (torch.equal(got[1], again[1]) and all(
+            torch.equal(g, a) for g, a in zip(flat, [t for pair in again[0] for t in pair]))):
+        bad.append(f"{what}: two calls differ")
+    if nodx[1] is not None or not all(
+            torch.equal(g, n) for g, n in zip(flat, [t for pair in nodx[0] for t in pair])):
+        bad.append(f"{what}: the grads without dx differ")
+    return bad
+
+
+def _stack_plans(kmlp, widths, batches, n_sm):
+    """The stack backward's plan per batch, as one printed line."""
+    def plan(b):
+        rows, f32, parts = kmlp.stack_bwd_plan(widths, b, n_sm)
+        bf16 = kmlp.stack_bwd_plan(widths, b, n_sm, "bfloat16")[1]
+        return f"B={b}: {rows} x {parts} ({f32}, {bf16})"
+
+    return ("rows per block x blocks sharing them (fp32 and bf16 shared memory in bytes): "
+            + ", ".join(plan(b) for b in batches))
+
+
 def _grads_close(names, got, want, tol):
     """(max abs err, disagreeing tensors) of two lists of batch-summed grads."""
     worst, bad = 0.0, []
@@ -309,9 +344,12 @@ def check_train_kernels(rng, batches=TRAIN_BATCHES):
                 dmu = torch.from_numpy(rng.normal(size=(b, n_z)).astype(np.float32)).cuda() / b
                 dlv = torch.from_numpy(rng.normal(size=(b, n_z)).astype(np.float32)).cuda() / b
                 layers = kmlp._pairs(flat[:8])
-                got = kmlp.encode_bwd(layers[:2], layers[2:], x, dmu, dlv, compute_dtype=cd)
-                want = kmlp.encode_bwd_plain(layers[:2], layers[2:], x, dmu, dlv, compute_dtype=cd)
-                torch.cuda.synchronize()
+                args = (layers[:2], layers[2:], x, dmu, dlv)
+                got = kmlp.encode_bwd(*args, compute_dtype=cd)
+                want = kmlp.encode_bwd_plain(*args, compute_dtype=cd)
+                failed += _same_bits(f"enc_bwd {tower} B={b} {cd}", got,
+                                     kmlp.encode_bwd(*args, compute_dtype=cd),
+                                     kmlp.encode_bwd(*args, compute_dtype=cd, want_dx=False))
                 pairs = [("dx", got[1], want[1], False)]
                 for i, (g, w) in enumerate(zip(got[0], want[0])):
                     pairs += [(f"dw{i}", g[0], w[0], True), (f"db{i}", g[1], w[1], True)]
@@ -341,6 +379,7 @@ def check_train_kernels(rng, batches=TRAIN_BATCHES):
 
     print("mega_dec_loss_bwd rows per block x blocks sharing them (fp32 and bf16 shared "
           "memory in bytes): " + ", ".join(plan(b) for b in batches), flush=True)
+    print("enc_bwd " + _stack_plans(kmlp, [500, 500], batches, n_sm), flush=True)
     if failed:
         raise AssertionError("training kernel disagrees with its plain twin: "
                              + "; ".join(failed[:20]))
@@ -387,13 +426,18 @@ def check_composable_kernels(rng, batches=TRAIN_BATCHES):
                 dout = torch.from_numpy(rng.normal(size=(b, n_out)).astype(np.float32)).cuda() / b
                 got = kmlp.decode_bwd(hidden, head, z, dout, compute_dtype=cd)
                 want = kmlp.decode_bwd_plain(hidden, head, z, dout, compute_dtype=cd)
-                torch.cuda.synchronize()
+                failed += _same_bits(f"dec_bwd {tower} B={b} {cd}", got,
+                                     kmlp.decode_bwd(hidden, head, z, dout, compute_dtype=cd),
+                                     kmlp.decode_bwd(hidden, head, z, dout, compute_dtype=cd,
+                                                     want_dx=False))
                 pairs = [("dz", got[1], want[1], False)]
                 for i, (g, w) in enumerate(zip(got[0], want[0])):
                     pairs += [(f"dw{i}", g[0], w[0], True), (f"db{i}", g[1], w[1], True)]
                 line.append(record(("dec_bwd", tower, b, cd), pairs, tol))
             print(f"check {tower} dec_bwd {cd} (tol {tol}): " + " ".join(
                 f"B={b}:{e:.2e}" for b, e in zip(batches, line)), flush=True)
+    print("dec_bwd " + _stack_plans(kmlp, [500, 500], batches,
+                                    kmlp.sm_count(torch.device("cuda", 0))), flush=True)
 
     line = {"reparam": [], "loss_fwd": [], "loss_bwd": []}
     for b in batches:
@@ -729,16 +773,36 @@ def time_train_kernels(rng, card):
                 op = torch.bfloat16 if cd == "bfloat16" else torch.float32
                 a_lib, d_lib = a.to(op), d.to(op)
                 library = {"wgrad": lambda: torch.matmul(a_lib.T, d_lib)}
-                # The backward kernel without its three weight-gradient launches.
-                alone = {"mega_dec_loss_bwd": lambda: km._dec_loss_bwd_kernel(
-                    x, z, flat[8:], g, kind, cd)}
+                # The backward kernels without their weight-gradient launches.
+                alone = {
+                    "mega_dec_loss_bwd": lambda: km._dec_loss_bwd_kernel(
+                        x, z, flat[8:], g, kind, cd),
+                    "enc_bwd": lambda: kmlp._stack_bwd_kernel(
+                        "encoder-backward", layers[:2], layers[2:], x, [dmu, dlv], cd),
+                    "dec_bwd": lambda: kmlp._stack_bwd_kernel(
+                        "decoder-backward", dec[:2], dec[2:], z, [dout], cd),
+                }
+                # The stack backward as the training paths run it: no dx.
+                nodx = {
+                    "enc_bwd": lambda: kmlp.encode_bwd(layers[:2], layers[2:], x, dmu, dlv,
+                                                       compute_dtype=cd, want_dx=False),
+                    "dec_bwd": lambda: kmlp.decode_bwd(dec[:2], dec[2], z, dout,
+                                                       compute_dtype=cd, want_dx=False),
+                }
+                stacks = {"enc_bwd": (IMAGE_ENC, 2), "dec_bwd": (IMAGE_DEC, 1)}
                 for name, (kern, plain) in cases.items():
                     fns = {"kernel": kern, "plain": plain}
                     if name in library:
                         fns["library"] = library[name]
                     if name in alone:
                         fns["alone"] = alone[name]
+                    if name in nodx:
+                        fns["nodx"] = nodx[name]
                     bound = _bound(*_wgrad_work(b), cd) if name == "wgrad" else None
+                    if name in stacks:
+                        bound = {which: _bound(*_stack_bwd_work(b, *stacks[name], **kw), cd)
+                                 for which, kw in (("kernel", {}), ("alone", {"wgrad": False}),
+                                                   ("nodx", {"dx": False}))}
                     times[(name, b, cd)] = _time_case(f"{name} image B={b} {cd}", fns, card,
                                                       bound, n=10)
     return times
@@ -1190,7 +1254,10 @@ def _time_case(label, fns, card, bound=None, n=5):
         runs[which] += [_device_ms(fns[which], n=n) for _ in range(2)]
     call = {which: float(np.mean(r)) for which, r in runs.items()}
     busy = {which: _profiled_ms(fn, n=n) for which, fn in fns.items()}
-    tail = "" if bound is None else f"; bound {bound[0]:.4f} ({bound[1]})"
+    if isinstance(bound, dict):  # a bound per function
+        tail = "; bound " + ", ".join(f"{w} {t:.4f} ({by})" for w, (t, by) in bound.items())
+    else:
+        tail = "" if bound is None else f"; bound {bound[0]:.4f} ({bound[1]})"
     print(f"time {label}, ms per call (CUDA events) / device busy per call (profiler): "
           + ", ".join(f"{which} {call[which]:.4f} / {_fmt(busy[which])}" for which in fns)
           + f"{tail} [{card}]", flush=True)
@@ -1514,19 +1581,23 @@ def _stack_work(b, widths, heads):
             2 * b * sum(i * o for i, o in layers))
 
 
-def _stack_bwd_work(b, widths, heads, remat_head=False, extra_in=0):
-    """(bytes, flops) of a stack backward with its weight grads over b rows:
-    the rematerialized forward (hidden layers, and the head where the loss
-    needs it), the cotangent chain to the input and every weight grad;
-    reads the input, the head cotangents (or ``extra_in`` columns of loss
-    inputs instead) and the weights, writes the input gradient and the
-    weight grads."""
+def _stack_bwd_work(b, widths, heads, remat_head=False, extra_in=0, dx=True, wgrad=True):
+    """(bytes, flops) of a stack backward over b rows: the rematerialized
+    forward (hidden layers, and the head where the loss needs it), the
+    cotangent chain (on to the input where ``dx``) and, where ``wgrad``,
+    every weight grad; reads the input, the head cotangents (or
+    ``extra_in`` columns of loss inputs instead) and the weights, writes
+    the input gradient where ``dx`` and the weight grads, or without
+    ``wgrad`` their per-row operands (each hidden layer's activation and
+    cotangent)."""
     layers = _layers(widths, heads)
     macs = sum(i * o for i, o in layers)
     remat = sum(i * o for i, o in (layers if remat_head else layers[:-heads]))
+    chain = macs - (0 if dx else layers[0][0] * layers[0][1])
     head_in = extra_in or heads * widths[-1]
-    nbytes = 4 * b * (2 * widths[0] + head_in) + 2 * _weight_bytes(layers)
-    return nbytes, 2 * b * (remat + 2 * macs)
+    per_row = (1 + dx) * widths[0] + head_in + (0 if wgrad else 2 * sum(widths[1:-1]))
+    nbytes = 4 * b * per_row + (1 + wgrad) * _weight_bytes(layers)
+    return nbytes, 2 * b * (remat + chain + (macs if wgrad else 0))
 
 
 def _mega_fwd_work(b):
@@ -1727,7 +1798,16 @@ def main() -> int:
         "conv_fwd": (train_times[("conv_fwd", "conv2", "fwd", big, "bfloat16")],
                      _bound(*_conv_work(big, "conv2"), "bfloat16"),
                      ("conv_fwd", "conv2", big, "bfloat16")),
+        "enc_bwd": (train_times[("enc_bwd", big, "bfloat16")],
+                    _bound(*_stack_bwd_work(big, IMAGE_ENC, heads=2), "bfloat16"),
+                    ("enc_bwd", "image", big, "bfloat16")),
+        "dec_bwd": (train_times[("dec_bwd", small, "bfloat16")],
+                    _bound(*_stack_bwd_work(small, IMAGE_DEC, heads=1), "bfloat16"),
+                    ("dec_bwd", "image", small, "bfloat16")),
     }
+    # The stack backward without dx (as the training paths run it): its bound.
+    nodx_work = {"enc_bwd": _stack_bwd_work(big, IMAGE_ENC, heads=2, dx=False),
+                 "dec_bwd": _stack_bwd_work(small, IMAGE_DEC, heads=1, dx=False)}
 
     def ms(timed, which):
         """The profiler's device time where it has one, else CUDA events."""
@@ -1747,13 +1827,19 @@ def main() -> int:
         }
         if "alone" in timed["call"]:  # the kernel without its weight-gradient launches
             row["alone_ms"] = ms(timed, "alone")
+        if name in nodx_work:  # with its weight-gradient launches, without dx
+            row["nodx_ms"] = ms(timed, "nodx")
+            row["nodx_bound_ms"] = _bound(*nodx_work[name])[0]
         if name in bf16:
             t16, (b16_ms, b16_by), key16 = bf16[name]
             row["bf16"] = {"max_abs_err": train_errs[key16], "ms": ms(t16, "kernel"),
                            "plain_ms": ms(t16, "plain"), "bound_ms": b16_ms,
                            "bound_by": b16_by, "library_ms": ms(t16, "library")}
-            if "alone" in t16["call"]:
-                row["bf16"]["alone_ms"] = ms(t16, "alone")
+            for which in ("alone", "nodx"):
+                if which in t16["call"]:
+                    row["bf16"][f"{which}_ms"] = ms(t16, which)
+            if name in nodx_work:
+                row["bf16"]["nodx_bound_ms"] = _bound(*nodx_work[name], "bfloat16")[0]
         kernels.append(row)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -156,13 +156,24 @@ def test_decoder_backward_matches_jax_vjp(depth, n_cond, cd):
         _close(gt, w, TOL[cd], summed=True)
 
 
+def _ring(rows, bf16):
+    # csrc/mlp_bwd.cu's stack_smem: three stages, each a 128 × kd slice of W
+    # (read as Wᵀ; rows of kd + 4) and a rows × kd slice of the streamed A,
+    # kd = 32 at 64 rows and 64 below; bf16 also two rounded slices (rows of
+    # kd + 8).
+    kd = 32 if rows == 64 else 64
+    return 4 * 3 * (128 + rows) * (kd + 4) + (2 * 2 * (128 + rows) * (kd + 8) if bf16 else 0)
+
+
 def test_decoder_backward_tile_plan():
-    # The image decoder's widest row is its 784-wide output cotangent:
-    # 2 × 784 floats per row, so 32-row tiles still fit.
-    assert tmlp.stack_bwd_plan(20, [500, 500], 784, 16384, 132) == (32, 784)
-    assert tmlp.stack_bwd_plan(30, [500, 500], 784, 1024, 132) == (8, 784)
-    assert tmlp.stack_bwd_plan(20, [500, 500], 200, 7, 132) == (1, 500)
-    assert 32 * 2 * 784 * 4 <= tmlp.SMEM_BYTES
+    # Rows from the batch, shared memory as the .cu computes it, and two
+    # blocks per 16-row tile where half the SMs would idle. The image
+    # decoder's 784-wide output cotangent no longer bounds the tile: every
+    # operand streams from device memory.
+    assert tmlp.stack_bwd_plan([500, 500], 16384, 132) == (64, _ring(64, False), 1)
+    assert tmlp.stack_bwd_plan([500, 500], 1024, 132) == (16, _ring(16, False), 2)
+    assert tmlp.stack_bwd_plan([500, 500], 7, 132, "bfloat16") == (16, _ring(16, True), 2)
+    assert max(_ring(r, True) for r in (16, 32, 64)) <= tmlp.SMEM_BYTES
 
 
 # ---------------------------------------------------------------------------

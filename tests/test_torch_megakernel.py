@@ -182,6 +182,114 @@ def test_dec_loss_bwd_mirror_matches_pallas(kind, n_cond, cd):
     _assert_grads([g.detach().numpy() for g in got], want, tol)
 
 
+def _pallas_stack_bwd(kernel, flat, x, cts, cd, tile):
+    """The Pallas _enc_bwd_kernel or _dec_bwd_kernel alone in interpret mode
+    over row tiles of ``tile`` (the last one ragged where the batch is), as
+    mlp.py::_encode_fused_bwd calls it: (dx, [dw, db per layer])."""
+    b, n_in = x.shape
+    nh = (len(flat) - 2 * len(cts)) // 2
+    n_g = cts[0].shape[1]
+    shapes = [jax.ShapeDtypeStruct(w.shape, jnp.float32) for w in flat]
+    full = [pl.BlockSpec(s.shape, lambda i: (0, 0), memory_space=pltpu.VMEM) for s in shapes]
+    out = pl.pallas_call(
+        functools.partial(kernel, cd, nh, b),
+        grid=(pl.cdiv(b, tile),),
+        in_specs=[jmlp._tile_spec(tile, n_in)] + jmlp._full_specs(len(flat))
+        + [jmlp._tile_spec(tile, n_g)] * len(cts),
+        out_specs=tuple([jmlp._tile_spec(tile, n_in)] + full),
+        out_shape=tuple([jax.ShapeDtypeStruct((b, n_in), jnp.float32)] + shapes),
+        interpret=True,
+    )(jnp.asarray(x), *flat, *(jnp.asarray(c) for c in cts))
+    dx, *grads = (np.asarray(o) for o in out)
+    return dx, [g[0] if i % 2 else g for i, g in enumerate(grads)]  # biases [1, n] → [n]
+
+
+def _stack_arch(depth):
+    return dict(n_input=24, n_z=4, **{f"n_hidden_{n}_{k}": 12 + 4 * k
+                                      for n in ("recog", "gener") for k in range(1, depth + 1)})
+
+
+def _stack_inputs(tp, net, n_cond, batch, seed):
+    """(hidden, heads, x, cotangents) of the encoder ("recog") or decoder
+    ("gener") stack of ``tp``, inputs made with numpy."""
+    r = np.random.default_rng(seed)
+    m = tp.recog if net == "recog" else tp.gener
+    if net == "recog":
+        heads = [m["out_mean"], m["out_logvar"]]
+        x = r.uniform(0, 1, (batch, 24 + n_cond))
+        cts = [r.normal(size=(batch, 4)) for _ in heads]
+    else:
+        heads = [m["out"]]
+        x = r.normal(size=(batch, 4 + n_cond))
+        cts = [r.normal(size=(batch, 24))]
+    return (tnet.hidden_layers(m), heads, x.astype(np.float32),
+            [c.astype(np.float32) for c in cts])
+
+
+@pytest.mark.parametrize("net", ["recog", "gener"])
+@pytest.mark.parametrize("depth,n_cond,cd", [
+    (1, 0, "float32"), (2, 3, "float32"), (3, 0, "float32"),
+    (1, 3, "bfloat16"), (2, 0, "bfloat16"), (3, 3, "bfloat16"),
+])
+def test_stack_bwd_mirror_matches_pallas(net, depth, n_cond, cd):
+    # The stack-backward kernel's arithmetic (σ of each hidden pre-activation
+    # recovered from the saved post-activation as −expm1(−h); the encoder's
+    # two head products summed in order) against the Pallas _enc_bwd_kernel
+    # or _dec_bwd_kernel over 16-row tiles, the last of the 37 rows ragged:
+    # the input gradient and every weight grad, fp32 1e-5, bf16 2e-2.
+    jp, tp = _pair(_stack_arch(depth), n_cond)
+    hidden, heads, x, cts = _stack_inputs(tp, net, n_cond, 37, depth + 10 * n_cond)
+    flat, kernel = ((jmlp._enc_flat(jp), jmlp._enc_bwd_kernel) if net == "recog"
+                    else (jmlp._dec_flat(jp), jmlp._dec_bwd_kernel))
+    want_dx, want = _pallas_stack_bwd(kernel, flat, x, cts, cd, tile=16)
+    grads, dx = tmlp.stack_bwd_mirror(hidden, heads, torch.from_numpy(x),
+                                      [torch.from_numpy(c) for c in cts], compute_dtype=cd)
+    tol = TOL[cd]
+    np.testing.assert_allclose(dx.numpy(), want_dx, rtol=tol, atol=tol)
+    assert len(grads) == depth + len(heads)
+    _assert_grads([t.detach().numpy() for pair in grads for t in pair], want, tol)
+
+
+@pytest.mark.parametrize("net", ["recog", "gener"])
+@pytest.mark.parametrize("cd", sorted(TOL))
+def test_stack_backward_without_dx_gives_the_same_grads(net, cd):
+    # want_dx=False returns None for the input gradient and the very same
+    # weight grads, on the twin and on the mirror.
+    _, tp = _pair(_stack_arch(2), 3)
+    hidden, heads, x, cts = _stack_inputs(tp, net, 3, 19, 5)
+    x, cts = torch.from_numpy(x), [torch.from_numpy(c) for c in cts]
+    if net == "recog":
+        twin = functools.partial(tmlp.encode_bwd, hidden, heads, x, *cts, compute_dtype=cd)
+    else:
+        twin = functools.partial(tmlp.decode_bwd, hidden, heads[0], x, *cts, compute_dtype=cd)
+    mirror = functools.partial(tmlp.stack_bwd_mirror, hidden, heads, x, cts, compute_dtype=cd)
+    for fn in (twin, mirror):
+        (grads, dx), (grads_n, dx_n) = fn(), fn(want_dx=False)
+        assert dx.shape == x.shape and dx_n is None
+        for g, gn in zip(grads, grads_n):
+            assert torch.equal(g[0], gn[0]) and torch.equal(g[1], gn[1])
+
+
+def test_training_paths_skip_the_encoder_input_gradient(monkeypatch):
+    # The mega path's backward and encode_mlp_fused on data that needs no
+    # gradient ask the encoder backward for no dx; an x that requires grad
+    # still gets one.
+    asked, real = [], tmlp.encode_bwd
+
+    def spy(*args, **kw):
+        asked.append(kw["want_dx"])
+        return real(*args, **kw)
+
+    monkeypatch.setattr(tmlp, "encode_bwd", spy)
+    _, tp = _pair()
+    out = tmk.vae_tower_fused(tp, torch.rand(5, 24), kind="bernoulli", seed=1)
+    (out["recon_term"].sum() + out["mu"].sum()).backward()
+    for x in (torch.rand(5, 24), torch.rand(5, 24, requires_grad=True)):
+        mu, lv = tmlp.encode_mlp_fused(tp, x)
+        (mu.sum() + lv.sum()).backward()
+    assert asked == [False, False, True] and x.grad is not None
+
+
 @pytest.mark.parametrize("depth,n_cond,cd", [(1, 0, "float32"), (2, 3, "float32"),
                                              (3, 0, "bfloat16"), (2, 0, "bfloat16")])
 def test_encoder_backward_twin_matches_jax_vjp(depth, n_cond, cd):
@@ -316,10 +424,20 @@ def test_tile_plans_lower_the_rows_and_raise_only_past_one_row():
         64, 64, 32, 32, 16, 16]
     with pytest.raises(ValueError, match="at least one row"):
         tmk.dec_bwd_plan(0, 132)
-    assert tmlp.enc_bwd_plan(784, [500, 500], 20, 16384, 132) == (32, 784)
-    assert tmlp.enc_bwd_plan(20, [29056], 20, 4096, 132) == (1, 29056)
-    with pytest.raises(ValueError, match="shared memory"):
-        tmlp.enc_bwd_plan(20, [29057], 20, 64, 132)
+    # The stack backward's plan is the same (rows, bytes, blocks per tile)
+    # and, with no width in it, a width that used to overflow shared memory
+    # (29057) plans; more hidden layers than its layer table holds raise.
+    for b, cd in ((16384, "float32"), (4096, "bfloat16"), (64, "float32")):
+        rows, smem = tmk.dec_bwd_plan(b, 132, cd)
+        assert tmlp.stack_bwd_plan([500, 500], b, 132, cd) == (
+            rows, smem, tmk.dec_bwd_parts(b, rows, 132))
+    assert tmlp.stack_bwd_plan([29056], 4096, 132) == (32, tmk.dec_bwd_plan(4096, 132)[1], 1)
+    assert tmlp.stack_bwd_plan([29057], 64, 132) == (16, tmk.dec_bwd_plan(64, 132)[1], 2)
+    assert tmlp.stack_bwd_plan([500] * 16, 1, 132)[0] == 16
+    with pytest.raises(ValueError, match="hidden layers"):
+        tmlp.stack_bwd_plan([500] * 17, 64, 132)
+    with pytest.raises(ValueError, match="at least one row"):
+        tmlp.stack_bwd_plan([500, 500], 0, 132)
 
 
 @pytest.mark.parametrize("batch,n_sm,want", [(1024, 132, 2), (2112, 132, 1), (1056, 132, 2),

@@ -145,12 +145,12 @@ def load() -> ctypes.CDLL:
                 ptr, ptr, ptr, i32, ptr, ptr, ptr, i32, ptr, i32, i32, i32, i32, ptr,
             ]
             lib.vae_mlp_enc_bwd.argtypes = [
-                ptr, i32, i32, ptr, i32, ptr, i32, ptr, ptr, ptr, i32, i32,
-                i32, ptr,
+                ptr, i32, i32, ptr, i32, ptr, ptr, i32, ptr, ptr, ptr, i32,
+                i32, i32, i32, ptr,
             ]
             lib.vae_mlp_dec_bwd.argtypes = [
                 ptr, i32, i32, ptr, i32, ptr, i32, ptr, ptr, i32, i32, i32,
-                ptr,
+                i32, ptr,
             ]
             lib.vae_wgrad.argtypes = [
                 ptr, i32, ptr, i32, i32, i32, i32, i32, i32, ptr, ptr, ptr,

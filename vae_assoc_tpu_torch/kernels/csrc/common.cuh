@@ -2,14 +2,13 @@
 // sampling.cu, loss.cu, conv.cu), and the host side's once-per-process
 // launch bookkeeping.
 //
-// The building block is one dense layer over a tile of TM rows whose
-// activations sit in shared memory: y[r, j] = act[r, :] . W[:, j] (+ b[j]),
-// handed to an epilogue functor as epi(r, j, y). Weights stream from global
-// memory (L2-resident at these sizes) in coalesced rows of W[k, :], each
-// weight feeding the R rows a thread group owns. A product with a transposed
-// weight (the backward's da . W^T) is the same layer over a W^T the wrapper
-// lays out contiguously. This is mlp_fwd.cu's inner loop, with the store
-// replaced by the epilogue.
+// The building block of mega.cu's forward is one dense layer over a tile of
+// TM rows whose activations sit in shared memory: y[r, j] = act[r, :] .
+// W[:, j] (+ b[j]), handed to an epilogue functor as epi(r, j, y). Weights
+// stream from global memory (L2-resident at these sizes) in coalesced rows
+// of W[k, :], each weight feeding the R rows a thread group owns. This is
+// mlp_fwd.cu's inner loop, with the store replaced by the epilogue. The
+// backward kernels run on dense_tile.cuh's block-tiled product instead.
 //
 // Precision: with BF16, every operand is rounded to bf16 and the product
 // accumulates in fp32; activations are rounded when stored to shared

@@ -1,7 +1,8 @@
 // The block-tiled dense product of the megakernels (conv_mega.cu's conv_enc
-// and conv_dec, mega.cu's mega_dec_loss_bwd): y = A . B over the TM rows a
-// block owns (TM = 16, 32 or 64, multiples of the mma m16), handed to an
-// epilogue functor as epi(row, column, y) for columns < N.
+// and conv_dec, mega.cu's mega_dec_loss_bwd, mlp_bwd.cu's stack_bwd):
+// y = A . B over the TM rows a block owns (TM = 16, 32 or 64, multiples of
+// the mma m16), handed to an epilogue functor as epi(row, column, y) for
+// columns < N.
 //
 // What bounds it. The weights (up to 6.27 MB) stream from L2, so the weight
 // bytes read per row are what a row tile saves: every weight byte a block
@@ -96,6 +97,20 @@ struct DenseAcc<TM, true> {
   static constexpr int NT = kDN / WN / 8;      // 8-column mma tiles per warp
   float v[MT][NT][4];
 };
+
+// softplus'(pre) = sigmoid(pre) from the post-activation g = softplus(pre):
+// 1 - e^{-g}, as -expm1(-g) (exact where g is small). The backward kernels
+// keep g for the weight gradients and no pre-activation.
+__device__ __forceinline__ float dsoftplus(float g) { return -expm1f(-g); }
+
+// The blocks of a cluster wait for each other's writes (release, then
+// acquire at cluster scope); the barrier also spans each block's threads.
+// Blocks that share a row tile (each taking every other column tile) meet
+// here between products.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
 
 __device__ __forceinline__ float lane_of(const float4& v, int j) {
   return j == 0 ? v.x : j == 1 ? v.y : j == 2 ? v.z : v.w;

@@ -196,27 +196,17 @@ struct BwdDims {
   int n_in, n_z, n_cond, h1d, h2d, n_x;
 };
 
-// softplus'(pre) = sigmoid(pre) from the post-activation g = softplus(pre):
-// 1 - e^{-g}, as -expm1(-g) (exact where g is small).
-__device__ __forceinline__ float dsoftplus(float g) { return -expm1f(-g); }
-
 // Shared memory of the backward (kernels/megakernel.py::dec_bwd_plan): the
 // ring of its largest product mode, W^T with A streamed.
 __host__ __device__ constexpr int bwd_smem(int tm, bool bf16) {
   return dense_ring_bytes(tm, true, true, bf16);
 }
 
-// The blocks of a cluster wait for each other's writes (release, then
-// acquire at cluster scope); the barrier also spans each block's threads.
-__device__ __forceinline__ void cluster_sync() {
-  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
-  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
-}
-
 // `parts` blocks (a cluster, consecutive in x) own TM rows and run the five
-// products in turn (dense_tile.cuh), each taking every parts-th column
-// tile, each A streamed back from the scratch these blocks wrote before the
-// barrier that ends the last product. Parts > 1 only where the batch leaves
+// products in turn (dense_tile.cuh, which also holds cluster_sync and
+// dsoftplus), each taking every parts-th column tile, each A streamed back
+// from the scratch these blocks wrote before the barrier that ends the last
+// product. Parts > 1 only where the batch leaves
 // SMs idle: each block then streams its share of the weights. At 64 rows
 // two blocks share an SM (at most 128 registers a thread, a 114 KB ring),
 // so one block's barriers and waits overlap the other's products.

@@ -5,13 +5,13 @@
 // stack_bwd is the per-row half of two Pallas TPU kernels:
 // vae_assoc_tpu/kernels/mlp.py::_enc_bwd_kernel (launched as enc_bwd, two
 // heads: mu and logvar) and mlp.py::_dec_bwd_kernel (launched as dec_bwd,
-// one head: the decoder output, 784 wide for images). Per tile of TM rows
-// it rematerializes the softplus stack from its input (x -> h1 -> ... ->
-// hL), then backprops the heads' cotangents through the stack to the input
-// gradient (dx, or dz over the decoder input [z, cond]). It writes that
-// gradient and, for the weight gradients, each layer's activation h_i and
-// cotangent da_i to scratch in device memory. The TPU kernels sum the
-// weight gradients over row tiles in place because their grid runs in
+// one head: the decoder output, 784 wide for images). Per tile of rows it
+// rematerializes the softplus stack from its input (x -> h1 -> ... -> hL),
+// backprops the heads' cotangents through the stack and, where the caller
+// reads it, on to the input gradient (dx, or dz over the decoder input
+// [z, cond]). For the weight gradients it writes each layer's activation
+// h_i and cotangent da_i to scratch in device memory. The TPU kernels sum
+// the weight gradients over row tiles in place because their grid runs in
 // order; GPU blocks run at once, so wgrad below sums them instead. Rows
 // past the batch (a ragged last tile) write nothing, so they add nothing.
 // Depth comes from the layer table (up to kMaxHidden hidden layers), passed
@@ -30,13 +30,27 @@
 // accumulation), as the reference's _mm_tn does; db sums D unrounded, as
 // jnp.sum does.
 //
-// What bounds them. stack_bwd does three products per layer and row (the
-// rematerialized forward and the backward chain) on weights streamed from
-// L2, as mlp_fwd.cu does: fp32 FMA throughput (about 1.6 M multiply-adds
-// per row for the image decoder with its weight grads, 48 us at the fp32
-// peak for 1024 rows); its shared memory holds two TM-row buffers as wide
-// as the widest of the input, the hidden layers and the stacked head
-// cotangents (784 floats for the image decoder: TM = 32 still fits).
+// What bounds them. stack_bwd: per row the image encoder does about 1.30 M
+// multiply-adds with dx and 0.91 M without it, against 3 KB of input and
+// cotangents, on 1.6 MB of weights that stay in L2: arithmetic, and the
+// rows that share each weight byte a block reads are what a tile saves. It
+// is mega.cu's mega_dec_loss_bwd with a layer table in place of a fixed
+// depth, on the same block-tiled product (dense_tile.cuh): a block owns
+// TM = 16, 32 or 64 rows (from the batch) and runs its products in turn,
+// each over the whole width,
+//   - the forward h_i W_i (epilogue: + b_i, softplus, store h_{i+1}),
+//   - the heads' g W^T (the encoder's second head adds to what its first
+//     wrote, in the same thread, so the sum has one order),
+//   - the chain da_{i+1} W_{i+1}^T (epilogue: times sigmoid(pre_i), taken
+//     from the saved h as -expm1(-h); store da_i),
+//   - and dx = da_1 W_1^T only when asked: no training path reads it, and
+//     it is 30 % of the image encoder's products.
+// Each A streams back from device memory (x, the cotangents, or what these
+// blocks just wrote), each W^T is read from the forward's tensor as it
+// lies, fp32 on register tiles and bf16 on mma.sync. No row lives in
+// shared memory, so no width bounds the tile. Where 16-row tiles would
+// leave half the SMs idle, two blocks (a cluster) share each tile, each
+// taking every other column tile, with a cluster barrier between products.
 // wgrad at B = 16384 on the image encoder's first layer (M = 784, N = 500)
 // does 6.4 GFMA over 84 MB of fp32 operands. In fp32 that is FMA
 // throughput (0.19 ms at 67 TFLOP/s): each thread owns 8 x 8 of the tile
@@ -48,9 +62,8 @@
 // the widths allow), so 3 slices are in flight while one multiplies; in
 // bf16 each thread rounds the values it copied into a bf16 stage.
 
-#include <type_traits>
-
 #include "common.cuh"
+#include "dense_tile.cuh"
 
 namespace {
 
@@ -59,12 +72,10 @@ using vae::kThreads;
 constexpr int kMaxHidden = 16;
 
 struct EncLayer {
-  const float* w;   // [n_in, n_out]
-  const float* b;   // [n_out]
-  const float* wt;  // [n_out, n_in], the transpose of w
-  float* act;       // scratch [B, n_out]: softplus(pre-activation)
-  float* sig;       // scratch [B, n_out]: sigmoid(pre-activation)
-  float* da;        // scratch [B, n_out]: cotangent of the pre-activation
+  const float* w;  // [n_in, n_out]
+  const float* b;  // [n_out]
+  float* act;      // scratch [B, n_out]: softplus(pre-activation)
+  float* da;       // scratch [B, n_out]: cotangent of the pre-activation
   int n_in;
   int n_out;
 };
@@ -73,83 +84,90 @@ struct EncTable {
   EncLayer l[kMaxHidden];
 };
 
-// Heads: n_heads (1 or 2) of n_g columns each; their cotangents g0 (and g1)
-// are [batch, n_g], stacked as [g0, g1] against head_t = [W0^T; W1^T].
+// Shared memory of a launch (kernels/mlp.py::stack_bwd_plan): the ring of
+// its largest product mode, W^T with A streamed.
+__host__ __device__ constexpr int stack_smem(int tm, bool bf16) {
+  return dense_ring_bytes(tm, true, true, bf16);
+}
+
+// `parts` blocks (a cluster, consecutive in x) own TM rows; see the top of
+// this file. Heads: w0 [width of hL, n_g] with cotangent g0 [batch, n_g],
+// and, for the encoder, w1 and g1 (null for the decoder). dx is null when
+// the caller does not read it. At 64 rows two blocks share an SM (at most
+// 128 registers a thread), so one block's barriers and waits overlap the
+// other's products.
 template <int TM, bool BF16>
-__global__ void __launch_bounds__(kThreads)
-    stack_bwd(const float* __restrict__ x, int batch, int n_in, EncTable t,
-              int n_hidden, const float* __restrict__ head_t, int n_g,
-              int n_heads, const float* __restrict__ g0,
-              const float* __restrict__ g1, float* __restrict__ dx,
-              int stride) {
-  extern __shared__ __align__(16) float smem[];
-  float* cur = smem;
-  float* nxt = smem + TM * stride;
-  const int row0 = blockIdx.x * TM;
+__global__ void __launch_bounds__(kThreads, TM == 64 ? 2 : 1)
+    stack_bwd(const float* __restrict__ x, int batch, int n_in,
+              const __grid_constant__ EncTable t, int n_hidden,
+              const float* __restrict__ w0, const float* __restrict__ w1, int n_g,
+              const float* __restrict__ g0, const float* __restrict__ g1,
+              float* __restrict__ dx, int parts) {
+  extern __shared__ __align__(16) float ring[];
+  const int part = blockIdx.x % parts;
+  const int row0 = blockIdx.x / parts * TM;
   const int valid = min(TM, batch - row0);
-
-  // Rematerialize the forward; keep h_i and sigmoid(pre_i) for the backward.
-  vae::load_tile<TM, BF16>(cur, stride, x, n_in, n_in, row0, valid);
-  __syncthreads();
-  for (int i = 0; i < n_hidden; ++i) {
-    const EncLayer L = t.l[i];
-    auto fwd = [&](int r, int j, float y) {
-      const float g = vae::softplus(y);
-      nxt[r * stride + j] = vae::operand<BF16>(g);
-      if (r < valid) {
-        L.act[(size_t)(row0 + r) * L.n_out + j] = g;
-        L.sig[(size_t)(row0 + r) * L.n_out + j] = vae::sigmoid(y);
-      }
-    };
-    vae::layer<TM, BF16>(cur, stride, L.w, L.n_out, L.b, L.n_in, L.n_out, fwd);
-    __syncthreads();
-    float* tmp = cur;
-    cur = nxt;
-    nxt = tmp;
-  }
-
-  // Heads: dh = [g0, g1] [W0; W1]^T, one product over the stacked heads.
-  const int n2 = n_heads * n_g;
-  for (int i = threadIdx.x; i < TM * n2; i += kThreads) {
-    const int r = i / n2;
-    const int k = i - r * n2;
-    float v = 0.f;
-    if (r < valid) {
-      v = k < n_g ? g0[(size_t)(row0 + r) * n_g + k]
-                  : g1[(size_t)(row0 + r) * n_g + (k - n_g)];
-    }
-    cur[r * stride + k] = vae::operand<BF16>(v);
-  }
-  __syncthreads();
-
-  // da_i = (da_{i+1} W_{i+1}^T) * sigmoid(pre_i), from the top layer down;
-  // the sigmoids were written by this block above (plain loads, not __ldg).
-  const float* in_w = head_t;
-  int in_k = n2;
-  for (int i = n_hidden - 1; i >= 0; --i) {
-    const EncLayer L = t.l[i];
-    auto bwd = [&](int r, int j, float y) {
-      float v = 0.f;
-      if (r < valid) {
-        const size_t at = (size_t)(row0 + r) * L.n_out + j;
-        v = y * L.sig[at];
-        L.da[at] = v;
-      }
-      nxt[r * stride + j] = vae::operand<BF16>(v);
-    };
-    vae::layer<TM, BF16>(cur, stride, in_w, L.n_out, nullptr, in_k, L.n_out,
-                         bwd);
-    __syncthreads();
-    float* tmp = cur;
-    cur = nxt;
-    nxt = tmp;
-    in_w = L.wt;
-    in_k = L.n_out;
-  }
-  auto edx = [&](int r, int j, float y) {
-    if (r < valid) dx[(size_t)(row0 + r) * n_in + j] = y;
+  auto shared_rows = [&]() {  // the other part's writes of the last product
+    if (parts > 1) cluster_sync();
   };
-  vae::layer<TM, BF16>(cur, stride, in_w, n_in, nullptr, in_k, n_in, edx);
+
+  // The rematerialized forward: h_{i+1} = softplus(h_i W_i + b_i), h_0 = x.
+  const float* a = x + (size_t)row0 * n_in;
+  int k = n_in;
+  for (int i = 0; i < n_hidden; ++i) {
+    const EncLayer& L = t.l[i];
+    float* act = L.act + (size_t)row0 * L.n_out;
+    auto fwd = [&](int r, int j, float y) {
+      if (r < valid) act[(size_t)r * L.n_out + j] = vae::softplus(y + __ldg(L.b + j));
+    };
+    if (i > 0) shared_rows();
+    dense_rows<TM, BF16, false, true>(a, nullptr, k, valid, L.w, k, L.n_out, ring, fwd,
+                                      part, parts);
+    a = act;
+    k = L.n_out;
+  }
+
+  // A cotangent product: out = A W^T for W [N, K] (plus what out holds,
+  // where `add`), times sigmoid(pre) from the saved activation `act` where
+  // one is given. The same (row, column) of out belongs to the same thread
+  // in every product of N columns, and act's to the same block.
+  auto back = [&](const float* A, int K, const float* W, int N, float* out,
+                  const float* act, bool add) {
+    auto epi = [&](int r, int j, float y) {
+      if (r < valid) {
+        const size_t at = (size_t)r * N + j;
+        if (add) y += out[at];
+        out[at] = act != nullptr ? y * dsoftplus(act[at]) : y;
+      }
+    };
+    shared_rows();
+    dense_rows<TM, BF16, true, true>(A, nullptr, K, valid, W, K, N, ring, epi, part, parts);
+  };
+  // The heads: da_L = (g0 W0^T [+ g1 W1^T]) * sigmoid(pre_L).
+  const EncLayer& top = t.l[n_hidden - 1];
+  float* da = top.da + (size_t)row0 * top.n_out;
+  const float* h = top.act + (size_t)row0 * top.n_out;
+  back(g0 + (size_t)row0 * n_g, n_g, w0, top.n_out, da, g1 == nullptr ? h : nullptr, false);
+  if (g1 != nullptr) back(g1 + (size_t)row0 * n_g, n_g, w1, top.n_out, da, h, true);
+  // The chain: da_i = (da_{i+1} W_{i+1}^T) * sigmoid(pre_i), then dx.
+  for (int i = n_hidden - 2; i >= 0; --i) {
+    const EncLayer& L = t.l[i];
+    const EncLayer& U = t.l[i + 1];
+    back(U.da + (size_t)row0 * U.n_out, U.n_out, U.w, L.n_out,
+         L.da + (size_t)row0 * L.n_out, L.act + (size_t)row0 * L.n_out, false);
+  }
+  if (dx != nullptr) {
+    const EncLayer& L = t.l[0];
+    back(L.da + (size_t)row0 * L.n_out, L.n_out, L.w, n_in, dx + (size_t)row0 * n_in,
+         nullptr, false);
+  }
+}
+
+template <bool BF16>
+const void* stack_kernel(int tm) {
+  return tm == 16   ? (const void*)stack_bwd<16, BF16>
+         : tm == 32 ? (const void*)stack_bwd<32, BF16>
+                    : (const void*)stack_bwd<64, BF16>;
 }
 
 constexpr int kTile = 128;       // dW tile edge
@@ -379,81 +397,89 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-}  // namespace
-
-namespace {
-
-// Launches stack_bwd on a layer table of n_hidden rows of 8 int64 values
-// (w, b, wT, act, sig, da, n_in, n_out) as EncLayer.
+// Launches stack_bwd on a layer table of n_hidden rows of 6 int64 values
+// (w, b, act, da, n_in, n_out) as EncLayer; w1 and g1 are null for one
+// head, dx for no input gradient.
 int run_stack_bwd(const void* x, int batch, int n_in, const long long* layers,
-                  int n_hidden, const void* head_t, int n_g, int n_heads,
-                  const void* g0, const void* g1, void* dx, int stride,
-                  int tile_rows, int bf16, void* stream) {
-  if (batch <= 0 || n_hidden < 1 || n_hidden > kMaxHidden || stride % 4 != 0 ||
-      stride < n_heads * n_g)
+                  int n_hidden, const void* w0, const void* w1, int n_g,
+                  const void* g0, const void* g1, void* dx, int tile_rows,
+                  int smem, int parts, int bf16, void* stream) {
+  if (batch <= 0 || n_in <= 0 || n_g <= 0 || n_hidden < 1 || n_hidden > kMaxHidden ||
+      (tile_rows != 16 && tile_rows != 32 && tile_rows != 64) ||
+      (parts != 1 && parts != 2) || smem != stack_smem(tile_rows, bf16 != 0) ||
+      smem > vae::kSmemLimit || (w1 == nullptr) != (g1 == nullptr))
     return (int)cudaErrorInvalidValue;
-  EncTable t;
+  EncTable t{};
+  int width = n_in;
   for (int i = 0; i < n_hidden; ++i) {
-    const long long* row = layers + 8 * i;
-    t.l[i].w = reinterpret_cast<const float*>(row[0]);
-    t.l[i].b = reinterpret_cast<const float*>(row[1]);
-    t.l[i].wt = reinterpret_cast<const float*>(row[2]);
-    t.l[i].act = reinterpret_cast<float*>(row[3]);
-    t.l[i].sig = reinterpret_cast<float*>(row[4]);
-    t.l[i].da = reinterpret_cast<float*>(row[5]);
-    t.l[i].n_in = (int)row[6];
-    t.l[i].n_out = (int)row[7];
+    const long long* row = layers + 6 * i;
+    t.l[i] = EncLayer{reinterpret_cast<const float*>(row[0]),
+                      reinterpret_cast<const float*>(row[1]),
+                      reinterpret_cast<float*>(row[2]), reinterpret_cast<float*>(row[3]),
+                      (int)row[4], (int)row[5]};
+    if (t.l[i].n_in != width || t.l[i].n_out <= 0) return (int)cudaErrorInvalidValue;
+    width = t.l[i].n_out;
   }
+  const void* fn = bf16 ? stack_kernel<true>(tile_rows) : stack_kernel<false>(tile_rows);
+  int per_sm = 0;
+  cudaError_t e = vae::launch_info(fn, smem, &per_sm);
+  if (e != cudaSuccess) return (int)e;
   const auto* xs = static_cast<const float*>(x);
-  const auto* ht = static_cast<const float*>(head_t);
+  const auto* ws0 = static_cast<const float*>(w0);
+  const auto* ws1 = static_cast<const float*>(w1);
   const auto* c0 = static_cast<const float*>(g0);
   const auto* c1 = static_cast<const float*>(g1);
   auto* o_dx = static_cast<float*>(dx);
-  auto st = static_cast<cudaStream_t>(stream);
-#define VAE_STACK_BWD(TM)                                                    \
-  [&]() -> cudaError_t {                                                     \
-    auto k = bf16 ? stack_bwd<TM, true> : stack_bwd<TM, false>;              \
-    const size_t smem = 2 * (size_t)TM * stride * sizeof(float);             \
-    cudaError_t e = vae::set_smem(k, smem);                                  \
-    if (e != cudaSuccess) return e;                                          \
-    k<<<(batch + TM - 1) / TM, kThreads, smem, st>>>(                        \
-        xs, batch, n_in, t, n_hidden, ht, n_g, n_heads, c0, c1, o_dx,        \
-        stride);                                                             \
-    return cudaGetLastError();                                               \
-  }()
-  auto run = [&]() -> cudaError_t { VAE_TM_SWITCH(tile_rows, VAE_STACK_BWD) };
-#undef VAE_STACK_BWD
-  return (int)run();
+  void* args[] = {&xs, &batch, &n_in, &t, &n_hidden, &ws0, &ws1, &n_g, &c0, &c1, &o_dx, &parts};
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((batch + tile_rows - 1) / tile_rows * parts);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute cluster;
+  cluster.id = cudaLaunchAttributeClusterDimension;
+  cluster.val.clusterDim.x = parts;
+  cluster.val.clusterDim.y = 1;
+  cluster.val.clusterDim.z = 1;
+  cfg.attrs = &cluster;
+  cfg.numAttrs = parts > 1 ? 1 : 0;
+  e = cudaLaunchKernelExC(&cfg, fn, args);
+  const cudaError_t last = cudaGetLastError();  // clears a refused launch
+  return (int)(e != cudaSuccess ? e : last);
 }
 
 }  // namespace
 
 // Per-row half of the encoder backward. x [batch, n_in]; `layers` as
-// run_stack_bwd; head_t [2 n_z, width of the last hidden layer] is
-// [Wm^T; Wl^T]; dmu, dlv [batch, n_z]. Writes dx [batch, n_in] and the
-// act/sig/da scratch. `stride` is the shared-memory row length (a multiple
-// of 4, at least n_in, 2 n_z and every hidden width).
+// run_stack_bwd; wm, wl [width of the last hidden layer, n_z] the heads'
+// weights as the forward has them; dmu, dlv [batch, n_z]. Writes the
+// act/da scratch and, unless dx is null, dx [batch, n_in]. `tile_rows` (16,
+// 32 or 64), `smem` and `parts` (1 or 2 blocks, a cluster, per row tile)
+// are kernels/mlp.py::stack_bwd_plan's. Launches on `stream` without
+// synchronising and returns the launch's CUDA error.
 extern "C" int vae_mlp_enc_bwd(const void* x, int batch, int n_in,
                                const long long* layers, int n_hidden,
-                               const void* head_t, int n_z, const void* dmu,
-                               const void* dlv, void* dx, int stride,
-                               int tile_rows, int bf16, void* stream) {
-  return run_stack_bwd(x, batch, n_in, layers, n_hidden, head_t, n_z, 2, dmu,
-                       dlv, dx, stride, tile_rows, bf16, stream);
+                               const void* wm, const void* wl, int n_z,
+                               const void* dmu, const void* dlv, void* dx,
+                               int tile_rows, int smem, int parts, int bf16,
+                               void* stream) {
+  if (wl == nullptr || dlv == nullptr) return (int)cudaErrorInvalidValue;
+  return run_stack_bwd(x, batch, n_in, layers, n_hidden, wm, wl, n_z, dmu, dlv, dx,
+                       tile_rows, smem, parts, bf16, stream);
 }
 
 // Per-row half of the decoder backward. z [batch, n_in] is the decoder
 // input ([z, cond] for a conditional model); `layers` as run_stack_bwd;
-// head_t [n_out, width of the last hidden layer] is Wo^T; dout
-// [batch, n_out]. Writes dz [batch, n_in] and the act/sig/da scratch.
-// `stride`: a multiple of 4, at least n_in, n_out and every hidden width.
+// wo [width of the last hidden layer, n_out] the output layer's weight;
+// dout [batch, n_out]. Writes the act/da scratch and, unless dz is null,
+// dz [batch, n_in]. The plan arguments as vae_mlp_enc_bwd's.
 extern "C" int vae_mlp_dec_bwd(const void* z, int batch, int n_in,
                                const long long* layers, int n_hidden,
-                               const void* head_t, int n_out,
-                               const void* dout, void* dz, int stride,
-                               int tile_rows, int bf16, void* stream) {
-  return run_stack_bwd(z, batch, n_in, layers, n_hidden, head_t, n_out, 1,
-                       dout, nullptr, dz, stride, tile_rows, bf16, stream);
+                               const void* wo, int n_out, const void* dout,
+                               void* dz, int tile_rows, int smem, int parts,
+                               int bf16, void* stream) {
+  return run_stack_bwd(z, batch, n_in, layers, n_hidden, wo, nullptr, n_out, dout,
+                       nullptr, dz, tile_rows, smem, parts, bf16, stream);
 }
 
 // dw [m, n] = A^T D and db [n] = the column sums of D over `batch` rows;

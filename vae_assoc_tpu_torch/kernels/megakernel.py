@@ -192,12 +192,9 @@ def dec_bwd_plan(batch: int, n_sm: int, compute_dtype="float32"):
     return rows, kmlp.dense_ring_bytes(rows, True, True, bf16)
 
 
-def dec_bwd_parts(batch: int, rows: int, n_sm: int) -> int:
-    """Blocks that share each row tile of the backward kernel (a cluster,
-    each taking every other column tile of every product): 2 where 16-row
-    tiles leave at least half the SMs idle, so that twice the blocks stream
-    half the weights each; else 1."""
-    return 2 if rows == 16 and 2 * -(-batch // rows) <= n_sm else 1
+dec_bwd_parts = kmlp.dense_parts
+"""Blocks that share each row tile of the backward kernel: the rule of
+every kernel on the block-tiled product."""
 
 
 def _ptrs(tensors):
@@ -343,10 +340,11 @@ class _Tower(torch.autograd.Function):
         gkl = g_kl[:, None]
         dmu = dz + g_mu + mu * gkl
         dlv = g_lv + 0.5 * (torch.exp(lv) - 1.0) * gkl + 0.5 * dz * sig * eps
-        # Stage 3: the encoder stack; its dx is dropped (weights only).
+        # Stage 3: the encoder stack, weights only: the kernel skips dx,
+        # which the reference computes and drops.
         layers = kmlp._pairs(flat[:8])
-        enc_grads, _dx = kmlp.encode_bwd(layers[:2], layers[2:], x, dmu, dlv,
-                                         compute_dtype=ctx.cd)
+        enc_grads, _ = kmlp.encode_bwd(layers[:2], layers[2:], x, dmu, dlv,
+                                       compute_dtype=ctx.cd, want_dx=False)
         return (None, None, None, None, None,
                 *(g for pair in enc_grads for g in pair), *dec_grads)
 

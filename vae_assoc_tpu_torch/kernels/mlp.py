@@ -13,12 +13,15 @@ stack-backward kernel (``csrc/mlp_bwd.cu``, launched as ``enc_bwd``,
 replacing the Pallas ``_enc_bwd_kernel``, or as ``dec_bwd``, replacing
 ``_dec_bwd_kernel``) followed by the weight-gradient kernel
 ``weight_grads``; the tower megakernel's backward uses the encoder's
-(kernels/megakernel.py).
+(kernels/megakernel.py). The stack backward computes the input gradient
+only when a caller reads it (``want_dx``): the training paths' data needs
+none.
 
 Dispatch is by the device of the input, and only by it: a CPU tensor goes
 to the plain twin in this module (the CPU tests' path); a CUDA tensor
 launches the kernel or raises. There is no capacity gate that falls back:
-the tile height adapts down to one row, and a width beyond even that raises.
+the forward's tile height adapts down to one row, and a width beyond even
+that raises; no width bounds the backward's tile.
 """
 
 from __future__ import annotations
@@ -243,9 +246,8 @@ class _EncodeFused(torch.autograd.Function):
         x, *flat = ctx.saved_tensors
         layers = _pairs(flat)
         grads, dx = encode_bwd(layers[:-2], layers[-2:], x, dmu, dlv,
-                               compute_dtype=ctx.cd)
-        return (None, dx if ctx.needs_input_grad[1] else None,
-                *(g for pair in grads for g in pair))
+                               compute_dtype=ctx.cd, want_dx=ctx.needs_input_grad[1])
+        return (None, dx, *(g for pair in grads for g in pair))
 
 
 class _DecodeFused(torch.autograd.Function):
@@ -271,14 +273,16 @@ class _DecodeFused(torch.autograd.Function):
     def backward(ctx, dout):
         z, *flat = ctx.saved_tensors
         layers = _pairs(flat)
-        grads, dz = decode_bwd(layers[:-1], layers[-1], z, dout, compute_dtype=ctx.cd)
-        return (None, dz if ctx.needs_input_grad[1] else None,
-                *(g for pair in grads for g in pair))
+        grads, dz = decode_bwd(layers[:-1], layers[-1], z, dout, compute_dtype=ctx.cd,
+                               want_dx=ctx.needs_input_grad[1])
+        return (None, dz, *(g for pair in grads for g in pair))
 
 
-def _stack_bwd_plain(hidden, heads, x, cts, cd):
+def _stack_bwd(hidden, heads, x, cts, cd, want_dx, dsoftplus):
     """The stack backward's explicit formulas (see encode_bwd_plain) for one
-    or two heads with cotangents ``cts``."""
+    or two heads with cotangents ``cts``; ``dsoftplus(pre, post)`` is
+    softplus'(pre) = σ(pre), from the pre- or the post-activation. The input
+    gradient is None unless ``want_dx``."""
 
     def mm(a, b):
         return networks.round_operand(a, cd) @ networks.round_operand(b, cd)
@@ -296,34 +300,51 @@ def _stack_bwd_plain(hidden, heads, x, cts, cd):
         dh = dh + mm(c, h.w.detach().T)
     grads = [None] * len(hw) + [(mm(acts[-1].T, c), c.sum(0)) for c in cts]
     for i in reversed(range(len(hw))):
-        da = dh * torch.sigmoid(pres[i])
+        da = dh * dsoftplus(pres[i], acts[i + 1])
         grads[i] = (mm(acts[i].T, da), da.sum(0))
-        dh = mm(da, hw[i][0].T)
+        dh = mm(da, hw[i][0].T) if i or want_dx else None
     return grads, dh
 
 
-def encode_bwd_plain(hidden, heads, x, dmu, dlv, *, compute_dtype="float32"):
+def _sigmoid_of_pre(pre, post):
+    return torch.sigmoid(pre)
+
+
+def encode_bwd_plain(hidden, heads, x, dmu, dlv, *, compute_dtype="float32", want_dx=True):
     """Plain twin of the encoder-backward kernel and its weight grads.
 
     ``hidden``: the hidden layers and ``heads``: (out_mean, out_logvar), each
     with ``w`` [in, out] and ``b``; x [B, n_in]; dmu, dlv [B, n_z]. Returns
-    ([(dw, db) per hidden layer, then out_mean, out_logvar], dx). Written
-    as the reference kernel's explicit formulas, with each operand of each
-    product rounded under the bf16 policy (mlp.py::_enc_bwd_kernel, _mm_nt,
-    _mm_tn): autograd of the forward twin would round each product's result
-    instead."""
-    return _stack_bwd_plain(hidden, heads, x, [dmu, dlv], networks.dtype_name(compute_dtype))
+    ([(dw, db) per hidden layer, then out_mean, out_logvar], dx), dx None
+    unless ``want_dx``. Written as the reference kernel's explicit formulas,
+    with each operand of each product rounded under the bf16 policy
+    (mlp.py::_enc_bwd_kernel, _mm_nt, _mm_tn): autograd of the forward twin
+    would round each product's result instead."""
+    return _stack_bwd(hidden, heads, x, [dmu, dlv], networks.dtype_name(compute_dtype),
+                      want_dx, _sigmoid_of_pre)
 
 
-def decode_bwd_plain(hidden, head, z, dout, *, compute_dtype="float32"):
+def decode_bwd_plain(hidden, head, z, dout, *, compute_dtype="float32", want_dx=True):
     """Plain twin of the decoder-backward kernel and its weight grads.
 
     ``hidden``: the hidden layers and ``head``: the output layer; z
     [B, n_z(+n_cond)] the decoder input; dout [B, n_out]. Returns
-    ([(dw, db) per hidden layer, then the output layer], dz). Explicit
-    formulas with the operand rounding of :func:`encode_bwd_plain`
-    (mlp.py::_dec_bwd_kernel)."""
-    return _stack_bwd_plain(hidden, [head], z, [dout], networks.dtype_name(compute_dtype))
+    ([(dw, db) per hidden layer, then the output layer], dz), dz None
+    unless ``want_dx``. Explicit formulas with the operand rounding of
+    :func:`encode_bwd_plain` (mlp.py::_dec_bwd_kernel)."""
+    return _stack_bwd(hidden, [head], z, [dout], networks.dtype_name(compute_dtype),
+                      want_dx, _sigmoid_of_pre)
+
+
+def stack_bwd_mirror(hidden, heads, x, cts, *, compute_dtype="float32", want_dx=True):
+    """The stack-backward kernel's arithmetic in plain torch, for the
+    encoder (``heads`` = (out_mean, out_logvar), ``cts`` = (dμ, dlogσ²)) or
+    the decoder (the output layer and its cotangent): the twins' formulas
+    with σ(pre) recovered from the saved post-activation h as −expm1(−h),
+    as csrc/mlp_bwd.cu does (it keeps no pre-activation). Result as
+    :func:`encode_bwd_plain`."""
+    return _stack_bwd(hidden, list(heads), x, list(cts), networks.dtype_name(compute_dtype),
+                      want_dx, lambda pre, post: -torch.expm1(-post))
 
 
 def weight_grads_plain(a, d, *, compute_dtype="float32"):
@@ -385,27 +406,40 @@ def dense_tile_rows(batch: int, n_sm: int) -> int:
     return next((r for r in DENSE_ROWS if r * n_sm >= batch), DENSE_ROWS[-1])
 
 
+def dense_parts(batch: int, rows: int, n_sm: int) -> int:
+    """Blocks that share each row tile of a kernel built on the block-tiled
+    product (a cluster, each taking every other column tile of every
+    product): 2 where 16-row tiles leave at least half the SMs idle, so that
+    twice the blocks stream half the weights each; else 1."""
+    return 2 if rows == 16 and 2 * -(-batch // rows) <= n_sm else 1
+
+
 def _pad4(n: int) -> int:
     return -(-n // 4) * 4
-
-
-def stack_bwd_plan(n_in: int, hidden_widths, head_cols: int, batch: int, n_sm: int,
-                   what: str = "stack backward"):
-    """(tile_rows, stride) for the stack-backward kernel: two ping-pong
-    buffers of ``stride`` floats per row, stride covering the input, every
-    hidden width and the ``head_cols`` stacked head cotangents."""
-    stride = _pad4(max(n_in, *hidden_widths, head_cols))
-    return rows_plan(2 * stride * 4, batch, n_sm, what=what), stride
-
-
-def enc_bwd_plan(n_in: int, hidden_widths, n_z: int, batch: int, n_sm: int):
-    """:func:`stack_bwd_plan` for the encoder: the heads are [dμ, dlogσ²]."""
-    return stack_bwd_plan(n_in, hidden_widths, 2 * n_z, batch, n_sm, "encoder backward")
 
 
 ENC_BWD_MAX_HIDDEN = 16
 """Hidden layers the stack-backward kernel's by-value layer table holds
 (``kMaxHidden`` in csrc/mlp_bwd.cu), for the encoder and the decoder."""
+
+
+def stack_bwd_plan(hidden_widths, batch: int, n_sm: int, compute_dtype="float32"):
+    """(rows per block, dynamic shared memory in bytes, blocks per row tile)
+    for the stack-backward kernel (the encoder's and the decoder's);
+    csrc/mlp_bwd.cu computes the same bytes and refuses a launch that
+    disagrees. Rows: 16, 32 or 64 from the batch (:func:`dense_tile_rows`);
+    shared memory: the ring of its largest product, Wᵀ with A streamed;
+    blocks: :func:`dense_parts`. Every row's operands stream from device
+    memory, so no width bounds the tile. Raises on an empty batch and
+    outside 1 to ``ENC_BWD_MAX_HIDDEN`` hidden layers."""
+    if not 1 <= len(hidden_widths) <= ENC_BWD_MAX_HIDDEN:
+        raise ValueError(
+            f"the stack-backward kernel takes 1 to {ENC_BWD_MAX_HIDDEN} hidden layers, "
+            f"got {len(hidden_widths)}"
+        )
+    rows = dense_tile_rows(batch, n_sm)
+    bf16 = networks.dtype_name(compute_dtype) == "bfloat16"
+    return rows, dense_ring_bytes(rows, True, True, bf16), dense_parts(batch, rows, n_sm)
 
 WGRAD_TILE = 128
 WGRAD_SLICE = 32
@@ -498,78 +532,77 @@ def weight_grads(a, d, *, compute_dtype="float32"):
     return dw, db
 
 
-def _stack_bwd(name, hidden, heads, x, cts, cd):
-    """Launch the stack-backward kernel (the encoder's two heads or the
-    decoder's one) and the weight-gradient kernel; returns (grads, dx)."""
+def _stack_bwd_kernel(name, hidden, heads, x, cts, cd, want_dx=True):
+    """The stack-backward kernel alone (the encoder's two heads or the
+    decoder's one): (dx, or None unless ``want_dx``, and the weight grads'
+    (A, D) operand pairs from its scratch: (the input of hidden layer i,
+    da_i) per layer, then (h_L, the cotangent) per head)."""
     dev = x.device
     x = x.detach().float().contiguous()
     cts = [t.detach().float().contiguous() for t in cts]
     batch, n_in = x.shape
     n_g = heads[0].w.shape[1]
-    if len(hidden) > ENC_BWD_MAX_HIDDEN:
-        raise ValueError(
-            f"the {name} kernel takes at most {ENC_BWD_MAX_HIDDEN} hidden layers, "
-            f"got {len(hidden)}"
-        )
     _check_f32(x, dev, "x")
     for i, t in enumerate(cts):
         _check_f32(t, dev, f"head cotangent {i}", (batch, n_g))
     _check_stack(x, hidden, heads)
     widths = [l.w.shape[1] for l in hidden]
-    scratch = [[torch.empty(batch, w, dtype=torch.float32, device=dev)
-                for _ in range(3)] for w in widths]  # act, sig, da per layer
-    w_t = [l.w.detach().t().contiguous() for l in hidden]
-    head_t = torch.cat([h.w.detach().t() for h in heads]).contiguous()
-    dx = torch.empty(batch, n_in, dtype=torch.float32, device=dev)
-    rows = []
-    for l, wt, (act, sig, da) in zip(hidden, w_t, scratch):
-        rows += [l.w.data_ptr(), l.b.data_ptr(), wt.data_ptr(), act.data_ptr(),
-                 sig.data_ptr(), da.data_ptr(), l.w.shape[0], l.w.shape[1]]
-    table = (ctypes.c_longlong * len(rows))(*rows)
+    acts = [torch.empty(batch, w, dtype=torch.float32, device=dev) for w in widths]
+    das = [torch.empty(batch, w, dtype=torch.float32, device=dev) for w in widths]
+    dx = torch.empty(batch, n_in, dtype=torch.float32, device=dev) if want_dx else None
     if batch:
         lib = _build.load()
-        n_sm = sm_count(dev)
-        tile, stride = stack_bwd_plan(n_in, widths, len(heads) * n_g, batch, n_sm,
-                                      what=f"{name} kernel")
+        rows, smem, parts = stack_bwd_plan(widths, batch, sm_count(dev), cd)
+        table = (ctypes.c_longlong * (6 * len(hidden)))(*[
+            v for l, a, d in zip(hidden, acts, das)
+            for v in (l.w.data_ptr(), l.b.data_ptr(), a.data_ptr(), d.data_ptr(),
+                      l.w.shape[0], l.w.shape[1])])
+        dx_ptr = dx.data_ptr() if dx is not None else None
+        bf16 = int(cd == "bfloat16")
         with torch.cuda.device(dev):
             if len(heads) == 2:
                 err = lib.vae_mlp_enc_bwd(
-                    x.data_ptr(), batch, n_in, table, len(hidden), head_t.data_ptr(),
-                    n_g, cts[0].data_ptr(), cts[1].data_ptr(), dx.data_ptr(), stride,
-                    tile, int(cd == "bfloat16"), _stream(x),
+                    x.data_ptr(), batch, n_in, table, len(hidden), heads[0].w.data_ptr(),
+                    heads[1].w.data_ptr(), n_g, cts[0].data_ptr(), cts[1].data_ptr(), dx_ptr,
+                    rows, smem, parts, bf16, _stream(x),
                 )
             else:
                 err = lib.vae_mlp_dec_bwd(
-                    x.data_ptr(), batch, n_in, table, len(hidden), head_t.data_ptr(),
-                    n_g, cts[0].data_ptr(), dx.data_ptr(), stride, tile,
-                    int(cd == "bfloat16"), _stream(x),
+                    x.data_ptr(), batch, n_in, table, len(hidden), heads[0].w.data_ptr(),
+                    n_g, cts[0].data_ptr(), dx_ptr, rows, smem, parts, bf16, _stream(x),
                 )
         _build.check(lib, err, f"{name} kernel launch")
         _launches.count(_launches.TRAINING, "enc_bwd" if len(heads) == 2 else "dec_bwd")
-    top = scratch[-1][0]
-    grads = [weight_grads(a, s[2], compute_dtype=cd)
-             for a, s in zip([x] + [s[0] for s in scratch[:-1]], scratch)]
-    grads += [weight_grads(top, c, compute_dtype=cd) for c in cts]
-    return grads, dx
+    pairs = list(zip([x] + acts[:-1], das)) + [(acts[-1], c) for c in cts]
+    return dx, pairs
 
 
-def encode_bwd(hidden, heads, x, dmu, dlv, *, compute_dtype="float32"):
+def _launch_stack_bwd(name, hidden, heads, x, cts, cd, want_dx):
+    """The stack-backward kernel and the weight-gradient kernel; returns
+    (grads, dx)."""
+    dx, pairs = _stack_bwd_kernel(name, hidden, heads, x, cts, cd, want_dx)
+    return [weight_grads(a, d, compute_dtype=cd) for a, d in pairs], dx
+
+
+def encode_bwd(hidden, heads, x, dmu, dlv, *, compute_dtype="float32", want_dx=True):
     """Encoder-stack backward: the kernel on a CUDA tensor, its twin on the
-    CPU. Arguments and result as :func:`encode_bwd_plain`."""
+    CPU. Arguments and result as :func:`encode_bwd_plain`; without
+    ``want_dx`` the kernel skips the input gradient's product."""
     cd = networks.dtype_name(compute_dtype)
     if x.device.type == "cpu":
-        return encode_bwd_plain(hidden, heads, x, dmu, dlv, compute_dtype=cd)
+        return encode_bwd_plain(hidden, heads, x, dmu, dlv, compute_dtype=cd, want_dx=want_dx)
     if x.device.type != "cuda":
         raise ValueError(f"the encoder-backward kernel runs on CUDA, got {x.device}")
-    return _stack_bwd("encoder-backward", hidden, heads, x, [dmu, dlv], cd)
+    return _launch_stack_bwd("encoder-backward", hidden, heads, x, [dmu, dlv], cd, want_dx)
 
 
-def decode_bwd(hidden, head, z, dout, *, compute_dtype="float32"):
+def decode_bwd(hidden, head, z, dout, *, compute_dtype="float32", want_dx=True):
     """Decoder-stack backward: the kernel on a CUDA tensor, its twin on the
-    CPU. Arguments and result as :func:`decode_bwd_plain`."""
+    CPU. Arguments and result as :func:`decode_bwd_plain`; without
+    ``want_dx`` the kernel skips dz's product."""
     cd = networks.dtype_name(compute_dtype)
     if z.device.type == "cpu":
-        return decode_bwd_plain(hidden, head, z, dout, compute_dtype=cd)
+        return decode_bwd_plain(hidden, head, z, dout, compute_dtype=cd, want_dx=want_dx)
     if z.device.type != "cuda":
         raise ValueError(f"the decoder-backward kernel runs on CUDA, got {z.device}")
-    return _stack_bwd("decoder-backward", hidden, [head], z, [dout], cd)
+    return _launch_stack_bwd("decoder-backward", hidden, [head], z, [dout], cd, want_dx)
