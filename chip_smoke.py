@@ -11,7 +11,8 @@ Phases, each of which raises on failure (nothing is caught):
    image and trajectory towers, a depth-3 tower and a conditional tower
    (n_cond=10), batches 1 to 4096, fp32 (rtol = atol = 1e-4: another
    summation order) and bf16 (rtol = atol = 2e-2: bf16 re-rounding of the
-   activations between layers may flip).
+   activations between layers may flip); each gives identical bits on a
+   second call.
 4. Serving, the port's main path: baseline config 3 at full width with
    random weights from seed 0, a Predictor on the fused kernels behind
    ModelServer, every HTTP route, 16 concurrent requests; outputs checked
@@ -27,7 +28,8 @@ Phases, each of which raises on failure (nothing is caught):
    both paths at buckets 1 to 1024.
 5. Times: Predictor.cross_generate image→trajectory p50/p95 per bucket for
    both paths, and each tower's device time (CUDA events) against its plain
-   twin at every bucket and at B = 16384.
+   twin at every bucket and at B = 16384 in the served dtype, and in bf16
+   at B = 1024 and 16384.
 6. The training kernels against their plain twins on the card: the tower
    forward (injected and seeded ε), the decoder+loss backward, the encoder
    backward and the weight-gradient kernel, for the config-3 towers and a
@@ -35,12 +37,14 @@ Phases, each of which raises on failure (nothing is caught):
    (rtol = atol = 1e-4) and bf16 (2e-2); a gradient summed over the batch
    takes atol = tol × max|want|. The weight-gradient kernel also runs on
    widths that are not multiples of 4 (the conditional tower's 510 × 794);
-   it, the decoder+loss backward (dz and the six weight grads) and the
-   encoder backward give identical bits on a second call, and the encoder
-   backward without dx gives the same weight grads bit for bit. The
-   batches take every row tile of the backward kernels (16, 32 and 64 rows
-   a block; 16 rows also shared by two blocks), printed with their shared
-   memory.
+   it, the tower forward (every output, with injected and with seeded ε),
+   the decoder+loss backward (dz and the six weight grads) and the encoder
+   backward give identical bits on a second call, and the encoder backward
+   without dx gives the same weight grads bit for bit. The batches take
+   every row tile of the kernels on the block-tiled product (16, 32 and 64
+   rows a block; 16 rows also shared by two blocks): the plans of the
+   forward kernels (the tower's and the stacks') and of the backward
+   kernels are printed with their shared memory.
 6b. The composable training path's kernels against their twins on the
    card: the decoder backward (image, trajectory, conditional and depth-3
    decoders, fp32 and bf16; identical bits on a second call, and the same
@@ -111,11 +115,12 @@ The line before the last is the kernel record as JSON, each kernel with
 its bound: the larger of the bytes it must move over 3.35 TB/s and its
 operations over 67 TFLOP/s (fp32, no tensor cores) or, for a bf16 call,
 989 TFLOP/s (tensor cores), the H100 SXM data sheet's rates. The kernels
-with a bf16 route on tensor cores (mega_dec_loss_bwd, wgrad, conv_fwd,
-conv_dw, conv_enc, conv_dec, enc_bwd, dec_bwd) also carry a "bf16" object
-with the same fields; the times of mega_dec_loss_bwd, enc_bwd and dec_bwd
-include their weight-gradient launches, and "alone_ms" is the kernel's
-without them; enc_bwd and dec_bwd also give "nodx_ms" and
+with a bf16 route on tensor cores (enc_fwd, dec_fwd, mega_fwd,
+mega_dec_loss_bwd, wgrad, conv_fwd, conv_dw, conv_enc, conv_dec, enc_bwd,
+dec_bwd) also carry a "bf16" object with the same fields; the times of
+mega_dec_loss_bwd, enc_bwd and dec_bwd include their weight-gradient
+launches, and "alone_ms" is the kernel's without them; enc_bwd and dec_bwd
+also give "nodx_ms" and
 "nodx_bound_ms", with their weight-gradient launches but without dx. The
 last line is {"ok": true, "device": {...}}. Without a CUDA device, or
 without the package beside this file, the script exits non-zero and prints
@@ -192,13 +197,17 @@ def check_kernels(rng):
                         x = torch.from_numpy(rng.uniform(
                             0, 1, (b, arch["n_input"] + n_cond)).astype(np.float32)).cuda()
                         got = kmlp.encode_mlp_fused(m, x, compute_dtype=cd)
+                        again = kmlp.encode_mlp_fused(m, x, compute_dtype=cd)
                         want = kmlp.encode_mlp_plain(m, x, compute_dtype=cd)
                     else:
                         z = torch.from_numpy(rng.normal(
                             size=(b, arch["n_z"] + n_cond)).astype(np.float32)).cuda()
                         got = (kmlp.decode_mlp_fused(m, z, compute_dtype=cd),)
+                        again = (kmlp.decode_mlp_fused(m, z, compute_dtype=cd),)
                         want = (kmlp.decode_mlp_plain(m, z, compute_dtype=cd),)
                     torch.cuda.synchronize()
+                    if not all(torch.equal(g, a) for g, a in zip(got, again)):
+                        failed.append(f"{name} {kind} B={b} {cd}: two calls differ")
                     res = [_max_err(g, w, tol) for g, w in zip(got, want)]
                     err = max(e for e, _ in res)
                     errs[(f"{name}_{kind}", b, cd)] = err
@@ -252,6 +261,32 @@ def _same_bits(what, got, again, nodx):
             torch.equal(g, n) for g, n in zip(flat, [t for pair in nodx[0] for t in pair])):
         bad.append(f"{what}: the grads without dx differ")
     return bad
+
+
+def _forward_bits(what, got, again):
+    """Disagreements of a forward kernel's outputs with a second call's."""
+    torch.cuda.synchronize()
+    return [] if all(torch.equal(g, a) for g, a in zip(got, again)) else [
+        f"{what}: two calls differ"]
+
+
+def _forward_plans(km, kmlp, batches, n_sm):
+    """The forward kernels' plans per batch on the image tower (the tower's
+    and the stacks'), as one printed line each."""
+    plans = {
+        "mega_fwd": lambda b, cd: km.fwd_plan((784, 500, 500, 20, 0, 500, 500, 784), b, n_sm, cd),
+        "enc_fwd": lambda b, cd: kmlp.stack_fwd_plan((500, 500, 20, 20), b, n_sm, cd),
+        "dec_fwd": lambda b, cd: kmlp.stack_fwd_plan((500, 500, 784), b, n_sm, cd),
+    }
+    lines = []
+    for name, plan in plans.items():
+        def one(b):
+            rows, f32, parts = plan(b, "float32")
+            return f"B={b}: {rows} x {parts} ({f32}, {plan(b, 'bfloat16')[1]})"
+
+        lines.append(f"{name} image rows per block x blocks sharing them (fp32 and bf16 "
+                     "shared memory in bytes): " + ", ".join(one(b) for b in batches))
+    return lines
 
 
 def _stack_plans(kmlp, widths, batches, n_sm):
@@ -316,7 +351,8 @@ def check_train_kernels(rng, batches=TRAIN_BATCHES):
                 names = ("mu", "lv", "eps", "rec", "kl")
                 got = km.tower_fwd(flat, x, kind=kind, eps=eps, compute_dtype=cd)
                 want = km.tower_fwd_plain(flat, x, eps, kind=kind, compute_dtype=cd)
-                torch.cuda.synchronize()
+                failed += _forward_bits(f"mega_fwd {tower} B={b} {cd}", got, km.tower_fwd(
+                    flat, x, kind=kind, eps=eps, compute_dtype=cd))
                 line["mega_fwd"].append(record(
                     ("mega_fwd", tower, b, cd),
                     [(n, g, w, False) for n, g, w in zip(names, got, want)], tol))
@@ -324,7 +360,8 @@ def check_train_kernels(rng, batches=TRAIN_BATCHES):
                 got = km.tower_fwd(flat, x, kind=kind, seed=seed, compute_dtype=cd)
                 want = km.tower_fwd_plain(flat, x, philox_normal(seed, b, n_z, "cuda"),
                                           kind=kind, compute_dtype=cd)
-                torch.cuda.synchronize()
+                failed += _forward_bits(f"mega_fwd seeded {tower} B={b} {cd}", got, km.tower_fwd(
+                    flat, x, kind=kind, seed=seed, compute_dtype=cd))
                 line["mega_fwd_seeded"].append(record(
                     ("mega_fwd_seeded", tower, b, cd),
                     [(n, g, w, False) for n, g, w in zip(names, got, want)], tol))
@@ -380,6 +417,8 @@ def check_train_kernels(rng, batches=TRAIN_BATCHES):
     print("mega_dec_loss_bwd rows per block x blocks sharing them (fp32 and bf16 shared "
           "memory in bytes): " + ", ".join(plan(b) for b in batches), flush=True)
     print("enc_bwd " + _stack_plans(kmlp, [500, 500], batches, n_sm), flush=True)
+    for line in _forward_plans(km, kmlp, batches, n_sm):
+        print(line, flush=True)
     if failed:
         raise AssertionError("training kernel disagrees with its plain twin: "
                              + "; ".join(failed[:20]))
@@ -798,7 +837,8 @@ def time_train_kernels(rng, card):
                         fns["alone"] = alone[name]
                     if name in nodx:
                         fns["nodx"] = nodx[name]
-                    bound = _bound(*_wgrad_work(b), cd) if name == "wgrad" else None
+                    bound = (_bound(*_wgrad_work(b), cd) if name == "wgrad"
+                             else _bound(*_mega_fwd_work(b), cd) if name == "mega_fwd" else None)
                     if name in stacks:
                         bound = {which: _bound(*_stack_bwd_work(b, *stacks[name], **kw), cd)
                                  for which, kw in (("kernel", {}), ("alone", {"wgrad": False}),
@@ -1518,20 +1558,26 @@ def _device_ms(fn, n=50):
 def time_kernels(model, cd, rng, card):
     """Phase 5b: device time per launch of each config-3 tower, kernel
     against plain twin, in turns (plain, kernel, kernel, plain), at the
-    serving buckets and at the training batch 16384."""
+    serving buckets and at the training batch 16384 in the served dtype
+    ``cd``, and in bf16 at B = 1024 and 16384; {(tower, batch, dtype):
+    (kernel ms, plain ms)}."""
     from vae_assoc_tpu_torch.kernels import mlp as kmlp
 
     img, traj = model.modalities
     stacks = {
-        "image_enc": (kmlp.encode_mlp_fused, kmlp.encode_mlp_plain, img, 784),
-        "trajectory_enc": (kmlp.encode_mlp_fused, kmlp.encode_mlp_plain, traj, 200),
-        "image_dec": (kmlp.decode_mlp_fused, kmlp.decode_mlp_plain, img, 20),
-        "trajectory_dec": (kmlp.decode_mlp_fused, kmlp.decode_mlp_plain, traj, 20),
+        "image_enc": (kmlp.encode_mlp_fused, kmlp.encode_mlp_plain, img, 784, (IMAGE_ENC, 2)),
+        "trajectory_enc": (kmlp.encode_mlp_fused, kmlp.encode_mlp_plain, traj, 200,
+                           ((200, 500, 500, 20), 2)),
+        "image_dec": (kmlp.decode_mlp_fused, kmlp.decode_mlp_plain, img, 20, (IMAGE_DEC, 1)),
+        "trajectory_dec": (kmlp.decode_mlp_fused, kmlp.decode_mlp_plain, traj, 20,
+                           (TRAJ_DEC, 1)),
     }
     times = {}
+    settings = [(b, cd) for b in BUCKETS + TRAIN_TIMED[-1:]]
+    settings += [(b, "bfloat16") for b in TRAIN_TIMED if cd != "bfloat16"]
     with torch.inference_mode():
-        for b in BUCKETS + TRAIN_TIMED[-1:]:
-            for name, (fused, plain, m, width) in stacks.items():
+        for b, cd in settings:
+            for name, (fused, plain, m, width, shape) in stacks.items():
                 x = torch.from_numpy(rng.uniform(0, 1, (b, width)).astype(np.float32)).cuda()
                 runs = {"kernel": [], "plain": []}
                 for _ in range(3):
@@ -1541,9 +1587,11 @@ def time_kernels(model, cd, rng, card):
                     fn = fused if which == "kernel" else plain
                     runs[which].append(_device_ms(lambda: fn(m, x, compute_dtype=cd)))
                 k, p = float(np.mean(runs["kernel"])), float(np.mean(runs["plain"]))
-                times[(name, b)] = (k, p)
+                times[(name, b, cd)] = (k, p)
+                bound = _bound(*_stack_work(b, *shape), cd)
                 print(f"device time {name} B={b} {cd}: kernel {k:.4f} ms, plain "
-                      f"{p:.4f} ms, plain/kernel {p / k:.3f} [{card}]", flush=True)
+                      f"{p:.4f} ms, plain/kernel {p / k:.3f}; bound {bound[0]:.4f} "
+                      f"({bound[1]}) [{card}]", flush=True)
     return times
 
 
@@ -1731,10 +1779,10 @@ def main() -> int:
     # (name, source, TPU kernel, launch counts, max_abs_err key, times, bound)
     rows = [
         ("enc_fwd", SOURCE, "vae_assoc_tpu/kernels/mlp.py:299", launches,
-         ("image_enc", TIMED_BATCH, cd), times[("image_enc", TIMED_BATCH)],
+         ("image_enc", TIMED_BATCH, cd), times[("image_enc", TIMED_BATCH, cd)],
          _bound(*_stack_work(TIMED_BATCH, IMAGE_ENC, heads=2))),
         ("dec_fwd", SOURCE, "vae_assoc_tpu/kernels/mlp.py:486", launches,
-         ("trajectory_dec", TIMED_BATCH, cd), times[("trajectory_dec", TIMED_BATCH)],
+         ("trajectory_dec", TIMED_BATCH, cd), times[("trajectory_dec", TIMED_BATCH, cd)],
          _bound(*_stack_work(TIMED_BATCH, TRAJ_DEC, heads=1))),
         ("mega_fwd", CSRC + "mega.cu", "vae_assoc_tpu/kernels/megakernel.py:192",
          train_launches, ("mega_fwd", "image", big, "float32"),
@@ -1781,6 +1829,15 @@ def main() -> int:
     # The kernels this record also gives in bf16: (times, bound, error key).
     dec_bwd_work = _stack_bwd_work(big, IMAGE_DEC, heads=1, remat_head=True, extra_in=785)
     bf16 = {
+        "enc_fwd": (times[("image_enc", TIMED_BATCH, "bfloat16")],
+                    _bound(*_stack_work(TIMED_BATCH, IMAGE_ENC, heads=2), "bfloat16"),
+                    ("image_enc", TIMED_BATCH, "bfloat16")),
+        "dec_fwd": (times[("trajectory_dec", TIMED_BATCH, "bfloat16")],
+                    _bound(*_stack_work(TIMED_BATCH, TRAJ_DEC, heads=1), "bfloat16"),
+                    ("trajectory_dec", TIMED_BATCH, "bfloat16")),
+        "mega_fwd": (train_times[("mega_fwd", big, "bfloat16")],
+                     _bound(*_mega_fwd_work(big), "bfloat16"),
+                     ("mega_fwd", "image", big, "bfloat16")),
         "mega_dec_loss_bwd": (train_times[("mega_dec_loss_bwd", big, "bfloat16")],
                               _bound(*dec_bwd_work, "bfloat16"),
                               ("mega_dec_loss_bwd", "image", big, "bfloat16")),
@@ -1814,11 +1871,16 @@ def main() -> int:
         t = timed["device"].get(which)
         return t if t is not None else timed["call"].get(which)
 
+    def events(timed):
+        """Phase 5b's (kernel, plain) CUDA events as a timed case."""
+        if isinstance(timed, tuple):
+            return {"call": dict(zip(("kernel", "plain"), timed)), "device": {}}
+        return timed
+
     kernels = []
     for name, src, replaces, counts, err_key, timed, (bound_ms, bound_by) in rows:
         errs_of = errs if name in ("enc_fwd", "dec_fwd") else train_errs
-        if isinstance(timed, tuple):  # phase 5b: CUDA events (kernel, plain)
-            timed = {"call": dict(zip(("kernel", "plain"), timed)), "device": {}}
+        timed = events(timed)
         row = {
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
             "launches": counts[name], "max_abs_err": errs_of[err_key],
@@ -1832,7 +1894,8 @@ def main() -> int:
             row["nodx_bound_ms"] = _bound(*nodx_work[name])[0]
         if name in bf16:
             t16, (b16_ms, b16_by), key16 = bf16[name]
-            row["bf16"] = {"max_abs_err": train_errs[key16], "ms": ms(t16, "kernel"),
+            t16 = events(t16)
+            row["bf16"] = {"max_abs_err": errs_of[key16], "ms": ms(t16, "kernel"),
                            "plain_ms": ms(t16, "plain"), "bound_ms": b16_ms,
                            "bound_by": b16_by, "library_ms": ms(t16, "library")}
             for which in ("alone", "nodx"):

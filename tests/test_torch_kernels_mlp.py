@@ -114,22 +114,47 @@ def test_missing_nvcc_raises(monkeypatch):
         _build.find_nvcc()
 
 
-@pytest.mark.parametrize("n_in,hidden,batch,want", [
-    (784, [500, 500], 4096, (32, 784)),   # 2*32*784*4 B = 200,704 B fits
-    (784, [500, 500], 1024, (8, 784)),    # 128 blocks over 132 SMs
-    (784, [500, 500], 1, (1, 784)),
-    (20, [500, 500], 64, (1, 500)),
-    (794, [500], 4096, (32, 796)),        # stride padded to a multiple of 4
-    (4000, [500], 4096, (4, 4000)),       # the tile shrinks with the width
-    (20, [29056], 4096, (1, 29056)),      # the widest a one-row tile holds
+def _fwd_ring(rows, bf16):
+    # csrc/mlp_fwd.cu's stack_fwd_smem: three stages, each a kd × 128 slice
+    # of W as stored (rows of 132) and a rows × kd slice of the streamed A
+    # (rows of kd + 4), kd = 32 at 64 rows and 64 below; bf16 also two
+    # rounded slices (rows of 136 and kd + 8).
+    kd = 32 if rows == 64 else 64
+    return 4 * 3 * (kd * 132 + rows * (kd + 4)) + (
+        2 * 2 * (kd * 136 + rows * (kd + 8)) if bf16 else 0)
+
+
+ENC_WIDTHS, DEC_WIDTHS = (500, 500, 20, 20), (500, 500, 784)  # the image tower's products
+
+
+@pytest.mark.parametrize("widths,batch,cd,rows,parts", [
+    (ENC_WIDTHS, 16384, "float32", 64, 1), (ENC_WIDTHS, 16384, "bfloat16", 64, 1),
+    (ENC_WIDTHS, 4225, "float32", 64, 1),     # past 32 rows × 132 SMs
+    (ENC_WIDTHS, 4224, "bfloat16", 32, 1), (ENC_WIDTHS, 2113, "float32", 32, 1),
+    (ENC_WIDTHS, 2112, "bfloat16", 16, 1),    # 132 tiles of 16 rows fill the SMs
+    (ENC_WIDTHS, 1056, "float32", 16, 2),     # 66 tiles: two blocks share each
+    (ENC_WIDTHS, 257, "bfloat16", 16, 2),     # 17 tiles: 4 blocks each would pass 66
+    (ENC_WIDTHS, 256, "float32", 16, 4),      # 500 wide: 4 column tiles at most
+    (ENC_WIDTHS, 1, "bfloat16", 16, 4),
+    (DEC_WIDTHS, 128, "float32", 16, 8),      # 784 wide: 7 column tiles, 8 blocks
+    (DEC_WIDTHS, 256, "bfloat16", 16, 4),     # 16 tiles of 8 blocks would pass 66
+    (DEC_WIDTHS, 1, "float32", 16, 8),
 ])
-def test_tile_plan(n_in, hidden, batch, want):
-    assert tmlp.tile_plan(n_in, hidden, batch, n_sm=132) == want
+def test_stack_fwd_plan(widths, batch, cd, rows, parts):
+    # Rows from the batch, shared memory as the .cu computes it, and the
+    # blocks that share a 16-row tile where SMs would idle.
+    assert tmlp.stack_fwd_plan(widths, batch, 132, cd) == (
+        rows, _fwd_ring(rows, cd == "bfloat16"), parts)
+    assert _fwd_ring(rows, True) <= tmlp.SMEM_BYTES
 
 
-def test_tile_plan_raises_past_shared_memory():
-    with pytest.raises(ValueError, match="shared memory"):
-        tmlp.tile_plan(20, [29057], 64, n_sm=132)
+def test_stack_fwd_plan_has_no_width_bound_and_raises_on_an_empty_batch():
+    # A 29057-wide hidden layer made the old per-row plan raise at batch 64;
+    # every operand now streams from device memory, so the width only caps
+    # the blocks a tile (8). An empty batch raises.
+    assert tmlp.stack_fwd_plan((29057, 20, 20), 64, 132) == (16, _fwd_ring(16, False), 8)
+    with pytest.raises(ValueError, match="at least one row"):
+        tmlp.stack_fwd_plan(ENC_WIDTHS, 0, 132)
 
 
 def test_layer_table_rows_and_cache():

@@ -388,16 +388,23 @@ def test_unflatten_grads_mirrors_the_module_tree():
     assert len(flat) == 14
 
 
-@pytest.mark.parametrize("dims,batch,want", [
-    ((784, 500, 500, 20, 0, 500, 500, 784), 16384, (32, 784)),
-    ((794, 500, 500, 20, 10, 500, 500, 784), 16384, (32, 796)),
-    ((784, 500, 500, 20, 0, 500, 500, 784), 1024, (8, 784)),
-    ((200, 500, 500, 20, 0, 500, 500, 200), 7, (1, 500)),
+IMAGE_DIMS = (784, 500, 500, 20, 0, 500, 500, 784)
+
+
+@pytest.mark.parametrize("dims,batch,cd,rows,parts", [
+    (IMAGE_DIMS, 16384, "float32", 64, 1), (IMAGE_DIMS, 16384, "bfloat16", 64, 1),
+    ((794, 500, 500, 20, 10, 500, 500, 784), 4096, "bfloat16", 32, 1),
+    (IMAGE_DIMS, 7, "float32", 16, 8),        # 784 wide: 7 column tiles, 8 blocks
+    ((200, 500, 500, 20, 0, 500, 500, 200), 7, "float32", 16, 4),  # 500 wide: 4
 ])
-def test_forward_tile_plan(dims, batch, want):
-    tile, stride = tmk.fwd_plan(dims, batch, n_sm=132)
-    assert (tile, stride) == want
-    assert tile * 4 * (2 * stride + 2 * dims[3]) <= tmlp.SMEM_BYTES
+def test_forward_plan(dims, batch, cd, rows, parts):
+    # The stack forward's rows and blocks per tile over the tower's
+    # products; shared memory as csrc/mega.cu's fwd_smem: the stack
+    # forward's ring (W as stored, A streamed), then the loss partials, 32
+    # floats a row.
+    ring = tmlp.dense_ring_bytes(rows, False, True, cd == "bfloat16")
+    assert tmk.fwd_plan(dims, batch, 132, cd) == (rows, ring + 4 * 32 * rows, parts)
+    assert ring + 4 * 32 * rows <= tmlp.SMEM_BYTES
 
 
 @pytest.mark.parametrize("batch,cd,rows", [(16384, "float32", 64), (1024, "bfloat16", 16),

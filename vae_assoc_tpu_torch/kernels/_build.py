@@ -133,13 +133,13 @@ def load() -> ctypes.CDLL:
             lib = ctypes.CDLL(str(build()))
             ptr, i32 = ctypes.c_void_p, ctypes.c_int
             lib.vae_mlp_stack_fwd.argtypes = [
-                ptr, i32, i32, ptr, i32, i32, ptr, ptr, i32, i32, i32, ptr,
+                ptr, i32, i32, ptr, i32, i32, ptr, ptr, ptr, i32, i32, i32, i32, i32, ptr,
             ]
             lib.vae_mlp_stack_fwd.restype = i32
             u64 = ctypes.c_ulonglong
             lib.vae_mega_fwd.argtypes = [
                 ptr, i32, ptr, ptr, i32, ptr, u64, ptr, ptr, ptr, ptr, ptr,
-                i32, i32, i32, ptr,
+                ptr, i32, ptr, i32, i32, i32, i32, ptr,
             ]
             lib.vae_mega_dec_loss_bwd.argtypes = [
                 ptr, ptr, ptr, i32, ptr, ptr, ptr, i32, ptr, i32, i32, i32, i32, ptr,

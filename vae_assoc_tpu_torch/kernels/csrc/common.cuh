@@ -1,18 +1,8 @@
-// Device helpers shared by the training kernels (mega.cu, mlp_bwd.cu,
-// sampling.cu, loss.cu, conv.cu), and the host side's once-per-process
-// launch bookkeeping.
-//
-// The building block of mega.cu's forward is one dense layer over a tile of
-// TM rows whose activations sit in shared memory: y[r, j] = act[r, :] .
-// W[:, j] (+ b[j]), handed to an epilogue functor as epi(r, j, y). Weights
-// stream from global memory (L2-resident at these sizes) in coalesced rows
-// of W[k, :], each weight feeding the R rows a thread group owns. This is
-// mlp_fwd.cu's inner loop, with the store replaced by the epilogue. The
-// backward kernels run on dense_tile.cuh's block-tiled product instead.
-//
-// Precision: with BF16, every operand is rounded to bf16 and the product
-// accumulates in fp32; activations are rounded when stored to shared
-// memory, weights as they are loaded (the reference's bf16 policy).
+// Device helpers shared by the kernels (mlp_fwd.cu, mlp_bwd.cu, mega.cu,
+// sampling.cu, loss.cu, conv.cu, conv_mega.cu and dense_tile.cuh): the
+// activations, a fixed-order warp sum, the Philox draw, the tensor-core and
+// cp.async building blocks, and the host side's once-per-process launch
+// bookkeeping.
 
 #pragma once
 
@@ -27,118 +17,12 @@ namespace vae {
 constexpr int kThreads = 256;
 constexpr int kSmemLimit = 232448;  // dynamic shared memory a block may opt into
 
-template <bool BF16>
-__device__ __forceinline__ float operand(float v) {
-  if constexpr (BF16) {
-    return __bfloat162float(__float2bfloat16(v));
-  } else {
-    return v;
-  }
-}
-
 __device__ __forceinline__ float softplus(float a) {
   return fmaxf(a, 0.f) + log1pf(expf(-fabsf(a)));
 }
 
 __device__ __forceinline__ float sigmoid(float a) {
   return 1.f / (1.f + expf(-a));
-}
-
-// acc[r] = sum_k a0[r * stride + k] * W[k * ldw] for the column W points at.
-// a0 + r * stride must be 16-byte aligned (stride a multiple of 4).
-template <int R, bool BF16>
-__device__ __forceinline__ void dot_col(const float* __restrict__ a0,
-                                        int stride,
-                                        const float* __restrict__ wj, int ldw,
-                                        int n_in, float (&acc)[R]) {
-#pragma unroll
-  for (int r = 0; r < R; ++r) acc[r] = 0.f;
-  const int k4 = n_in & ~3;
-  for (int k = 0; k < k4; k += 4) {
-    const float w0 = operand<BF16>(__ldg(wj + (size_t)(k + 0) * ldw));
-    const float w1 = operand<BF16>(__ldg(wj + (size_t)(k + 1) * ldw));
-    const float w2 = operand<BF16>(__ldg(wj + (size_t)(k + 2) * ldw));
-    const float w3 = operand<BF16>(__ldg(wj + (size_t)(k + 3) * ldw));
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const float4 a = *reinterpret_cast<const float4*>(a0 + r * stride + k);
-      acc[r] = fmaf(a.x, w0, acc[r]);
-      acc[r] = fmaf(a.y, w1, acc[r]);
-      acc[r] = fmaf(a.z, w2, acc[r]);
-      acc[r] = fmaf(a.w, w3, acc[r]);
-    }
-  }
-  for (int k = k4; k < n_in; ++k) {
-    const float w = operand<BF16>(__ldg(wj + (size_t)k * ldw));
-#pragma unroll
-    for (int r = 0; r < R; ++r) acc[r] = fmaf(a0[r * stride + k], w, acc[r]);
-  }
-}
-
-// `colthreads` threads walk the columns, `groups` groups split the rows,
-// R rows each.
-template <int R, bool BF16, class Epi>
-__device__ void layer_rows(const float* act, int stride, const float* W,
-                           int ldw, const float* bias, int n_in, int n_out,
-                           int colthreads, int groups, Epi& epi) {
-  const int g = threadIdx.x / colthreads;
-  if (g >= groups) return;
-  const int r0 = g * R;
-  for (int j = threadIdx.x % colthreads; j < n_out; j += colthreads) {
-    float acc[R];
-    dot_col<R, BF16>(act + r0 * stride, stride, W + j, ldw, n_in, acc);
-    const float bj = bias != nullptr ? __ldg(bias + j) : 0.f;
-#pragma unroll
-    for (int r = 0; r < R; ++r) epi(r0 + r, j, acc[r] + bj);
-  }
-}
-
-// One layer over the block's TM rows: act [TM, stride] in shared memory
-// times W [n_in, n_out] (row stride ldw) plus bias (or none). Narrow layers
-// (the n_z-wide heads) split the rows between thread groups instead of
-// leaving most threads idle.
-template <int TM, bool BF16, class Epi>
-__device__ void layer(const float* act, int stride, const float* W, int ldw,
-                      const float* bias, int n_in, int n_out, Epi& epi) {
-  int colthreads = kThreads;
-  while (colthreads > 32 && colthreads / 2 >= n_out) colthreads /= 2;
-  int groups = kThreads / colthreads;
-  if (groups > TM) groups = TM;
-  // groups is a power of two <= min(8, TM), so it divides TM.
-  switch (groups) {
-    case 1:
-      layer_rows<TM, BF16>(act, stride, W, ldw, bias, n_in, n_out, colthreads,
-                           1, epi);
-      break;
-    case 2:
-      if constexpr (TM >= 2)
-        layer_rows<TM / 2, BF16>(act, stride, W, ldw, bias, n_in, n_out,
-                                 colthreads, 2, epi);
-      break;
-    case 4:
-      if constexpr (TM >= 4)
-        layer_rows<TM / 4, BF16>(act, stride, W, ldw, bias, n_in, n_out,
-                                 colthreads, 4, epi);
-      break;
-    default:
-      if constexpr (TM >= 8)
-        layer_rows<TM / 8, BF16>(act, stride, W, ldw, bias, n_in, n_out,
-                                 colthreads, 8, epi);
-      break;
-  }
-}
-
-// Load rows [row0, row0 + TM) of src [batch, n] (row stride ld) into
-// dst [TM, stride], rounded as matmul operands; rows past `valid` are zero.
-template <int TM, bool BF16>
-__device__ void load_tile(float* dst, int stride, const float* __restrict__ src,
-                          int ld, int n, int row0, int valid) {
-  for (int i = threadIdx.x; i < TM * n; i += kThreads) {
-    const int r = i / n;
-    const int k = i - r * n;
-    dst[r * stride + k] =
-        r < valid ? operand<BF16>(src[(size_t)(row0 + r) * ld + k]) : 0.f;
-  }
 }
 
 // Sum of f(0) .. f(n - 1) by one warp in a fixed order: each lane adds its
@@ -152,11 +36,6 @@ __device__ __forceinline__ float warp_sum_of(int n, F f) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
   return s;
-}
-
-// Sum of v[0..n) by one warp (warp_sum_of over the array).
-__device__ __forceinline__ float warp_sum(const float* v, int n) {
-  return warp_sum_of(n, [&](int j) { return v[j]; });
 }
 
 // Philox4x32-10 (Salmon et al., SC'11) keyed by the 64-bit seed, counter
@@ -184,13 +63,6 @@ __device__ __forceinline__ float philox_normal(uint64_t seed, uint32_t row,
   const float u1 = (float)(c0 >> 8) * (1.f / 16777216.f) + 1e-7f;
   const float u2 = (float)(c1 >> 8) * (1.f / 16777216.f);
   return sqrtf(-2.f * logf(u1)) * cosf(6.283185307179586f * u2);
-}
-
-template <class Kernel>
-cudaError_t set_smem(Kernel kernel, size_t smem) {
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)smem);
 }
 
 // Host bookkeeping of a kernel, done once per (device, kernel) and process
@@ -341,15 +213,3 @@ __device__ __forceinline__ uint2 pack_bf16x4(float4 v) {
 }
 
 }  // namespace vae
-
-// Switch over the tile heights a kernel is built for; `CALL(TM)` launches.
-#define VAE_TM_SWITCH(tile_rows, CALL)     \
-  switch (tile_rows) {                     \
-    case 1: return CALL(1);                \
-    case 2: return CALL(2);                \
-    case 4: return CALL(4);                \
-    case 8: return CALL(8);                \
-    case 16: return CALL(16);              \
-    case 32: return CALL(32);              \
-    default: return cudaErrorInvalidValue; \
-  }

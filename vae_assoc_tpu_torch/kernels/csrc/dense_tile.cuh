@@ -1,8 +1,11 @@
-// The block-tiled dense product of the megakernels (conv_mega.cu's conv_enc
-// and conv_dec, mega.cu's mega_dec_loss_bwd, mlp_bwd.cu's stack_bwd):
+// The block-tiled dense product of the megakernels and the stacks
+// (conv_mega.cu's conv_enc and conv_dec, mega.cu's mega_fwd and
+// mega_dec_loss_bwd, mlp_fwd.cu's mlp_stack_fwd, mlp_bwd.cu's stack_bwd):
 // y = A . B over the TM rows a block owns (TM = 16, 32 or 64, multiples of
 // the mma m16), handed to an epilogue functor as epi(row, column, y) for
-// columns < N.
+// columns < N; and softplus_stack, the forward of a softplus stack over
+// the block's rows on that product (the forward kernels' hidden layers and
+// the backward kernels' rematerialized forward).
 //
 // What bounds it. The weights (up to 6.27 MB) stream from L2, so the weight
 // bytes read per row are what a row tile saves: every weight byte a block
@@ -10,7 +13,8 @@
 // tiles, conflict-free 16-byte shared loads). bf16: mma.sync.m16n8k16 fed
 // by ldmatrix finishes a slice long before the next arrives, so the weight
 // slices each block streams from L2 bound it; where a small batch leaves
-// SMs idle, blocks that share rows split the column tiles (mega.cu).
+// SMs idle, blocks that share rows (a cluster) split the column tiles
+// (kernels/mlp.py::dense_parts).
 //
 // - Tiles of TM rows x 128 columns, in order; each over slices of KD k
 //   (dense_kd), streamed through a ring of 3 shared-memory stages by
@@ -97,6 +101,20 @@ struct DenseAcc<TM, true> {
   static constexpr int NT = kDN / WN / 8;      // 8-column mma tiles per warp
   float v[MT][NT][4];
 };
+
+// This thread's index among the threads whose epilogue calls see a given
+// row, the same for every row it sees (< 32; fewer threads share a row in
+// bf16 at 64 rows): fp32 its column group cg, bf16 4 wn + lane % 4. A sum
+// over a row's columns (mega_fwd's loss) keeps one partial per (row, peer)
+// and adds them in peer order: one order, the same bits on every call.
+template <int TM, bool BF16>
+__device__ __forceinline__ int dense_row_peer() {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if constexpr (BF16)
+    return 4 * (warp % DenseAcc<TM, true>::WN) + (lane & 3);
+  else
+    return 4 * warp + (lane >> 3);
+}
 
 // softplus'(pre) = sigmoid(pre) from the post-activation g = softplus(pre):
 // 1 - e^{-g}, as -expm1(-g) (exact where g is small). The backward kernels
@@ -302,6 +320,39 @@ __device__ void dense_rows(const float* a, const __nv_bfloat16* ah, int lda, int
   }
   vae::cp_async_wait<0>();
   __syncthreads();
+}
+
+// Where a softplus layer's output goes: W [k, n] (row-major), b [n], and
+// the block's first row of the output (row stride ld).
+struct StackLayer {
+  const float* w;
+  const float* b;
+  float* out;
+  int n;
+  int ld;
+};
+
+// The forward of a softplus stack over the block's rows: h_{i+1} =
+// softplus(h_i W_i + b_i) for i < n_layers, h_0 = a (the block's first
+// row, row stride lda, k wide), layer(i) giving layer i's StackLayer. Each
+// product streams its A from what the last one wrote (or from a); blocks
+// that share the rows meet at a cluster barrier before each layer but the
+// first (a caller whose a another part wrote meets them before the call).
+template <int TM, bool BF16, class Layers>
+__device__ void softplus_stack(const float* a, int lda, int k, int n_layers, Layers layer,
+                               int rows, float* ring, int part, int parts) {
+  for (int i = 0; i < n_layers; ++i) {
+    const StackLayer L = layer(i);
+    auto epi = [&](int r, int j, float y) {
+      if (r < rows) L.out[(size_t)r * L.ld + j] = vae::softplus(y + __ldg(L.b + j));
+    };
+    if (i > 0 && parts > 1) cluster_sync();
+    dense_rows<TM, BF16, false, true>(a, nullptr, lda, rows, L.w, k, L.n, ring, epi, part,
+                                      parts);
+    a = L.out;
+    lda = L.ld;
+    k = L.n;
+  }
 }
 
 }  // namespace

@@ -7,8 +7,8 @@
 //   x -> h1 -> h2 -> (mu, logvar) -> eps -> z = mu + exp(logvar / 2) eps
 //   -> [z, cond] -> g1 -> g2 -> r -> recon (Bernoulli logit CE or Gaussian
 //   SSE against the data columns of x) and the closed-form KL.
-// Only x is read and mu, logvar, eps, recon and kl are written; every
-// hidden activation and the decoder output r stay in shared memory.
+// It reads x (and an injected eps) and writes mu, logvar, eps, recon and
+// kl; the hidden activations go to a workspace, and r is never stored.
 //
 // mega_dec_loss_bwd is the per-row half of
 // vae_assoc_tpu/kernels/megakernel.py::_dec_loss_bwd_kernel: it
@@ -24,28 +24,37 @@
 // images) through device memory.
 //
 // What bounds them on this card. Per row the image tower does about 1.3 M
-// FMAs each way against 3 KB of input, so the work is arithmetic on weights
-// streamed from L2 (2.6 MB per net fits the 50 MB L2), and the rows that
-// share each weight byte read are what a tile saves.
-// - mega_fwd is mlp_fwd.cu's design: TM rows per block, their activations in
-//   shared memory, TM chosen by the wrapper (kernels/megakernel.py) from the
-//   per-row shared-memory need and the batch.
-// - mega_dec_loss_bwd runs its five products (the decoder [z, cond] -> g1 ->
-//   g2, r with dL/dr formed in the epilogue, then dr Do^T, db2d D2^T and
-//   db1d D1^T) through dense_tile.cuh's block-tiled product over TM = 16,
-//   32 or 64 rows (from the batch): each weight byte a block reads serves
-//   all its rows, fp32 on 4 x 8 register tiles, bf16 on mma.sync. Every
-//   intermediate is a scratch output anyway; each goes to device memory and
-//   streams back as the next product's A, so nothing per row lives in
-//   shared memory and the widths do not bound the tile. The transposed
-//   products read D1, D2 and Do as the forward does (no transposed copies),
-//   and sigmoid(pre) comes from the saved g as -expm1(-g), so no sigmoid
-//   buffer is kept.
+// multiply-adds each way against 3 KB of input, so the work is arithmetic
+// on weights streamed from L2 (2.6 MB per net fits the 50 MB L2), and the
+// rows that share each weight byte read are what a tile saves; in bf16 the
+// tensor cores finish a slice long before the next arrives, so each block
+// streaming its weight slices from L2 bounds them.
+//
+// Both run their products through dense_tile.cuh's block-tiled product
+// over TM = 16, 32 or 64 rows (from the batch): each weight byte a block
+// reads serves all its rows, fp32 on register tiles, bf16 on mma.sync.
+// Each product's output goes to device memory and streams back as the
+// next one's A, so nothing per row lives in shared memory and the widths
+// do not bound the tile. Where 16-row tiles leave SMs idle, blocks (a
+// cluster) share each tile, each taking every parts-th column tile, with a
+// cluster barrier between products.
+// - mega_fwd's seven products: the encoder stack (softplus_stack: x W1,
+//   h1 W2), the two heads (two N = n_z products, so the thread that wrote
+//   mu[r, j] computes logvar[r, j] and, in the same epilogue, eps and z into
+//   the decoder input), the decoder stack, and the output product, whose
+//   epilogue forms each element's loss and adds it to the thread's partial
+//   for that row in shared memory. The partials are added in a fixed
+//   order, and the parts' sums in part order, so a second call gives the
+//   same bits. KL: one warp per row over the saved mu and logvar.
+// - mega_dec_loss_bwd's five: the decoder [z, cond] -> g1 -> g2, r with
+//   dL/dr formed in the epilogue, then dr Do^T, db2d D2^T and db1d D1^T.
+//   The transposed products read D1, D2 and Do as the forward does (no
+//   transposed copies), and sigmoid(pre) comes from the saved g as
+//   -expm1(-g), so no sigmoid buffer is kept.
 //
 // eps: seeded draws come from a counter-based Philox keyed by the seed and
 // indexed by (row, column), so a draw does not depend on TM (the TPU kernel
 // hashes its tile index into the seed instead); or eps is injected.
-// Tensor cores (wgmma), TMA and a persistent schedule are later work.
 
 #include "common.cuh"
 #include "dense_tile.cuh"
@@ -63,117 +72,147 @@ struct FwdDims {
   int h1e, h2e, n_z, n_cond, h1d, h2d, n_x;
 };
 
+// Shared memory of the forward (kernels/megakernel.py::fwd_plan): the ring
+// of its one product mode, W as stored with A streamed, then the loss
+// partials [TM][32].
+__host__ __device__ constexpr int fwd_ring(int tm, bool bf16) {
+  return dense_ring_bytes(tm, false, true, bf16);
+}
+__host__ __device__ constexpr int fwd_smem(int tm, bool bf16) {
+  return fwd_ring(tm, bf16) + 4 * 32 * tm;
+}
+
+// `parts` blocks (a cluster, consecutive in x) own TM rows and run the
+// seven products in turn (dense_tile.cuh), each taking every parts-th
+// column tile, each A streamed back from what these blocks wrote before the
+// barrier that ends the last product. ws: two buffers [batch, ldh]; rows
+// of h1, then the decoder input [z, cond] and g2 go to the first, h2 and g1
+// to the second. rec_parts [parts - 1, batch]: the loss sums of parts 1 ...,
+// which part 0 adds to its own in part order. At 64 rows two blocks share
+// an SM (at most 128 registers a thread).
 template <int TM, bool BF16>
-__global__ void __launch_bounds__(kThreads)
-    mega_fwd(const float* __restrict__ x, int batch, FwdWeights wt,
-             FwdDims d, int bernoulli, const float* __restrict__ eps_in,
-             unsigned long long seed, float* __restrict__ mu_out,
-             float* __restrict__ lv_out, float* __restrict__ eps_out,
-             float* __restrict__ rec_out, float* __restrict__ kl_out,
-             int stride) {
-  extern __shared__ __align__(16) float smem[];
-  float* bufA = smem;
-  float* bufB = smem + TM * stride;
-  float* mu_s = smem + 2 * TM * stride;
-  float* lv_s = mu_s + TM * d.n_z;
-  const int row0 = blockIdx.x * TM;
+__global__ void __launch_bounds__(kThreads, TM == 64 ? 2 : 1)
+    mega_fwd(const float* __restrict__ x, int batch, FwdWeights wt, FwdDims d, int bernoulli,
+             const float* __restrict__ eps_in, unsigned long long seed,
+             float* __restrict__ mu_out, float* __restrict__ lv_out,
+             float* __restrict__ eps_out, float* __restrict__ rec_out,
+             float* __restrict__ kl_out, float* ws, int ldh, float* rec_parts, int parts) {
+  extern __shared__ __align__(16) float ring[];
+  float* red = ring + fwd_ring(TM, BF16) / 4;  // [TM][32] loss partials per (row, peer)
+  const int part = blockIdx.x % parts;
+  const int row0 = blockIdx.x / parts * TM;
   const int valid = min(TM, batch - row0);
-  const int nz = d.n_z;
-
-  vae::load_tile<TM, BF16>(bufA, stride, x, d.n_in, d.n_in, row0, valid);
-  __syncthreads();
-
-  auto hidden_to = [&](float* out) {
-    return [=](int r, int j, float y) {
-      out[r * stride + j] = vae::operand<BF16>(vae::softplus(y));
-    };
+  auto shared_rows = [&]() {  // the other parts' writes of the last product
+    if (parts > 1) cluster_sync();
   };
-  auto h1 = hidden_to(bufB);
-  vae::layer<TM, BF16>(bufA, stride, wt.p[0], d.h1e, wt.p[1], d.n_in, d.h1e,
-                       h1);
-  __syncthreads();
-  auto h2 = hidden_to(bufA);
-  vae::layer<TM, BF16>(bufB, stride, wt.p[2], d.h2e, wt.p[3], d.h1e, d.h2e,
-                       h2);
-  __syncthreads();
+  const int nz = d.n_z, nzc = d.n_z + d.n_cond, n_x = d.n_x;
+  const float* xb = x + (size_t)row0 * d.n_in;
+  float* buf0 = ws + (size_t)row0 * ldh;
+  float* buf1 = ws + (size_t)batch * ldh + (size_t)row0 * ldh;
+  for (int i = threadIdx.x; i < TM * 32; i += kThreads) red[i] = 0.f;
+
+  // The encoder: h1 = softplus(x W1 + b1) in buf0, h2 in buf1.
+  softplus_stack<TM, BF16>(
+      xb, d.n_in, d.n_in, 2,
+      [&](int i) {
+        return i == 0 ? StackLayer{wt.p[0], wt.p[1], buf0, d.h1e, ldh}
+                      : StackLayer{wt.p[2], wt.p[3], buf1, d.h2e, ldh};
+      },
+      valid, ring, part, parts);
+  shared_rows();
+  // Every part is past h2's product, so h1's buffer takes the decoder
+  // input: the cond columns now, z in logvar's epilogue.
+  for (int i = threadIdx.x; part == 0 && i < valid * d.n_cond; i += kThreads) {
+    const int r = i / d.n_cond, c = i - r * d.n_cond;
+    buf0[(size_t)r * ldh + nz + c] = xb[(size_t)r * d.n_in + n_x + c];
+  }
+  // The heads: two N = n_z products, so the thread that wrote mu[r, j]
+  // computes logvar[r, j], then eps, z = mu + exp(logvar / 2) eps.
+  float* mu = mu_out + (size_t)row0 * nz;
+  float* lv = lv_out + (size_t)row0 * nz;
   auto head_mu = [&](int r, int j, float y) {
-    mu_s[r * nz + j] = y;
-    if (r < valid) mu_out[(size_t)(row0 + r) * nz + j] = y;
+    if (r < valid) mu[(size_t)r * nz + j] = y + __ldg(wt.p[5] + j);
   };
-  vae::layer<TM, BF16>(bufA, stride, wt.p[4], nz, wt.p[5], d.h2e, nz,
-                       head_mu);
+  dense_rows<TM, BF16, false, true>(buf1, nullptr, ldh, valid, wt.p[4], d.h2e, nz, ring,
+                                    head_mu, part, parts);
   auto head_lv = [&](int r, int j, float y) {
-    lv_s[r * nz + j] = y;
-    if (r < valid) lv_out[(size_t)(row0 + r) * nz + j] = y;
-  };
-  vae::layer<TM, BF16>(bufA, stride, wt.p[6], nz, wt.p[7], d.h2e, nz,
-                       head_lv);
-  __syncthreads();
-
-  // eps, z and the decoder input [z, cond] in bufB; KL per row.
-  for (int i = threadIdx.x; i < TM * nz; i += kThreads) {
-    const int r = i / nz;
-    const int j = i - r * nz;
-    float e = 0.f;
     if (r < valid) {
-      e = eps_in != nullptr ? eps_in[(size_t)(row0 + r) * nz + j]
-                            : vae::philox_normal(seed, row0 + r, j);
-      eps_out[(size_t)(row0 + r) * nz + j] = e;
+      const size_t at = (size_t)r * nz + j;
+      const float l = y + __ldg(wt.p[7] + j);
+      lv[at] = l;
+      const size_t g = (size_t)row0 * nz + at;
+      const float e = eps_in != nullptr ? eps_in[g] : vae::philox_normal(seed, row0 + r, j);
+      eps_out[g] = e;
+      buf0[(size_t)r * ldh + j] = mu[at] + expf(0.5f * l) * e;
     }
-    const float z = mu_s[i] + expf(0.5f * lv_s[i]) * e;
-    bufB[r * stride + j] = vae::operand<BF16>(z);
-  }
-  const int n_x = d.n_x;
-  for (int i = threadIdx.x; i < TM * d.n_cond; i += kThreads) {
-    const int r = i / d.n_cond;
-    const int c = i - r * d.n_cond;
-    bufB[r * stride + nz + c] =
-        r < valid ? vae::operand<BF16>(x[(size_t)(row0 + r) * d.n_in + n_x + c])
-                  : 0.f;
-  }
-  const int warp = threadIdx.x >> 5;
-  for (int r = warp; r < valid; r += kThreads / 32) {
-    const int lane = threadIdx.x & 31;
-    float s = 0.f;
-    for (int j = lane; j < nz; j += 32) {
-      const float m = mu_s[r * nz + j], l = lv_s[r * nz + j];
-      s += 1.f + l - m * m - expf(l);
-    }
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+  };
+  dense_rows<TM, BF16, false, true>(buf1, nullptr, ldh, valid, wt.p[6], d.h2e, nz, ring,
+                                    head_lv, part, parts);
+  shared_rows();
+  // KL per row, one warp a row in a fixed order.
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int r = warp; part == 0 && r < valid; r += kThreads / 32) {
+    const float s = vae::warp_sum_of(nz, [&](int j) {
+      const float m = mu[(size_t)r * nz + j], l = lv[(size_t)r * nz + j];
+      return 1.f + l - m * m - expf(l);
+    });
     if (lane == 0) kl_out[row0 + r] = -0.5f * s;
   }
-  __syncthreads();
 
-  auto g1 = hidden_to(bufA);
-  vae::layer<TM, BF16>(bufB, stride, wt.p[8], d.h1d, wt.p[9], nz + d.n_cond,
-                       d.h1d, g1);
-  __syncthreads();
-  auto g2 = hidden_to(bufB);
-  vae::layer<TM, BF16>(bufA, stride, wt.p[10], d.h2d, wt.p[11], d.h1d, d.h2d,
-                       g2);
-  __syncthreads();
-  // Decoder output: the per-element loss goes to bufA (free now), never r.
+  // The decoder: g1 = softplus([z, cond] D1 + c1) in buf1, g2 in buf0.
+  softplus_stack<TM, BF16>(
+      buf0, ldh, nzc, 2,
+      [&](int i) {
+        return i == 0 ? StackLayer{wt.p[8], wt.p[9], buf1, d.h1d, ldh}
+                      : StackLayer{wt.p[10], wt.p[11], buf0, d.h2d, ldh};
+      },
+      valid, ring, part, parts);
+  shared_rows();
+  // r = g2 Do + co and the per-element loss in the epilogue; r is never
+  // stored. Each thread adds its elements of a row to its own partial.
+  const int peer = dense_row_peer<TM, BF16>();
   auto loss = [&](int r, int j, float y) {
-    float v = 0.f;
     if (r < valid) {
-      const float xv = x[(size_t)(row0 + r) * d.n_in + j];
+      const float v = y + __ldg(wt.p[13] + j);
+      const float xv = __ldg(xb + (size_t)r * d.n_in + j);
+      float e;
       if (bernoulli) {
-        v = fmaxf(y, 0.f) - y * xv + log1pf(expf(-fabsf(y)));
+        e = fmaxf(v, 0.f) - v * xv + log1pf(expf(-fabsf(v)));
       } else {
-        const float t = xv - y;
-        v = t * t;
+        const float t = xv - v;
+        e = t * t;
       }
+      red[r * 32 + peer] += e;
     }
-    bufA[r * stride + j] = v;
   };
-  vae::layer<TM, BF16>(bufB, stride, wt.p[12], n_x, wt.p[13], d.h2d, n_x,
-                       loss);
-  __syncthreads();
+  dense_rows<TM, BF16, false, true>(buf0, nullptr, ldh, valid, wt.p[12], d.h2d, n_x, ring,
+                                    loss, part, parts);
+  // Each part's sum per row over its column tiles, peers in order; then
+  // part 0 adds the others' in part order.
   for (int r = warp; r < valid; r += kThreads / 32) {
-    const float s = vae::warp_sum(bufA + r * stride, n_x);
-    if ((threadIdx.x & 31) == 0) rec_out[row0 + r] = s;
+    const float s = vae::warp_sum_of(32, [&](int c) { return red[r * 32 + c]; });
+    if (lane == 0) {
+      if (part == 0)
+        rec_out[row0 + r] = s;
+      else
+        rec_parts[(size_t)(part - 1) * batch + row0 + r] = s;
+    }
   }
+  if (parts > 1) {
+    cluster_sync();
+    for (int r = threadIdx.x; part == 0 && r < valid; r += kThreads) {
+      float s = rec_out[row0 + r];
+      for (int p = 1; p < parts; ++p) s += rec_parts[(size_t)(p - 1) * batch + row0 + r];
+      rec_out[row0 + r] = s;
+    }
+  }
+}
+
+template <bool BF16>
+const void* fwd_kernel(int tm) {
+  return tm == 16   ? (const void*)mega_fwd<16, BF16>
+         : tm == 32 ? (const void*)mega_fwd<32, BF16>
+                    : (const void*)mega_fwd<64, BF16>;
 }
 
 struct BwdWeights {
@@ -240,17 +279,13 @@ __global__ void __launch_bounds__(kThreads, TM == 64 ? 2 : 1)
   __syncthreads();
   shared_rows();
   // The rematerialized decoder: g1 = softplus([z, cond] D1 + c1), g2.
-  auto e1 = [&](int r, int j, float y) {
-    if (r < valid) g1[(size_t)r * h1d + j] = vae::softplus(y + __ldg(wt.c1 + j));
-  };
-  dense_rows<TM, BF16, false, true>(zin, nullptr, nzc, valid, wt.d1, nzc, h1d, ring,
-                                    e1, part, parts);
-  shared_rows();
-  auto e2 = [&](int r, int j, float y) {
-    if (r < valid) g2[(size_t)r * h2d + j] = vae::softplus(y + __ldg(wt.c2 + j));
-  };
-  dense_rows<TM, BF16, false, true>(g1, nullptr, h1d, valid, wt.d2, h1d, h2d, ring,
-                                    e2, part, parts);
+  softplus_stack<TM, BF16>(
+      zin, nzc, nzc, 2,
+      [&](int i) {
+        return i == 0 ? StackLayer{wt.d1, wt.c1, g1, h1d, h1d}
+                      : StackLayer{wt.d2, wt.c2, g2, h2d, h2d};
+      },
+      valid, ring, part, parts);
   shared_rows();
   // r = g2 Do + co, and dL/dr in the epilogue; r itself is never stored.
   auto edr = [&](int r, int j, float y) {
@@ -298,19 +333,34 @@ const void* bwd_kernel(int tm) {
 // `weights` holds the 14 device pointers in the order of FwdWeights, `dims`
 // the eight widths of FwdDims. eps_in [batch, n_z] injects eps; when it is
 // null, eps is drawn from `seed`. Outputs: mu, lv, eps_out [batch, n_z],
-// rec, kl [batch]. `stride` is the shared-memory row length (a multiple of
-// 4, at least every on-chip width); `tile_rows` is TM. Launches on `stream`
-// without synchronising and returns cudaGetLastError().
+// rec, kl [batch]. ws: the workspace, two buffers [batch, ldh], ldh a
+// multiple of 4 and at least every hidden width and n_z + n_cond;
+// rec_parts: (parts - 1) * batch floats (null for one part). `tile_rows`
+// (16, 32 or 64), `smem` and `parts` (1, 2, 4 or 8 blocks, a cluster, per
+// row tile) are kernels/megakernel.py::fwd_plan's. Launches on `stream`
+// without synchronising and returns the launch's CUDA error.
 extern "C" int vae_mega_fwd(const void* x, int batch, const void* const* weights,
                             const int* dims, int bernoulli, const void* eps_in,
                             unsigned long long seed, void* mu, void* lv,
-                            void* eps_out, void* rec, void* kl, int stride,
-                            int tile_rows, int bf16, void* stream) {
-  if (batch <= 0 || stride % 4 != 0) return (int)cudaErrorInvalidValue;
+                            void* eps_out, void* rec, void* kl, void* ws, int ldh,
+                            void* rec_parts, int tile_rows, int smem, int parts, int bf16,
+                            void* stream) {
+  FwdDims d{dims[0], dims[1], dims[2], dims[3], dims[4], dims[5], dims[6], dims[7]};
+  if (batch <= 0 || d.n_z <= 0 || d.n_cond < 0 || d.h1e <= 0 || d.h2e <= 0 || d.h1d <= 0 ||
+      d.h2d <= 0 || d.n_x <= 0 || d.n_in != d.n_x + d.n_cond || ws == nullptr ||
+      ldh % 4 != 0 || ldh < d.h1e || ldh < d.h2e || ldh < d.h1d || ldh < d.h2d ||
+      ldh < d.n_z + d.n_cond ||
+      (tile_rows != 16 && tile_rows != 32 && tile_rows != 64) ||
+      (parts != 1 && parts != 2 && parts != 4 && parts != 8) ||
+      (parts > 1) != (rec_parts != nullptr) ||
+      smem != fwd_smem(tile_rows, bf16 != 0) || smem > vae::kSmemLimit)
+    return (int)cudaErrorInvalidValue;
   FwdWeights wt;
   for (int i = 0; i < 14; ++i) wt.p[i] = static_cast<const float*>(weights[i]);
-  const FwdDims d{dims[0], dims[1], dims[2], dims[3],
-                  dims[4], dims[5], dims[6], dims[7]};
+  const void* fn = bf16 ? fwd_kernel<true>(tile_rows) : fwd_kernel<false>(tile_rows);
+  int per_sm = 0;
+  cudaError_t e = vae::launch_info(fn, smem, &per_sm);
+  if (e != cudaSuccess) return (int)e;
   const auto* xs = static_cast<const float*>(x);
   const auto* ein = static_cast<const float*>(eps_in);
   auto* o_mu = static_cast<float*>(mu);
@@ -318,22 +368,25 @@ extern "C" int vae_mega_fwd(const void* x, int batch, const void* const* weights
   auto* o_eps = static_cast<float*>(eps_out);
   auto* o_rec = static_cast<float*>(rec);
   auto* o_kl = static_cast<float*>(kl);
-  auto st = static_cast<cudaStream_t>(stream);
-  const size_t per_tile = 2 * (size_t)stride + 2 * (size_t)d.n_z;
-#define VAE_FWD(TM)                                                          \
-  [&]() -> cudaError_t {                                                     \
-    auto k = bf16 ? mega_fwd<TM, true> : mega_fwd<TM, false>;                \
-    const size_t smem = (size_t)TM * per_tile * sizeof(float);               \
-    cudaError_t e = vae::set_smem(k, smem);                                  \
-    if (e != cudaSuccess) return e;                                          \
-    k<<<(batch + TM - 1) / TM, kThreads, smem, st>>>(                        \
-        xs, batch, wt, d, bernoulli, ein, seed, o_mu, o_lv, o_eps, o_rec,    \
-        o_kl, stride);                                                       \
-    return cudaGetLastError();                                               \
-  }()
-  auto run = [&]() -> cudaError_t { VAE_TM_SWITCH(tile_rows, VAE_FWD) };
-#undef VAE_FWD
-  return (int)run();
+  auto* w = static_cast<float*>(ws);
+  auto* rp = static_cast<float*>(rec_parts);
+  void* args[] = {&xs, &batch, &wt, &d, &bernoulli, &ein, &seed, &o_mu,
+                  &o_lv, &o_eps, &o_rec, &o_kl, &w, &ldh, &rp, &parts};
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((batch + tile_rows - 1) / tile_rows * parts);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute cluster;
+  cluster.id = cudaLaunchAttributeClusterDimension;
+  cluster.val.clusterDim.x = parts;
+  cluster.val.clusterDim.y = 1;
+  cluster.val.clusterDim.z = 1;
+  cfg.attrs = &cluster;
+  cfg.numAttrs = parts > 1 ? 1 : 0;
+  e = cudaLaunchKernelExC(&cfg, fn, args);
+  const cudaError_t last = cudaGetLastError();  // clears a refused launch
+  return (int)(e != cudaSuccess ? e : last);
 }
 
 // Per-row half of the decoder+loss backward. x [batch, n_in] (cond columns

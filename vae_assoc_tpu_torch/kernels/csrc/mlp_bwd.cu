@@ -112,20 +112,13 @@ __global__ void __launch_bounds__(kThreads, TM == 64 ? 2 : 1)
   };
 
   // The rematerialized forward: h_{i+1} = softplus(h_i W_i + b_i), h_0 = x.
-  const float* a = x + (size_t)row0 * n_in;
-  int k = n_in;
-  for (int i = 0; i < n_hidden; ++i) {
-    const EncLayer& L = t.l[i];
-    float* act = L.act + (size_t)row0 * L.n_out;
-    auto fwd = [&](int r, int j, float y) {
-      if (r < valid) act[(size_t)r * L.n_out + j] = vae::softplus(y + __ldg(L.b + j));
-    };
-    if (i > 0) shared_rows();
-    dense_rows<TM, BF16, false, true>(a, nullptr, k, valid, L.w, k, L.n_out, ring, fwd,
-                                      part, parts);
-    a = act;
-    k = L.n_out;
-  }
+  softplus_stack<TM, BF16>(
+      x + (size_t)row0 * n_in, n_in, n_in, n_hidden,
+      [&](int i) {
+        const EncLayer& L = t.l[i];
+        return StackLayer{L.w, L.b, L.act + (size_t)row0 * L.n_out, L.n_out, L.n_out};
+      },
+      valid, ring, part, parts);
 
   // A cotangent product: out = A W^T for W [N, K] (plus what out holds,
   // where `add`), times sigmoid(pre) from the saved activation `act` where

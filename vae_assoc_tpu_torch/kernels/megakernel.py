@@ -4,7 +4,7 @@ Counterpart of vae_assoc_tpu/kernels/megakernel.py. ``vae_tower_fused``
 runs one modality's whole depth-2 softplus tower — encoder → ε → z →
 decoder → per-row reconstruction and KL terms — in one forward launch
 (``csrc/mega.cu::mega_fwd``, replacing the Pallas ``_fwd_kernel``); the
-decoder output never leaves the chip. Its backward, a
+decoder output is never stored. Its backward, a
 ``torch.autograd.Function``, runs in three stages as the reference does:
 
 1. the fused decoder+loss backward (``mega_dec_loss_bwd``, replacing the
@@ -13,6 +13,17 @@ decoder output never leaves the chip. Its backward, a
    torch on [B, n_z] (XLA elementwise in the reference);
 3. the encoder-stack backward (kernels/mlp.py::encode_bwd, replacing the
    Pallas ``_enc_bwd_kernel``).
+
+Both kernels of this module run on the block-tiled product
+(``csrc/dense_tile.cuh``) over 16, 32 or 64 rows a block: per row the image
+tower does about 1.3 M multiply-adds each way on weights read from L2, and
+each weight byte a block reads serves all its rows (fp32 on register
+tiles, bf16 on tensor cores). Each product's input streams back from
+device memory (the forward's hidden activations from a workspace the
+wrapper allocates per call), so no width bounds a tile; where a small
+batch leaves SMs idle, blocks that share a row tile split its column
+tiles. The forward's per-row loss is summed in one fixed order, so a
+second call gives the same bits.
 
 The weight grads of stages 1 and 3 are sums over all rows, which the TPU
 kernels accumulate tile after tile; here the per-row kernels write their
@@ -170,14 +181,18 @@ def dec_loss_bwd_mirror(x, z, dec_flat, grec, *, kind, compute_dtype="float32"):
 # ---------------------------------------------------------------------------
 
 
-def fwd_plan(dims, batch: int, n_sm: int):
-    """(tile_rows, stride) for the forward kernel: two ping-pong buffers of
-    ``stride`` floats per row, covering every on-chip width (the decoder
-    output's per-element loss included), plus μ and logσ² rows."""
-    n_in, h1e, h2e, n_z, n_cond, h1d, h2d, n_x = dims
-    stride = kmlp._pad4(max(n_in, h1e, h2e, n_z + n_cond, h1d, h2d, n_x))
-    per_row = 4 * (2 * stride + 2 * n_z)
-    return kmlp.rows_plan(per_row, batch, n_sm, what="tower forward"), stride
+def fwd_plan(dims, batch: int, n_sm: int, compute_dtype="float32"):
+    """(rows per block, dynamic shared memory in bytes, blocks per row tile)
+    for the forward kernel on a tower of ``dims`` (:func:`_dims`);
+    csrc/mega.cu computes the same bytes and refuses a launch that
+    disagrees. Rows and blocks as the stack forward's over the tower's
+    products (:func:`kmlp.stack_fwd_plan`); shared memory: that ring, then
+    the loss partials, 32 floats a row. Every row's operands stream from
+    device memory, so no width bounds the tile. Raises on an empty batch."""
+    _, h1e, h2e, n_z, _, h1d, h2d, n_x = dims
+    rows, ring, parts = kmlp.stack_fwd_plan((h1e, h2e, n_z, h1d, h2d, n_x), batch, n_sm,
+                                            compute_dtype)
+    return rows, ring + 4 * 32 * rows, parts
 
 
 def dec_bwd_plan(batch: int, n_sm: int, compute_dtype="float32"):
@@ -209,7 +224,7 @@ def _check_flat(flat, x):
 def _launch_fwd(flat, x, eps, seed, kind, cd):
     dev = x.device
     dims = _dims(flat, x)
-    batch, n_z = x.shape[0], dims[3]
+    batch, (_, h1e, h2e, n_z, n_cond, h1d, h2d, _) = x.shape[0], dims
     kmlp._check_f32(x, dev, "x")
     _check_flat(flat, x)
     if eps is not None:
@@ -219,13 +234,17 @@ def _launch_fwd(flat, x, eps, seed, kind, cd):
     if batch == 0:
         return outs
     lib = _build.load()
-    n_sm = kmlp.sm_count(dev)
-    tile, stride = fwd_plan(dims, batch, n_sm)
+    rows, smem, parts = fwd_plan(dims, batch, kmlp.sm_count(dev), cd)
+    ldh = kmlp._pad4(max(h1e, h2e, n_z + n_cond, h1d, h2d))
+    ws = torch.empty(2, batch, ldh, dtype=torch.float32, device=dev)
+    rec_parts = (torch.empty(parts - 1, batch, dtype=torch.float32, device=dev)
+                 if parts > 1 else None)
     with torch.cuda.device(dev):
         err = lib.vae_mega_fwd(
             x.data_ptr(), batch, _ptrs(flat), (ctypes.c_int * 8)(*dims),
             int(kind == "bernoulli"), eps.data_ptr() if eps is not None else None,
-            (seed or 0) & _MASK64, *(o.data_ptr() for o in outs), stride, tile,
+            (seed or 0) & _MASK64, *(o.data_ptr() for o in outs), ws.data_ptr(), ldh,
+            rec_parts.data_ptr() if rec_parts is not None else None, rows, smem, parts,
             int(cd == "bfloat16"), kmlp._stream(x),
         )
     _build.check(lib, err, "tower forward kernel launch")

@@ -2,10 +2,18 @@
 
 Counterpart of vae_assoc_tpu/kernels/mlp.py. Each forward wrapper runs a
 whole recognition stack (x → h1 → … → hL → μ, logσ²) or generator stack
-(z → h1 → … → hL → out) in one launch of ``csrc/mlp_fwd.cu``, with the
-hidden activations kept in shared memory. ``encode_mlp_fused`` /
-``decode_mlp_fused`` keep the signatures of ``networks.encode_mlp`` /
-``networks.decode_mlp``; softplus only.
+(z → h1 → … → hL → out) in one launch of ``csrc/mlp_fwd.cu``.
+``encode_mlp_fused`` / ``decode_mlp_fused`` keep the signatures of
+``networks.encode_mlp`` / ``networks.decode_mlp``; softplus only.
+
+The kernels run on one block-tiled product (``csrc/dense_tile.cuh``): a
+block owns 16, 32 or 64 rows and runs the stack's products in turn, each
+weight byte it reads serving all its rows (fp32 on register tiles, bf16
+on tensor cores), each product's input streamed back from device memory:
+the hidden activations go to a workspace that the wrapper allocates per
+call. What bounds them is arithmetic on weights read from L2 (bf16: each
+block streaming its weight slices); where a small batch leaves SMs idle,
+blocks that share a row tile split its column tiles (``dense_parts``).
 
 Both stacks have a gradient: under autograd ``encode_mlp_fused`` and
 ``decode_mlp_fused`` are ``torch.autograd.Function``s whose backward is the
@@ -20,8 +28,7 @@ none.
 Dispatch is by the device of the input, and only by it: a CPU tensor goes
 to the plain twin in this module (the CPU tests' path); a CUDA tensor
 launches the kernel or raises. There is no capacity gate that falls back:
-the forward's tile height adapts down to one row, and a width beyond even
-that raises; no width bounds the backward's tile.
+every operand streams from device memory, so no width bounds a tile.
 """
 
 from __future__ import annotations
@@ -43,8 +50,6 @@ _tables: dict = {}
 
 SMEM_BYTES = 232448
 """Dynamic shared memory a block may opt into on Hopper (227 KB)."""
-
-MAX_TILE_ROWS = 32
 
 
 def reset_launches() -> None:
@@ -68,19 +73,6 @@ def decode_mlp_plain(params, z, *, compute_dtype="float32"):
     return networks.decode_mlp(
         params, z, compute_dtype=compute_dtype, transfer=networks.softplus
     )
-
-
-def tile_plan(n_in: int, hidden_widths, batch: int, n_sm: int):
-    """(tile_rows, stride) for one stack launch.
-
-    ``stride`` is the shared-memory row length: the widest on-chip layer
-    (the input or a hidden layer; heads go straight to device memory),
-    padded to a multiple of 4 for 16-byte reads. ``tile_rows`` is the
-    largest power of two ≤ 32 whose two ping-pong buffers fit
-    ``SMEM_BYTES``, lowered further so that a small batch still spreads
-    over ``n_sm`` blocks."""
-    stride = _pad4(max(n_in, *hidden_widths))
-    return rows_plan(2 * stride * 4, batch, n_sm, what="fused MLP kernel"), stride
 
 
 def _layer_table(layers, device) -> torch.Tensor:
@@ -141,18 +133,18 @@ def _launch(name, x, hidden, heads, compute_dtype):
     if batch == 0:
         return outs
     lib = _build.load()
-    n_sm = sm_count(x.device)
-    tile, stride = tile_plan(
-        x.shape[1], [l.w.shape[1] for l in hidden], batch, n_sm
-    )
+    rows, smem, parts = stack_fwd_plan(tuple(l.w.shape[1] for l in hidden + heads), batch,
+                                       sm_count(x.device), cd)
+    ldh = _pad4(max(l.w.shape[1] for l in hidden)) if hidden else 0
+    ws = torch.empty(min(len(hidden), 2), batch, ldh, dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         table = _layer_table(hidden + heads, x.device)
         err = lib.vae_mlp_stack_fwd(
             x.data_ptr(), batch, x.shape[1], table.data_ptr(),
             len(hidden), len(heads), outs[0].data_ptr(),
             outs[1].data_ptr() if len(outs) > 1 else None,
-            stride, tile, int(cd == "bfloat16"),
-            torch.cuda.current_stream(x.device).cuda_stream,
+            ws.data_ptr() if hidden else None, ldh, rows, smem, parts,
+            int(cd == "bfloat16"), _stream(x),
         )
     _build.check(lib, err, f"{name} kernel launch")
     _count(name)
@@ -354,26 +346,6 @@ def weight_grads_plain(a, d, *, compute_dtype="float32"):
             d.sum(0))
 
 
-def rows_plan(per_row_bytes: int, batch: int, n_sm: int, *, max_rows: int = MAX_TILE_ROWS,
-              what: str = "kernel") -> int:
-    """Rows per block for a kernel that keeps ``per_row_bytes`` of shared
-    memory per row: the largest power of two ≤ ``max_rows`` that fits
-    ``SMEM_BYTES``, lowered so that a small batch still spreads over
-    ``n_sm`` blocks. Raises when even one row does not fit."""
-    if per_row_bytes > SMEM_BYTES:
-        raise ValueError(
-            f"the {what} needs {per_row_bytes} bytes of shared memory per row, "
-            f"more than a block has ({SMEM_BYTES} bytes)"
-        )
-    cap = max_rows
-    while cap > 1 and cap * per_row_bytes > SMEM_BYTES:
-        cap //= 2
-    want = 1
-    while want * n_sm < batch and want < cap:
-        want *= 2
-    return min(cap, want)
-
-
 DENSE_N, DENSE_STAGES = 128, 3
 """The megakernels' block-tiled product (csrc/dense_tile.cuh): output
 columns per tile, slices in its cp.async ring."""
@@ -406,16 +378,41 @@ def dense_tile_rows(batch: int, n_sm: int) -> int:
     return next((r for r in DENSE_ROWS if r * n_sm >= batch), DENSE_ROWS[-1])
 
 
-def dense_parts(batch: int, rows: int, n_sm: int) -> int:
+def dense_parts(batch: int, rows: int, n_sm: int, most: int = 2) -> int:
     """Blocks that share each row tile of a kernel built on the block-tiled
-    product (a cluster, each taking every other column tile of every
-    product): 2 where 16-row tiles leave at least half the SMs idle, so that
-    twice the blocks stream half the weights each; else 1."""
-    return 2 if rows == 16 and 2 * -(-batch // rows) <= n_sm else 1
+    product (a cluster, each taking every parts-th column tile of every
+    product), so that where 16-row tiles leave SMs idle more blocks stream a
+    share of the weights each: the most of 2, 4 and 8 up to ``most`` that
+    keep the blocks within the SMs (2) or within half of them (4 and 8: a
+    cluster must fit within one GPC, a group of SMs, so past half the SMs
+    clusters of 4 or 8 may not all run at once); 1 at 32 and 64 rows."""
+    tiles = -(-batch // rows)
+    fits = [p for p in (2, 4, 8) if p <= most and p * tiles <= (n_sm if p == 2 else n_sm // 2)]
+    return fits[-1] if rows == 16 and fits else 1
 
 
 def _pad4(n: int) -> int:
     return -(-n // 4) * 4
+
+
+@functools.lru_cache(maxsize=256)
+def stack_fwd_plan(widths: tuple, batch: int, n_sm: int, compute_dtype="float32"):
+    """(rows per block, dynamic shared memory in bytes, blocks per row tile)
+    for the stack-forward kernel (``enc_fwd`` and ``dec_fwd``) over products
+    of ``widths`` output columns (cached: every serving request plans);
+    csrc/mlp_fwd.cu computes the same bytes
+    and refuses a launch that disagrees. Rows: 16, 32 or 64 from the batch
+    (:func:`dense_tile_rows`); shared memory: the ring of its one product
+    mode, W as stored with A streamed; blocks: :func:`dense_parts`, up to
+    the widest product's column tiles rounded up to a power of two (the
+    serving buckets 1 to 256 are latency-bound: each block streams a share
+    of the weights). Every row's operands stream from device memory, so no
+    width bounds the tile. Raises on an empty batch."""
+    rows = dense_tile_rows(batch, n_sm)
+    bf16 = networks.dtype_name(compute_dtype) == "bfloat16"
+    most = 1 << (-(-max(widths) // DENSE_N) - 1).bit_length()
+    return (rows, dense_ring_bytes(rows, False, True, bf16),
+            dense_parts(batch, rows, n_sm, most))
 
 
 ENC_BWD_MAX_HIDDEN = 16

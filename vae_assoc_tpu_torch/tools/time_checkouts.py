@@ -1,30 +1,45 @@
-"""Time the conv-tower megakernels, the decoder+loss backward kernel and the
-stack backward of one or more checkouts of the port on one CUDA card, in
-turns.
+"""Time the port's hand-written kernels and training steps for one or more
+checkouts of the port on one CUDA card, in turns.
 
     python3 vae_assoc_tpu_torch/tools/time_checkouts.py ROOT [ROOT ...]
 
 Each ROOT is a directory holding a ``vae_assoc_tpu_torch`` package (this
-repository, or an older commit unpacked with ``git archive``). The rounds
-run the roots in order and then in reverse (A, B, B, A), each in a process
-of its own that imports that root's package and builds its kernels there. A
-round times, at B = 1024 and 16384 in fp32 and bf16, with CUDA events over
-10 calls after 2 warm-up calls: ``conv_enc`` and ``conv_dec``
-(``kernels/conv_mega.py`` on a config-4 tower, random weights from seed 5,
-Bernoulli loss) and ``mega_dec_loss_bwd`` on config 3's image decoder, once
-as the wrapper runs it (the kernel and its three ``wgrad`` launches) and
-once alone (the wrapper with ``kernels/mlp.weight_grads`` replaced by a
-function that launches nothing); ``enc_bwd`` and ``dec_bwd``
-(``kernels/mlp.py``'s ``encode_bwd`` and ``decode_bwd`` on config 3's image
-encoder and decoder, the same weights) with their ``wgrad`` launches, alone
-in the same way, and, where the checkout's wrappers take ``want_dx``, with
-their ``wgrad`` launches but without the input gradient (``nodx``); and each
-case's device busy time per call, the CUDA kernels' own time that
+repository, or an older commit unpacked with ``git archive``). The roots'
+kernels are built first, all at once, each in a process of its own. Then
+the rounds run the roots in order and then in reverse (A, B, B, A), each
+in a process of its own that imports that root's package. A round times,
+with CUDA events over 50 calls after 2 warm-up calls (at the small
+buckets the events read the host's time per call, which moves from call
+to call), in fp32 and bf16:
+
+- at B = 1024 and 16384: ``conv_enc`` and ``conv_dec``
+  (``kernels/conv_mega.py`` on a config-4 tower, random weights from seed
+  5, Bernoulli loss); ``mega_fwd`` (``kernels/megakernel.py::tower_fwd``
+  on config 3's image tower, random weights from seed 2, injected ε) and
+  ``mega_dec_loss_bwd`` on its decoder, once as the wrapper runs it (the
+  kernel and its three ``wgrad`` launches) and once alone (the wrapper
+  with ``kernels/mlp.weight_grads`` replaced by a function that launches
+  nothing); ``enc_bwd`` and ``dec_bwd`` (``kernels/mlp.py``'s
+  ``encode_bwd`` and ``decode_bwd`` on the image encoder and decoder) with
+  their ``wgrad`` launches, alone in the same way, and, where the
+  checkout's wrappers take ``want_dx``, with their ``wgrad`` launches but
+  without the input gradient (``nodx``);
+- at the serving buckets 1, 64, 256, 1024 and 4096 and at B = 16384: the
+  stack forward, ``enc_fwd`` (``encode_mlp_fused`` on the image encoder)
+  and ``dec_fwd`` (``decode_mlp_fused`` on the trajectory and the image
+  decoders; config 3's trajectory tower from seed 2), also on the host's
+  clock without a wait (``host``: what a call costs the host to enqueue);
+
+and each case's device busy time per call, the CUDA kernels' own time that
 torch.profiler records over 10 calls (None where it recorded fewer kernels
-than calls), which leaves out the device waiting for the host. It prints one
-line per (root, round, case) and, as its last line, a JSON object of the
-means per root with the card's name and power limit. Exits non-zero without
-a CUDA card.
+than calls), which leaves out the device waiting for the host. Then it
+reads ``train_loop_fused``'s samples/s on 65,536 synthetic pairs
+featurized on the card (after one warm-up run each): config 3 on the mega
+path at batch 16384 bf16 (steps_per_call=4, 4 epochs) and config 5's
+settings (batch 1024 bf16) on the composable, mega and plain paths (2
+epochs each). It prints one line per (root, round, case) and, as its last
+line, a JSON object of the means per root with the card's name and power
+limit. Exits non-zero without a CUDA card.
 """
 
 from __future__ import annotations
@@ -36,6 +51,7 @@ import subprocess
 import sys
 
 BATCHES = (1024, 16384)
+STACK_BATCHES = (1, 64, 256, 1024, 4096, 16384)
 DTYPES = ("float32", "bfloat16")
 
 
@@ -45,7 +61,7 @@ def _card() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def _events_ms(fn, n=10):
+def _events_ms(fn, n=50):
     import torch
 
     for _ in range(2):
@@ -57,6 +73,24 @@ def _events_ms(fn, n=10):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / n
+
+
+def _host_ms(fn, n=50):
+    """Host ms per call to enqueue ``fn`` (the wrapper's Python, checks,
+    allocation and launch), with no wait for the device inside."""
+    import time
+
+    import torch
+
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / n * 1e3
 
 
 def _busy_ms(fn, n=10):
@@ -73,12 +107,40 @@ def _busy_ms(fn, n=10):
     return us / n / 1e3 if us > 0 and sum(e.count for e in device) >= n else None
 
 
+def _train_rates() -> dict:
+    """train_loop_fused samples/s: config 3 mega at batch 16384 bf16, and
+    config 5's settings on its three paths."""
+    import dataclasses
+
+    from vae_assoc_tpu_torch.configs import baseline_config
+    from vae_assoc_tpu_torch.data import PairedDataset
+    from vae_assoc_tpu_torch.train import train_loop_fused
+
+    data = list(PairedDataset.from_synthetic(65536, seed=0, device="cuda").features())
+    cfg3, tc3 = baseline_config(3)
+    cfg5, tc5 = baseline_config(5)
+    runs = {
+        "config 3 mega batch 16384 bf16": (cfg3, dataclasses.replace(
+            tc3, use_pallas="mega", batch_size=16384, compute_dtype="bfloat16",
+            steps_per_call=4), 4),
+        **{f"config 5 {name}": (cfg5, dataclasses.replace(tc5, use_pallas=up), 2)
+           for name, up in (("composable", True), ("mega", "mega"), ("plain", False))},
+    }
+    rates = {}
+    for name, (cfg, tc, epochs) in runs.items():
+        train_loop_fused(cfg, tc, data, epochs=1, device="cuda")
+        _, h = train_loop_fused(cfg, tc, data, epochs=epochs, device="cuda")
+        rates[f"train_loop_fused {name} samples/s"] = h[0]["samples_per_sec"]
+    return rates
+
+
 def _round() -> dict:
-    """One round in this process: {case: ms}, and {case + " busy": ms}."""
+    """One round in this process: {case: ms}, {case + " busy": ms}, and the
+    training rates."""
     import numpy as np
     import torch
 
-    from vae_assoc_tpu_torch.configs import default_image_arch
+    from vae_assoc_tpu_torch.configs import default_image_arch, default_traj_arch
     from vae_assoc_tpu_torch.kernels import _build
     from vae_assoc_tpu_torch.kernels import conv_mega as kcm
     from vae_assoc_tpu_torch.kernels import megakernel as km
@@ -91,18 +153,20 @@ def _round() -> dict:
     conv = ConvVAE(default_image_arch(), device="cuda", generator=torch.Generator().manual_seed(5))
     enc, dec_c = (lambda f: (f[:10], f[10:]))([t.detach() for t in kcm.flatten(conv)])
     mlp = init_mlp_vae_params(torch.Generator().manual_seed(2), default_image_arch(), device="cuda")
+    traj = init_mlp_vae_params(torch.Generator().manual_seed(2), default_traj_arch(), device="cuda")
     flat = [t.detach() for t in km.flatten(mlp)]
     dec = flat[8:]
     enc_l, dec_l = kmlp._pairs(flat[:8]), kmlp._pairs(dec)
     nodx = "want_dx" in inspect.signature(kmlp.encode_bwd).parameters
     wgrads = kmlp.weight_grads
     times = {}
+
+    def t(*shape):
+        return torch.from_numpy(rng.uniform(0, 1, shape).astype(np.float32)).cuda()
+
     with torch.no_grad():
         for b in BATCHES:
-            def t(*shape):
-                return torch.from_numpy(rng.uniform(0, 1, shape).astype(np.float32)).cuda()
-
-            x3, x, z, g = t(b, 28, 28), t(b, 784), t(b, 20), t(b) / b
+            x3, x, z, g, eps = t(b, 28, 28), t(b, 784), t(b, 20), t(b) / b, t(b, 20)
             dmu, dlv, dout = t(b, 20) / b, t(b, 20) / b, t(b, 784) / b
             for cd in DTYPES:
                 bwds = {  # the backward kernels whose weight-gradient launches are left out below
@@ -117,6 +181,8 @@ def _round() -> dict:
                     f"conv_enc B={b} {cd}": lambda: kcm.conv_enc(enc, x3, compute_dtype=cd),
                     f"conv_dec B={b} {cd}": lambda: kcm.conv_dec(dec_c, z, x3, kind="bernoulli",
                                                                  compute_dtype=cd),
+                    f"mega_fwd B={b} {cd}": lambda: km.tower_fwd(flat, x, kind="bernoulli",
+                                                                 eps=eps, compute_dtype=cd),
                 }
                 cases.update({f"{name}+wgrad B={b} {cd}": fn for name, fn in bwds.items()})
                 if nodx:
@@ -132,7 +198,32 @@ def _round() -> dict:
                         times[case], times[case + " busy"] = _events_ms(fn), _busy_ms(fn)
                 finally:
                     kmlp.weight_grads = wgrads
+        for b in STACK_BATCHES:
+            x, z = t(b, 784), t(b, 20)
+            for cd in DTYPES:
+                cases = {
+                    f"enc_fwd image B={b} {cd}": lambda: kmlp.encode_mlp_fused(
+                        mlp, x, compute_dtype=cd),
+                    f"dec_fwd trajectory B={b} {cd}": lambda: kmlp.decode_mlp_fused(
+                        traj, z, compute_dtype=cd),
+                    f"dec_fwd image B={b} {cd}": lambda: kmlp.decode_mlp_fused(
+                        mlp, z, compute_dtype=cd),
+                }
+                for case, fn in cases.items():
+                    times[case], times[case + " busy"] = _events_ms(fn), _busy_ms(fn)
+                    times[case + " host"] = _host_ms(fn)
+    times.update(_train_rates())
     return times
+
+
+def _build_all(roots) -> None:
+    """Build every root's kernels at once, each in a process of its own."""
+    code = "from vae_assoc_tpu_torch.kernels import _build; _build.build()"
+    procs = [subprocess.Popen([sys.executable, "-c", code], cwd=root,
+                              env=dict(os.environ, PYTHONPATH=root)) for root in roots]
+    for root, p in zip(roots, procs):
+        if p.wait(timeout=1500) != 0:
+            raise RuntimeError(f"the kernels of {root} did not build")
 
 
 def main(argv) -> int:
@@ -146,6 +237,7 @@ def main(argv) -> int:
         return 1
     roots = [os.path.abspath(r) for r in argv]
     card = _card()
+    _build_all(roots)
     runs = {r: [] for r in roots}
     for root in roots + roots[::-1]:
         env = dict(os.environ, PYTHONPATH=root)
@@ -153,9 +245,10 @@ def main(argv) -> int:
                              env=env, capture_output=True, text=True, check=True, timeout=1500)
         times = json.loads(out.stdout.strip().splitlines()[-1])
         runs[root].append(times)
-        for case, ms in times.items():
+        for case, v in times.items():
+            unit = "" if case.endswith("samples/s") else " ms"
             print(f"{root} round {len(runs[root])}: {case} "
-                  f"{'not measured' if ms is None else f'{ms:.4f} ms'} [{card}]", flush=True)
+                  f"{'not measured' if v is None else f'{v:.4f}{unit}'} [{card}]", flush=True)
     means = {r: {c: (None if any(t.get(c) is None for t in ts) else sum(t[c] for t in ts) / len(ts))
                  for c in ts[0]} for r, ts in runs.items()}
     print(json.dumps({"card": card, "ms": means}), flush=True)
