@@ -110,6 +110,30 @@ Phases, each of which raises on failure (nothing is caught):
    (F.conv2d, F.conv_transpose2d, torch.nn.grad.conv2d_input or
    torch.nn.grad.conv2d_weight); conv_enc and conv_dec (fp32 and bf16)
    against their twins.
+9. The user-facing path on config 3 at full width from seed 0, on 4096
+   synthetic pairs featurized on the card (twice, to identical bits; the
+   digests of the strokes and pairs printed): AssocVariationalAutoEncoder
+   takes 30 partial_fit steps (batch 64, fp32) on the mega, composable and
+   plain paths, the kernel paths' costs within rtol 1e-3 of plain, the
+   cost falling, each path's training kernels launched (counts reset just
+   before) and none on plain; save_model, partial_fit, restore_model,
+   partial_fit give identical costs, and a fresh process that loads the
+   saved directory and fits the same batch gives that cost's bits too;
+   AssocVariationalAutoEncoder.load,
+   Predictor.load(step=), Predictor.from_checkpoint and
+   Predictor.from_model give the live model's cross_generate in both
+   directions (rtol = atol = 1e-4), and the from_model predictor does not
+   change with a further partial_fit; evaluate, eval_metrics,
+   recognition_accuracy and marginal_log_likelihood (64 draws, 4096 rows)
+   on the saved weights on "mega", True and False from one seed: MSE, loss
+   terms, ELBO and IWAE within rtol = atol = 1e-4 of plain, k-NN within
+   0.01, IWAE >= ELBO, each function's forward kernels launched (counts
+   reset before each call) and none on plain; dec_fwd at the MLL's 32768
+   rows against its twin in fp32 and bf16, twice for identical bits, and
+   timed; `python -m vae_assoc_tpu_torch.evaluate` as a subprocess exits 0
+   with every key of the JAX package's vae-assoc-eval output, all finite.
+   Prints partial_fit steps/s, each eval function's wall seconds per
+   setting and the CLI's.
 
 The line before the last is the kernel record as JSON, each kernel with
 its bound: the larger of the bytes it must move over 3.35 TB/s and its
@@ -119,7 +143,8 @@ with a bf16 route on tensor cores (enc_fwd, dec_fwd, mega_fwd,
 mega_dec_loss_bwd, wgrad, conv_fwd, conv_dw, conv_enc, conv_dec, enc_bwd,
 dec_bwd) also carry a "bf16" object with the same fields; the times of
 mega_dec_loss_bwd, enc_bwd and dec_bwd include their weight-gradient
-launches, and "alone_ms" is the kernel's without them; enc_bwd and dec_bwd
+launches, and "alone_ms" is the kernel's without them; "eval_launches" is
+the kernel's launches in phase 9's evaluation; enc_bwd and dec_bwd
 also give "nodx_ms" and
 "nodx_bound_ms", with their weight-gradient launches but without dx. The
 last line is {"ok": true, "device": {...}}. Without a CUDA device, or
@@ -129,6 +154,7 @@ no result.
 
 from __future__ import annotations
 
+import hashlib
 import json
 import os
 import subprocess
@@ -164,6 +190,10 @@ def _card() -> str:
         capture_output=True, text=True, check=True, timeout=60,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+def _digest(a: np.ndarray) -> str:
+    return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()[:16]
 
 
 def _max_err(got: torch.Tensor, want: torch.Tensor, tol: float):
@@ -524,6 +554,7 @@ def train_and_check(card):
 
     from vae_assoc_tpu_torch.configs import baseline_config
     from vae_assoc_tpu_torch.data import PairedDataset
+    from vae_assoc_tpu_torch.data.synthetic import generate_raw_strokes
     from vae_assoc_tpu_torch.kernels import launch_counts, reset_launches
     from vae_assoc_tpu_torch.kernels import mlp as kmlp
     from vae_assoc_tpu_torch.models import assoc as assoc_mod
@@ -637,6 +668,7 @@ def train_composable_and_check(card):
 
     from vae_assoc_tpu_torch.configs import baseline_config, default_image_arch
     from vae_assoc_tpu_torch.data import PairedDataset
+    from vae_assoc_tpu_torch.data.synthetic import generate_raw_strokes
     from vae_assoc_tpu_torch.kernels import launch_counts, reset_launches
     from vae_assoc_tpu_torch.models import assoc as assoc_mod
     from vae_assoc_tpu_torch.train import init_train_state, train_loop
@@ -1065,6 +1097,7 @@ def train_conv_and_check(card):
 
     from vae_assoc_tpu_torch.configs import baseline_config
     from vae_assoc_tpu_torch.data import PairedDataset
+    from vae_assoc_tpu_torch.data.synthetic import generate_raw_strokes
     from vae_assoc_tpu_torch.kernels import launch_counts, reset_launches
     from vae_assoc_tpu_torch.models import assoc as assoc_mod
     from vae_assoc_tpu_torch.train import init_train_state, train_loop
@@ -1144,6 +1177,7 @@ def train_one_modality_and_check(card):
 
     from vae_assoc_tpu_torch.configs import baseline_config
     from vae_assoc_tpu_torch.data import PairedDataset
+    from vae_assoc_tpu_torch.data.synthetic import generate_raw_strokes
     from vae_assoc_tpu_torch.kernels import launch_counts, reset_launches
     from vae_assoc_tpu_torch.models import assoc as assoc_mod
     from vae_assoc_tpu_torch.train import init_train_state, train_loop
@@ -1717,6 +1751,265 @@ def _conv_dec_work(b, hg=500, n_z=20):
     return 4 * (b * (n_z + 784 + 1 + hg + 3136 + 6272 + 784) + weights), 2 * b * macs
 
 
+# Phase 9's resume in a fresh process: load each saved model and fit the
+# saved batch once; print each cost's repr.
+RESUME_CHILD = """
+import sys, torch
+from vae_assoc_tpu_torch import AssocVariationalAutoEncoder
+batch = torch.load(sys.argv[1], map_location="cuda")
+for sub in sys.argv[2:]:
+    print(repr(AssocVariationalAutoEncoder.load(sub).partial_fit(batch)))
+"""
+
+EVAL_ROWS = 4096  # phase 9's synthetic pairs; MLL decodes 8 × 4096 rows a block
+MLL_ROWS = 8 * EVAL_ROWS
+EVAL_KERNELS = {  # what each eval function must launch on each kernel setting
+    "evaluate": ("enc_fwd", "dec_fwd"),
+    "eval_metrics": ("enc_fwd", "dec_fwd"),
+    "recognition_accuracy": ("enc_fwd",),
+    "marginal_log_likelihood": ("enc_fwd", "dec_fwd"),
+}
+EVAL_LOSS_KERNELS = {"mega": ("mega_fwd",), True: ("reparam", "loss_fwd")}
+FIT_KERNELS = {"mega": ("mega_fwd", "mega_dec_loss_bwd", "enc_bwd", "wgrad"),
+               True: ("enc_fwd", "reparam", "dec_fwd", "loss_fwd", "loss_bwd", "dec_bwd",
+                      "enc_bwd", "wgrad")}
+
+
+def _eval_keys(cfg, mll: bool):
+    """The keys of the JAX package's vae-assoc-eval output for ``cfg``."""
+    names = [m.name for m in cfg.modalities]
+    keys = {"model_dir", "step", "data", "n_samples", "backend", "total", "assoc"}
+    keys |= {f"{t}_{n}" for n in names for t in ("recon", "kl")}
+    for a in names:
+        keys |= {f"mse_{a}->{b}" for b in names}
+        keys |= {f"knn_{a}" if a == b else f"knn_{a}->{b}" for b in names}
+    if mll:
+        keys |= {f"{t}_{n}" for n in names for t in ("elbo", "iwae")}
+    return keys
+
+
+def check_mll_decode(model, rng, card):
+    """Phase 9's dec_fwd at the MLL's row count against its twin, fp32 and
+    bf16, twice for identical bits, and timed (CUDA events, in turns)."""
+    from vae_assoc_tpu_torch.kernels import mlp as kmlp
+
+    errs, failed = {}, []
+    with torch.inference_mode():
+        for name, m, shape in (("image_dec", model.modalities[0], IMAGE_DEC),
+                               ("trajectory_dec", model.modalities[1], TRAJ_DEC)):
+            z = torch.from_numpy(rng.normal(size=(MLL_ROWS, 20)).astype(np.float32)).cuda()
+            for cd, tol in TOL.items():
+                got = kmlp.decode_mlp_fused(m, z, compute_dtype=cd)
+                again = kmlp.decode_mlp_fused(m, z, compute_dtype=cd)
+                want = kmlp.decode_mlp_plain(m, z, compute_dtype=cd)
+                torch.cuda.synchronize()
+                err, ok = _max_err(got, want, tol)
+                errs[(name, MLL_ROWS, cd)] = err
+                if not ok or not torch.equal(got, again):
+                    failed.append(f"{name} B={MLL_ROWS} {cd} err={err:.3e}")
+                runs = {"kernel": [], "plain": []}
+                for which in ("plain", "kernel", "kernel", "plain"):
+                    fn = kmlp.decode_mlp_fused if which == "kernel" else kmlp.decode_mlp_plain
+                    runs[which].append(_device_ms(lambda: fn(m, z, compute_dtype=cd), n=10))
+                k, p = float(np.mean(runs["kernel"])), float(np.mean(runs["plain"]))
+                bound = _bound(*_stack_work(MLL_ROWS, shape, heads=1), cd)
+                print(f"check {name} dec_fwd B={MLL_ROWS} {cd} (rtol=atol={tol}): err "
+                      f"{err:.2e}; device time kernel {k:.4f} ms, plain {p:.4f} ms; bound "
+                      f"{bound[0]:.4f} ({bound[1]}) [{card}]", flush=True)
+    if failed:
+        raise AssertionError("dec_fwd at the MLL's rows disagrees: " + "; ".join(failed))
+    return errs
+
+
+def api_and_eval_check(rng, card):
+    """Phase 9: the class API, whole-state checkpoints, every reload path,
+    evaluation and the evaluate CLI on config 3 at full width. Returns the
+    launches of each eval function on each kernel setting."""
+    import dataclasses
+    import tempfile
+
+    from vae_assoc_tpu_torch import AssocVariationalAutoEncoder
+    from vae_assoc_tpu_torch.configs import baseline_config
+    from vae_assoc_tpu_torch.data import PairedDataset
+    from vae_assoc_tpu_torch.data.synthetic import generate_raw_strokes
+    from vae_assoc_tpu_torch.kernels import launch_counts, reset_launches
+    from vae_assoc_tpu_torch.serve import Predictor
+    from vae_assoc_tpu_torch.train import eval as ev
+
+    cfg, tc = baseline_config(3)
+    tol = TOL["float32"]
+    t_phase = t0 = time.perf_counter()
+    ds = PairedDataset.from_synthetic(EVAL_ROWS, seed=0, device="cuda")
+    imgs, trajs = ds.features()
+    labels = np.asarray(ds.labels)
+    print(f"phase 9: {EVAL_ROWS} synthetic pairs featurized on the card in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    # The digests tell runs' data apart: the strokes are drawn on the host,
+    # the pairs featurized on the card, where the same strokes must give the
+    # same bits (exact resume across runs rests on it).
+    again = PairedDataset.from_synthetic(EVAL_ROWS, seed=0, device="cuda").features()
+    assert all(torch.equal(a, b) for a, b in zip(again, (imgs, trajs))), \
+        "featurizing the same strokes twice gave other bits"
+    strokes = generate_raw_strokes(EVAL_ROWS, seed=0)["points"]
+    pairs = torch.cat([imgs, trajs], 1).cpu().numpy()
+    print(f"phase 9: sha256 of the strokes {_digest(strokes)}, of the pairs "
+          f"{_digest(pairs)} (featurized twice, identical)", flush=True)
+
+    # Train: 30 partial_fit steps at batch 64 on each path from seed 0.
+    models, costs, fit_launches = {}, {}, {}
+    for up in ("mega", True, False):
+        t = dataclasses.replace(tc, use_pallas=up, batch_size=64)
+        models[up] = m = AssocVariationalAutoEncoder([], model_config=cfg, train_config=t)
+        reset_launches()
+        t0 = time.perf_counter()
+        costs[up] = np.array([m.partial_fit([imgs[i * 64:(i + 1) * 64],
+                                             trajs[i * 64:(i + 1) * 64]]) for i in range(30)])
+        dt = time.perf_counter() - t0
+        fit_launches[up] = launch_counts()
+        print(f"partial_fit use_pallas={up!r}: {30 / dt:.1f} steps/s at batch 64 fp32; cost "
+              f"{costs[up][0]:.4f} -> {costs[up][-1]:.4f} [{card}]", flush=True)
+        for k in FIT_KERNELS.get(up, ()):
+            assert fit_launches[up][k] > 0, f"partial_fit on {up!r} launched no {k}"
+        if up is False:
+            assert not any(fit_launches[up].values()), f"plain path launched {fit_launches[up]}"
+    print(f"partial_fit launches over 30 steps: mega {fit_launches['mega']}, composable "
+          f"{fit_launches[True]}", flush=True)
+    for up in ("mega", True):
+        rel = float(np.max(np.abs(costs[up] - costs[False]) / np.abs(costs[False])))
+        print(f"partial_fit costs, use_pallas={up!r} vs plain: max rel err {rel:.3e} "
+              "(rtol 1e-3)", flush=True)
+        assert np.isfinite(costs[up]).all() and rel <= 1e-3, "partial_fit costs disagree"
+        assert costs[up][-5:].mean() < costs[up][:5].mean(), "the cost did not fall"
+
+    m = models["mega"]
+    x_img, x_traj = imgs[:1024], trajs[:1024]
+    here = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as d:
+        # Exact resume: save, fit, restore, fit: identical bits, in this
+        # process and in a fresh one that loads the saved directory.
+        batch = [imgs[2048:2112], trajs[2048:2112]]
+        torch.save(batch, os.path.join(d, "batch.pt"))
+        firsts = {}
+        for up in ("mega", True):
+            sub = os.path.join(d, str(up))
+            models[up].save_model(sub)
+            firsts[up] = first = models[up].partial_fit(batch)
+            models[up].restore_model(sub)
+            again = models[up].partial_fit(batch)
+            print(f"exact resume use_pallas={up!r}: {first!r} then {again!r}", flush=True)
+            assert first == again, "save -> fit -> restore -> fit gave another cost"
+            models[up].restore_model(sub)
+        out = subprocess.run(
+            [sys.executable, "-c", RESUME_CHILD, os.path.join(d, "batch.pt")]
+            + [os.path.join(d, str(up)) for up in firsts],
+            cwd=here, env=dict(os.environ, PYTHONPATH=here), capture_output=True,
+            text=True, timeout=300,
+        )
+        assert out.returncode == 0, out.stderr[-3000:]
+        for (up, first), line in zip(firsts.items(), out.stdout.split()):
+            print(f"exact resume use_pallas={up!r} in a fresh process: {float(line)!r}",
+                  flush=True)
+            assert float(line) == first, "a fresh process resumed to another cost"
+        path = os.path.join(d, "mega")
+        step = m.state.step
+
+        # Reload and serve: every path gives the live model's outputs.
+        x_np = {0: x_img.cpu().numpy(), 1: x_traj.cpu().numpy()}
+        live = {(0, 1): m.cross_generate(x_img, 0, 1), (1, 0): m.cross_generate(x_traj, 1, 0)}
+        kw = dict(compute_dtype=tc.compute_dtype, use_pallas="mega")
+        snap = Predictor.from_model(m, **kw)
+        reloads = {
+            "AssocVariationalAutoEncoder.load": AssocVariationalAutoEncoder.load(path),
+            "Predictor.load(step=)": Predictor.load(path, step=step),
+            "Predictor.from_checkpoint": Predictor.from_checkpoint(
+                path, cfg, train_config=m.train_config, **kw),
+            "Predictor.from_model": snap,
+        }
+        for name, r in reloads.items():
+            for (s, t), want in live.items():
+                got = torch.as_tensor(r.cross_generate(x_np[s], s, t), device="cuda")
+                err, ok = _close(got, want, tol)
+                print(f"reload {name} {s}->{t}: max abs err {err:.3e} vs the live model "
+                      f"(rtol=atol={tol}), bit-identical {torch.equal(got, want)}", flush=True)
+                assert ok, f"{name} disagrees with the live model"
+        before = snap.cross_generate(x_np[0], 0, 1)
+        m.partial_fit([imgs[:64], trajs[:64]])
+        assert np.array_equal(snap.cross_generate(x_np[0], 0, 1), before), \
+            "a from_model predictor changed with partial_fit"
+        assert not torch.equal(m.cross_generate(x_img, 0, 1), live[(0, 1)])
+        m.restore_model(path)
+
+        # Evaluate the saved weights on the three settings from one seed.
+        xs = [imgs, trajs]
+        results, eval_launches, secs = {}, {}, {}
+        for up in ("mega", True, False):
+            params = AssocVariationalAutoEncoder.load(path).state.params
+            calls = {
+                "evaluate": lambda: ev.evaluate(params, xs, cfg, use_pallas=up),
+                "eval_metrics": lambda: ev.eval_metrics(params, xs, cfg, use_pallas=up),
+                "recognition_accuracy": lambda: ev.recognition_accuracy(
+                    params, xs, labels, cfg, use_pallas=up),
+                "marginal_log_likelihood": lambda: ev.marginal_log_likelihood(
+                    params, xs, cfg, n_importance=64, max_samples=EVAL_ROWS, use_pallas=up),
+            }
+            res = {}
+            for fname, call in calls.items():
+                call()  # warm
+                reset_launches()
+                t0 = time.perf_counter()
+                out = call()
+                torch.cuda.synchronize()
+                secs[(fname, up)] = time.perf_counter() - t0
+                counts = launch_counts()
+                eval_launches[(fname, up)] = {k: v for k, v in counts.items() if v}
+                want = EVAL_KERNELS[fname] + (EVAL_LOSS_KERNELS.get(up, ())
+                                              if fname == "eval_metrics" else ())
+                if up is False:
+                    assert not any(counts.values()), f"plain {fname} launched {counts}"
+                for k in want if up is not False else ():
+                    assert counts[k] > 0, f"{fname} on {up!r} launched no {k}"
+                res.update(out)
+            results[up] = res
+            print(f"eval use_pallas={up!r}: " + ", ".join(
+                f"{f} {secs[(f, up)]:.3f} s" for f in calls) + f" (wall) [{card}]",
+                flush=True)
+            print(f"eval use_pallas={up!r} launches: "
+                  + "; ".join(f"{f} {eval_launches[(f, up)]}" for f in calls), flush=True)
+        for up in ("mega", True):
+            for key, want in results[False].items():
+                got = results[up][key]
+                slack = 0.01 if key.startswith("knn_") else tol + tol * abs(want)
+                assert np.isfinite(got) and abs(got - want) <= slack, \
+                    f"eval {key} on {up!r}: {got} vs plain {want}"
+        print("eval, plain: " + json.dumps(results[False]), flush=True)
+        print(f"eval: MSE, loss terms, ELBO and IWAE of mega and composable agree with plain "
+              f"(rtol=atol={tol}), k-NN within 0.01", flush=True)
+        for name in ("image", "trajectory"):
+            for up in results:
+                assert results[up][f"iwae_{name}"] >= results[up][f"elbo_{name}"]
+
+        # The CLI as a user runs it.
+        t0 = time.perf_counter()
+        out = subprocess.run(
+            [sys.executable, "-m", "vae_assoc_tpu_torch.evaluate", path, "--data",
+             "synthetic", "--n-samples", str(EVAL_ROWS), "--mll-samples", "64"],
+            cwd=here, env=dict(os.environ, PYTHONPATH=here), capture_output=True,
+            text=True, timeout=300,
+        )
+        dt = time.perf_counter() - t0
+        assert out.returncode == 0, out.stderr[-3000:]
+        res = json.loads(out.stdout.strip().splitlines()[-1])
+        missing = _eval_keys(cfg, mll=True) - set(res)
+        assert not missing, f"the evaluate CLI's output lacks {sorted(missing)}"
+        assert res["backend"] == "cuda" and res["step"] == step
+        bad = [k for k, v in res.items() if isinstance(v, float) and not np.isfinite(v)]
+        assert not bad, f"the evaluate CLI gave non-finite {bad}"
+        print(f"evaluate CLI: exit 0 in {dt:.2f} s wall, {len(res)} keys [{card}]", flush=True)
+        print("evaluate CLI: " + json.dumps(res), flush=True)
+    print(f"phase 9 took {time.perf_counter() - t_phase:.2f} s wall", flush=True)
+    return eval_launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch finds no CUDA device", file=sys.stderr)
@@ -1773,6 +2066,10 @@ def main() -> int:
     # Phase 8d
     time_conv_training(card)
     train_times.update(time_conv_kernels(rng, card))
+
+    # Phase 9
+    eval_launches = api_and_eval_check(rng, card)
+    errs.update(check_mll_decode(pred.params, rng, card))
 
     cd = pred.compute_dtype
     big, small = TRAIN_TIMED[-1], TRAIN_TIMED[0]
@@ -1886,6 +2183,8 @@ def main() -> int:
             "launches": counts[name], "max_abs_err": errs_of[err_key],
             "ms": ms(timed, "kernel"), "plain_ms": ms(timed, "plain"), "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": ms(timed, "library"),
+            # launches by phase 9's evaluation and MLL on both kernel settings
+            "eval_launches": sum(c.get(name, 0) for c in eval_launches.values()),
         }
         if "alone" in timed["call"]:  # the kernel without its weight-gradient launches
             row["alone_ms"] = ms(timed, "alone")

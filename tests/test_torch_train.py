@@ -412,6 +412,22 @@ def test_train_loop_fused_is_deterministic_and_learns():
     assert h1[0]["samples_per_sec"] > 0 and "grad_norm" in h1[0]
 
 
+def test_rasterize_matches_jax_at_the_edges_and_on_repeated_points():
+    """The port splats by a product of row and column weights, the JAX
+    package by scatter-add: the same sums, clamping at the grid's edges and
+    points stacked on one pixel included."""
+    from vae_assoc_tpu.ops.rasterize import rasterize_trajectories as jrast
+    from vae_assoc_tpu_torch.ops.rasterize import rasterize_trajectories as trast
+
+    r = np.random.default_rng(7)
+    traj = r.uniform(-1.3, 1.3, (5, 40, 2)).astype(np.float32)  # past the edges
+    traj[:, 20:] = traj[:, :1]  # 20 points on one spot
+    traj[0, :5] = [[-1.1, 1.1], [1.1, -1.1], [1.0, 1.0], [-1.0, -1.0], [1.2, 1.2]]
+    want = np.asarray(jrast(jnp.asarray(traj)))
+    got = trast(torch.from_numpy(traj)).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
+
+
 def test_pipeline_features_match_jax():
     raw = generate_raw_strokes(29, seed=3)
     ji, jt = jpipe.featurize_pairs(jnp.asarray(raw["points"]), jnp.asarray(raw["lengths"]))

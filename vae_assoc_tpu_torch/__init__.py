@@ -1,10 +1,13 @@
 """vae_assoc_tpu_torch — the PyTorch and CUDA port of vae_assoc_tpu.
 
-The serving path of the associative multimodal VAE on an NVIDIA GPU: typed
-configs (the JAX package's JSON schema), the MLP towers as torch modules in
-the reference parameter layout, hand-written Hopper kernels for the fused
-encoder and decoder stacks, a bucketing `serve.Predictor` with its
-`MicroBatcher`, and the stdlib HTTP front end `serve_http`. The JAX package
+The associative multimodal VAE on an NVIDIA GPU: typed configs (the JAX
+package's JSON schema), the towers as torch modules in the reference
+parameter layout, hand-written Hopper kernels for every Pallas kernel of
+the JAX package, the train step and loops, the reference's class API
+(`VariationalAutoencoder`, `AssocVariationalAutoEncoder`, `train`) with
+whole-state checkpoints, evaluation (`train.eval`, the `evaluate` CLI), a
+bucketing `serve.Predictor` with its `MicroBatcher`, and the stdlib HTTP
+front end `serve_http`. The JAX package
 `vae_assoc_tpu` is the reference that every part is tested against; this
 package imports torch and never jax.
 
@@ -20,6 +23,11 @@ from vae_assoc_tpu_torch.configs import (
     default_image_arch,
     default_traj_arch,
 )
+from vae_assoc_tpu_torch.api import (
+    AssocVariationalAutoEncoder,
+    VariationalAutoencoder,
+    train,
+)
 
 __all__ = [
     "__version__",
@@ -29,4 +37,7 @@ __all__ = [
     "baseline_config",
     "default_image_arch",
     "default_traj_arch",
+    "VariationalAutoencoder",
+    "AssocVariationalAutoEncoder",
+    "train",
 ]

@@ -410,7 +410,7 @@ def load_model_config(path: str):
     if not os.path.exists(cfg_path):
         raise FileNotFoundError(
             f"no model_config.json under {path}; write the model with "
-            "vae_assoc_tpu_torch.utils.checkpoint.save_params()"
+            "save_model() (api.py) or utils.checkpoint.save_params()"
         )
     with open(cfg_path) as f:
         raw = json.load(f)

@@ -12,7 +12,9 @@ A training run carries over too: ``train_state_from_jax_numpy`` takes the
 Adam state of an optax chain (``ScaleByAdamState``: ``count``, ``mu``,
 ``nu``, the moments as numpy trees of the params' layout) and the
 ``TrainState.step``, and ``train_state_to_jax_numpy`` gives them back. The
-other stages' state (MultiSteps accumulators, EMA) is not carried.
+EMA stage's state (``EmaState``: ``count``, ``ema``) and the MultiSteps
+accumulator (``mini_step``, ``acc_grads``) carry over where the train
+config has them (``ema_decay > 0``, ``accum_steps > 1``).
 """
 
 from __future__ import annotations
@@ -66,22 +68,42 @@ def to_numpy(model: AssocVAE) -> dict:
     return _tree(model.state_dict().items())
 
 
-def train_state_from_jax_numpy(params, adam, step, cfg: AssocConfig, tc, device):
+def _load_tree(dst: list, tree, model: AssocVAE) -> None:
+    """Copy a numpy tree of the params' layout into ``dst`` (parameter order)."""
+    flat = dict(_flatten(tree))
+    with torch.no_grad():
+        for i, (key, _) in enumerate(model.named_parameters()):
+            dst[i].copy_(torch.from_numpy(np.array(flat[key], dtype=np.float32)))
+
+
+def train_state_from_jax_numpy(params, adam, step, cfg: AssocConfig, tc, device, *,
+                               ema=None, acc=None):
     """The port's TrainState continuing a JAX run: ``params`` the numpy param
     tree, ``adam`` = (count, mu tree, nu tree) of optax's ScaleByAdamState as
-    numpy, ``step`` the JAX TrainState.step. The ε stream restarts from
-    ``tc.seed`` (the two packages' streams differ by design)."""
+    numpy, ``step`` the JAX TrainState.step; ``ema`` = (count, ema tree) of
+    the EMA stage and ``acc`` = (mini_step, acc_grads tree) of MultiSteps
+    where ``tc`` has those stages. The ε stream restarts from ``tc.seed``
+    (the two packages' streams differ by design)."""
     from vae_assoc_tpu_torch.train.step import init_train_state
 
     model = from_jax_numpy(params, cfg, device)
     state = init_train_state(cfg, tc, device=device, params=model)
+    opt = state.opt_state
     count, mu, nu = adam
-    moments = (dict(_flatten(mu)), dict(_flatten(nu)))
-    with torch.no_grad():
-        for i, (key, _) in enumerate(model.named_parameters()):
-            for dst, src in zip((state.opt_state.adam.mu, state.opt_state.adam.nu), moments):
-                dst[i].copy_(torch.from_numpy(np.array(src[key], dtype=np.float32)))
-    state.opt_state.adam.count = int(count)
+    _load_tree(opt.adam.mu, mu, model)
+    _load_tree(opt.adam.nu, nu, model)
+    opt.adam.count = int(count)
+    for part, dst, what in ((ema, opt.ema, "EMA"), (acc, opt.acc, "MultiSteps")):
+        if (part is None) != (dst is None):
+            raise ValueError(
+                f"the train config has {'no ' if dst is None else 'a '}{what} stage and "
+                f"the JAX state {'has none' if part is None else 'has one'}")
+    if ema is not None:
+        _load_tree(opt.ema, ema[1], model)
+        opt.ema_count = int(ema[0])
+    if acc is not None:
+        _load_tree(opt.acc, acc[1], model)
+        opt.mini_step = int(acc[0])
     return state._replace(step=int(step))
 
 

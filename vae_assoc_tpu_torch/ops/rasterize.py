@@ -1,8 +1,14 @@
 """Stroke rasterization on the device (counterpart of vae_assoc_tpu/ops/rasterize.py).
 
-Trajectory → 28×28 image in [0, 1]: bilinear point splatting by scatter-add,
-a separable Gaussian blur as two small matrix products, and
-max-normalization.
+Trajectory → 28×28 image in [0, 1]: bilinear point splatting, a separable
+Gaussian blur as two small matrix products, and max-normalization.
+
+The JAX package splats by scatter-add. On CUDA, ``index_add_`` adds with
+atomics, so points landing on one pixel sum in a varying order and the
+same strokes give other last bits from run to run. A bilinear splat is
+separable, so here it is one batched product of each point's row weights
+and column weights, [B, size, T] · [B, T, size], which sums in a fixed
+order.
 """
 
 from __future__ import annotations
@@ -22,28 +28,25 @@ def rasterize_trajectories(traj: torch.Tensor, size: int = 28, sigma: float = 0.
     Each point adds to its 4 neighbouring pixels bilinearly; y is drawn
     downward (row 0 = top)."""
     traj = traj.float()
-    b, t, _ = traj.shape
+    b = traj.shape[0]
     dev = traj.device
     margin = 1.5
     scale = (size - 1 - 2 * margin) / 2.0
     px = margin + (traj[..., 0] + 1.0) * scale
     py = margin + (1.0 - traj[..., 1]) * scale
-    x0 = torch.floor(px).long()
-    y0 = torch.floor(py).long()
-    fx = px - x0
-    fy = py - y0
-    img = torch.zeros(b * size * size, dtype=torch.float32, device=dev)
-    base = (torch.arange(b, device=dev) * (size * size))[:, None]
-    for dy, dx, w in (
-        (0, 0, (1 - fy) * (1 - fx)),
-        (0, 1, (1 - fy) * fx),
-        (1, 0, fy * (1 - fx)),
-        (1, 1, fy * fx),
-    ):
-        yy = torch.clamp(y0 + dy, 0, size - 1)
-        xx = torch.clamp(x0 + dx, 0, size - 1)
-        img.index_add_(0, (base + yy * size + xx).reshape(-1), w.reshape(-1))
-    img = img.reshape(b, size, size)
+    grid = torch.arange(size, device=dev)
+
+    def axis_weights(p):
+        """[B, T] coordinates → [B, T, size]: each point's weight on its two
+        neighbouring rows (or columns), clamped to the grid."""
+        p0 = torch.floor(p)
+        f = (p - p0)[..., None]
+        p0 = p0.long()[..., None]
+        lo = torch.clamp(p0, 0, size - 1) == grid
+        hi = torch.clamp(p0 + 1, 0, size - 1) == grid
+        return (1 - f) * lo + f * hi
+
+    img = torch.bmm(axis_weights(py).transpose(1, 2), axis_weights(px))
 
     radius = max(1, int(3 * sigma))
     k = _gaussian_kernel1d(sigma, radius, dev)

@@ -8,7 +8,7 @@ off. Weights stay on the device; requests move only activations. With
 ``use_pallas`` the towers run the hand-written CUDA MLP kernels
 (kernels/mlp.py); on a CPU device the same calls run their plain twins.
 
-    pred = Predictor.load(path, device="cuda")
+    pred = Predictor.load(path, device="cuda")   # a save_model directory
     traj = pred.cross_generate(imgs, "image", "trajectory")   # any batch size
 
 `MicroBatcher` coalesces concurrent cross_generate requests into one
@@ -17,6 +17,7 @@ bucketed call per route, with the JAX package's semantics.
 
 from __future__ import annotations
 
+import copy
 import functools
 import queue
 import threading
@@ -58,19 +59,48 @@ class Predictor:
         self._kw = dict(cfg=cfg, compute_dtype=self.compute_dtype,
                         use_pallas=use_pallas)
 
+    # -- constructors ------------------------------------------------------------
     @classmethod
-    def load(cls, path: str, *, device="cuda", **kw) -> "Predictor":
-        """Load a directory written by utils.checkpoint.save_params.
+    def from_checkpoint(cls, path: str, cfg: AssocConfig, *,
+                        train_config: TrainConfig | None = None, step: int | None = None,
+                        device="cuda", **kw) -> "Predictor":
+        """The weights of a whole-state checkpoint (utils/checkpoint.save),
+        of ``step`` or the latest."""
+        from vae_assoc_tpu_torch.train.step import init_train_state
+        from vae_assoc_tpu_torch.utils import checkpoint as ckpt
+
+        tc = train_config or TrainConfig()
+        state = ckpt.restore(path, init_train_state(cfg, tc, device=device), step=step)
+        return cls(state.params, cfg, device=device, **kw)
+
+    @classmethod
+    def load(cls, path: str, *, step: int | None = None, device="cuda",
+             **kw) -> "Predictor":
+        """One-call load of a self-describing directory: a ``save_model``
+        directory (model_config.json and whole-state checkpoints; ``step``
+        or the latest) or a ``save_params`` one (model_config.json and
+        params.pt).
 
         Compute dtype and kernel choice default to the recorded training
         settings (override via **kw)."""
-        from vae_assoc_tpu_torch.utils.checkpoint import load_params
+        from vae_assoc_tpu_torch.utils import checkpoint as ckpt
 
-        model, cfg, tc = load_params(path, device=device)
+        model, cfg, tc = ckpt.load_params(path, step=step, device=device)
         tc = tc or TrainConfig()
         kw.setdefault("compute_dtype", tc.compute_dtype)
         kw.setdefault("use_pallas", tc.use_pallas)
         return cls(model, cfg, device=device, **kw)
+
+    @classmethod
+    def from_model(cls, model, **kw) -> "Predictor":
+        """A snapshot of a live ``AssocVariationalAutoEncoder``'s weights, on
+        its device unless ``device`` is given.
+
+        The weights are copied: the model's optimizer updates them in
+        place, so a predictor that aliased them would change with the next
+        ``partial_fit``."""
+        kw.setdefault("device", model.device)
+        return cls(copy.deepcopy(model.state.params), model.config, **kw)
 
     # -- device calls: numpy in, numpy out -------------------------------------
     def _t(self, a) -> torch.Tensor:

@@ -16,6 +16,7 @@ both packages agree to fp32 rounding from the same gradients.
 
 from __future__ import annotations
 
+import copy
 from typing import NamedTuple
 
 import numpy as np
@@ -186,6 +187,18 @@ def ema_params(tc: TrainConfig, opt_state: OptState):
     c = opt_state.ema_count
     corr = 1.0 if c == 0 else float(np.float32(1) - np.float32(tc.ema_decay) ** np.float32(c))
     return [e / corr for e in opt_state.ema]
+
+
+def eval_params(tc: TrainConfig, state: TrainState) -> assoc_mod.AssocVAE:
+    """The weights evaluation should use, as a module the verbs take: a
+    copy holding the debiased EMA weights when ``ema_decay > 0`` and at
+    least one optimizer update has run, else the live ``state.params``."""
+    if tc.ema_decay <= 0 or state.opt_state.ema_count == 0:
+        return state.params
+    model = copy.deepcopy(state.params)
+    with torch.no_grad():
+        torch._foreach_copy_(list(model.parameters()), ema_params(tc, state.opt_state))
+    return model
 
 
 def init_train_state(cfg: AssocConfig, tc: TrainConfig, *, device="cuda",
