@@ -83,7 +83,10 @@ Phases, each of which raises on failure (nothing is caught):
    config 4 as it ships (encoder="conv", "mega"), trains 200 steps with
    exactly the per-step launch counts of CONV_PER_STEP or SHIPPED_PER_STEP
    (counts reset just before), its first 20 per-step totals agree with the
-   plain path's within rtol 1e-3, and its loss falls.
+   plain path's within rtol 1e-3, and its loss falls; the plain path's
+   samples/s is printed. Config 4 as it ships and on the plain path (plain
+   F.conv2d on the image tower) takes 5 steps twice from two copies of one
+   state and must give identical bits in every parameter and every total.
 7d. Training baseline configs 1 (image only) and 2 (trajectory only), one
    modality and lambda = 0, at full width from one seed on the mega and
    composable paths against the plain path: step-0 totals and gradients
@@ -134,6 +137,26 @@ Phases, each of which raises on failure (nothing is caught):
    with every key of the JAX package's vae-assoc-eval output, all finite.
    Prints partial_fit steps/s, each eval function's wall seconds per
    setting and the CLI's.
+10. The data surface on config 3 at full width: the UJI fixture
+   (tests/fixtures/ujipenchars2_format.txt, 240 characters) parsed by the
+   native parser (built here with g++) and by the Python one, bit for bit;
+   featurized on the card with the resample and the RBF encoding (100
+   centers), each twice, and an augmented view twice from one generator
+   seed, to identical bits (digests printed), and against the CPU's
+   features (rtol = atol = 1e-4; RBF weights compared through their
+   reconstructions); train_loop on the mega path, batch 64 fp32, 40 epochs
+   with a refresh_data hook that featurizes an augmented view each epoch:
+   exactly 2 mega_fwd, 2 mega_dec_loss_bwd, 2 enc_bwd and 14 wgrad
+   launches a step (counts reset just before), twice from one state to
+   identical bits, the loss falling, per-epoch totals within rtol 1e-3 of
+   the plain path's; per encoding, save_model with model_config.json's
+   "data" section, `python -m vae_assoc_tpu_torch.evaluate DIR --data uji`
+   as a subprocess, every value within rtol = atol = 1e-4 of train/eval.py
+   in process (k-NN 0.01), and a contradicting --traj-encoding exits
+   non-zero; stream_train over 65,536 synthetic pairs at batch 16384 bf16
+   (mega, 1 epoch) gives the bits of a synchronous loop over the same
+   slices. Prints the parser's build and parse seconds, steps/s, the CLI's
+   wall seconds, and stream_train's samples/s beside train_loop_fused's.
 
 The line before the last is the kernel record as JSON, each kernel with
 its bound: the larger of the bytes it must move over 3.35 TB/s and its
@@ -144,7 +167,8 @@ mega_dec_loss_bwd, wgrad, conv_fwd, conv_dw, conv_enc, conv_dec, enc_bwd,
 dec_bwd) also carry a "bf16" object with the same fields; the times of
 mega_dec_loss_bwd, enc_bwd and dec_bwd include their weight-gradient
 launches, and "alone_ms" is the kernel's without them; "eval_launches" is
-the kernel's launches in phase 9's evaluation; enc_bwd and dec_bwd
+the kernel's launches in phase 9's evaluation, "uji_launches" in phase
+10's training and in-process evaluation; enc_bwd and dec_bwd
 also give "nodx_ms" and
 "nodx_bound_ms", with their weight-gradient launches but without dx. The
 last line is {"ok": true, "device": {...}}. Without a CUDA device, or
@@ -1134,17 +1158,19 @@ def train_conv_and_check(card):
         launches = launch_counts()
         want = {k: per_step.get(k, 0) * state.step for k in launches}
         assert state.step == steps and launches == want, f"launch counts {launches} != {want}"
-        return np.array([e["total"] for e in h]), launches
+        return np.array([e["total"] for e in h]), launches, [e["samples_per_sec"] for e in h]
 
     one = dataclasses.replace(tc, steps_per_call=1)
-    plain, _ = run(cfg, dataclasses.replace(one, use_pallas=False), 20, {})
+    plain, _, rate = run(cfg, dataclasses.replace(one, use_pallas=False), 20, {})
     print("config 4, per-step total, plain path: " + " ".join(f"{v:.4f}" for v in plain),
           flush=True)
+    print(f"config 4 plain path: {float(np.median(rate[1:])):.1f} samples/s (train_loop, "
+          f"median of steps 2-20, batch {tc.batch_size} fp32) [{card}]", flush=True)
     runs = {f"conv_pallas {n}": (kcfg, up, CONV_PER_STEP[n]) for n, up in PATHS.items()}
     runs["as shipped (conv, mega)"] = (cfg, "mega", SHIPPED_PER_STEP)
     main = None
     for label, (c, up, per_step) in runs.items():
-        curve, launches = run(c, dataclasses.replace(one, use_pallas=up), 200, per_step)
+        curve, launches, _ = run(c, dataclasses.replace(one, use_pallas=up), 200, per_step)
         rel = float(np.max(np.abs(curve[:20] - plain) / np.abs(plain)))
         print(f"config 4 {label}: 200 steps with exactly {per_step} launches per step; "
               f"20-step curve vs plain: max rel err {rel:.3e} (rtol 1e-3); total "
@@ -1154,6 +1180,22 @@ def train_conv_and_check(card):
         if label == "conv_pallas mega":
             main = launches
     return main
+
+
+def check_conv_plain_bits(card):
+    """Phase 7c: config 4 as it ships (plain convs on the image tower under
+    "mega") and on the plain path, 5 train_loop steps from two copies of
+    one init_train_state in this process: identical bits in every
+    parameter and in every step's total."""
+    from vae_assoc_tpu_torch.tools.time_checkouts import conv_plain_bits
+
+    t0 = time.perf_counter()
+    for path, (same, first, second) in conv_plain_bits(steps=5).items():
+        print(f"config 4 {path}: 5 steps twice from one state: identical bits {same}; totals "
+              f"{' '.join(repr(v) for v in first)} and {' '.join(repr(v) for v in second)} "
+              f"[{card}]", flush=True)
+        assert same, f"config 4 {path}: two runs from one state gave other bits"
+    print(f"config 4 same-bits check took {time.perf_counter() - t0:.2f} s", flush=True)
 
 
 ONE_TOWER_PER_STEP = {
@@ -2010,6 +2052,225 @@ def api_and_eval_check(rng, card):
     return eval_launches
 
 
+UJI_FIXTURE = "tests/fixtures/ujipenchars2_format.txt"
+UJI_EPOCHS = 40  # 3 batches of 64 an epoch from the fixture's 240 characters
+MEGA_PER_STEP = {"mega_fwd": 2, "mega_dec_loss_bwd": 2, "enc_bwd": 2, "wgrad": 14}
+"""Hand-written launches per training step of config 3 on the mega path:
+two towers, 3 + 4 weight-gradient launches each."""
+STREAM_ROWS, STREAM_BATCH = 65536, 16384
+
+
+def _uji_train(cfg, tc, ds, state, seed, epochs=UJI_EPOCHS):
+    """train_loop on ``ds``'s features from a copy of ``state``, with a
+    refresh_data hook that featurizes an augmented view each epoch from a
+    generator seeded with ``seed``. Returns (state, per-epoch totals,
+    wall seconds)."""
+    import copy
+
+    from vae_assoc_tpu_torch.ops.augment import AugmentConfig
+    from vae_assoc_tpu_torch.train import train_loop
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    aug = AugmentConfig()
+    t0 = time.perf_counter()
+    state, h = train_loop(cfg, tc, ds.features(), epochs=epochs, state=copy.deepcopy(state),
+                          refresh_data=lambda e: ds.features(augment=aug, generator=gen))
+    torch.cuda.synchronize()
+    return state, np.array([e["total"] for e in h]), time.perf_counter() - t0
+
+
+def _same_state(a, b) -> bool:
+    return a.step == b.step and all(
+        torch.equal(p, q) for p, q in zip(a.params.parameters(), b.params.parameters()))
+
+
+def data_surface_check(card):
+    """Phase 10: the UJI fixture on the card, from the native parse to
+    `evaluate --data uji`, and the streamed input. Returns the kernels'
+    launches in the mega training run and the in-process evaluations."""
+    import copy
+    import dataclasses
+    import tempfile
+
+    from vae_assoc_tpu_torch import AssocVariationalAutoEncoder, native
+    from vae_assoc_tpu_torch.configs import baseline_config
+    from vae_assoc_tpu_torch.data import PairedDataset, stream_train
+    from vae_assoc_tpu_torch.data.uji import load_uji_files
+    from vae_assoc_tpu_torch.kernels import launch_counts, reset_launches
+    from vae_assoc_tpu_torch.ops.augment import AugmentConfig
+    from vae_assoc_tpu_torch.ops.rbf import rbf_reconstruct
+    from vae_assoc_tpu_torch.train import (eval as ev, eval_params, init_train_state,
+                                           make_train_step, train_loop_fused)
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    fixture = os.path.join(here, UJI_FIXTURE)
+    tol = TOL["float32"]
+    t_phase = t0 = time.perf_counter()
+
+    # 1. Parse: the native parser (built here with g++) against the Python one.
+    lib = native.build()
+    t_build = time.perf_counter() - t0
+    parsed = {}
+    for mode in ("always", "never"):
+        t0 = time.perf_counter()
+        parsed[mode] = load_uji_files([fixture], native=mode)
+        print(f"phase 10: parsed the UJI fixture with native={mode!r} in "
+              f"{time.perf_counter() - t0:.4f} s", flush=True)
+    nat, py = parsed["always"], parsed["never"]
+    for k in ("points", "lengths", "labels"):
+        assert nat[k].dtype == py[k].dtype and np.array_equal(nat[k], py[k]), \
+            f"the native parse's {k} differ from the Python parse's"
+    assert nat["label_names"] == py["label_names"]
+    n = len(nat["labels"])
+    print(f"phase 10: native parser {lib.name} built in {t_build:.2f} s; {n} characters, "
+          f"native = Python bit for bit (points {_digest(nat['points'])})", flush=True)
+
+    # 2. Featurize on the card, twice each, and against the CPU.
+    cpu = {}
+    feats = {}
+    for enc in ("resample", "rbf"):
+        t0 = time.perf_counter()
+        ds = PairedDataset.from_uji([fixture], traj_encoding=enc, device="cuda")
+        got = ds.features()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        again = PairedDataset.from_uji([fixture], traj_encoding=enc, device="cuda").features()
+        assert all(torch.equal(a, b) for a, b in zip(got, again)), f"{enc}: other bits"
+        views = [ds.features(augment=AugmentConfig(),
+                             generator=torch.Generator(device="cuda").manual_seed(7))
+                 for _ in range(2)]
+        assert all(torch.equal(a, b) for a, b in zip(*views)), f"{enc} augmented: other bits"
+        cpu[enc] = PairedDataset.from_uji([fixture], traj_encoding=enc, device="cpu").features()
+        err_img, ok_img = _close(got[0].cpu(), cpu[enc][0], tol)
+        if enc == "rbf":  # the weights of an fp32 solve differ; the curves must not
+            got_c, want_c = rbf_reconstruct(got[1], 100).cpu(), rbf_reconstruct(cpu[enc][1], 100)
+        else:
+            got_c, want_c = got[1].cpu(), cpu[enc][1]
+        err_traj, ok_traj = _close(got_c, want_c, tol)
+        print(f"phase 10: {enc} features {tuple(got[0].shape)} {tuple(got[1].shape)} in "
+              f"{dt:.3f} s, twice identical, augmented view twice identical; sha256 "
+              f"{_digest(torch.cat(got, 1).cpu().numpy())}, augmented "
+              f"{_digest(torch.cat(views[0], 1).cpu().numpy())}; vs the CPU: images "
+              f"{err_img:.2e}, trajectories {err_traj:.2e} (rtol=atol={tol})", flush=True)
+        assert ok_img and ok_traj, f"{enc}: the card's features disagree with the CPU's"
+        feats[enc] = ds
+
+    # 3. Train config 3 on the UJI features, a fresh augmented view each epoch.
+    cfg, tc = baseline_config(3)
+    tc = dataclasses.replace(tc, use_pallas="mega", batch_size=64, compute_dtype="float32",
+                             steps_per_call=1)
+    ds = feats["resample"]
+    state0 = init_train_state(cfg, tc, device="cuda")
+    reset_launches()
+    mega, curve, dt = _uji_train(cfg, tc, ds, state0, seed=11)
+    launches = launch_counts()
+    steps = UJI_EPOCHS * (n // tc.batch_size)
+    want = {k: MEGA_PER_STEP.get(k, 0) * steps for k in launches}
+    assert mega.step == steps and launches == want, f"launch counts {launches} != {want}"
+    again, curve2, _ = _uji_train(cfg, tc, ds, state0, seed=11)
+    assert _same_state(mega, again) and np.array_equal(curve, curve2), \
+        "two runs with refresh_data from one state and seed gave other bits"
+    assert np.isfinite(curve).all() and curve[-5:].mean() < curve[:5].mean(), "no learning"
+    _, plain, _ = _uji_train(cfg, dataclasses.replace(tc, use_pallas=False), ds, state0, seed=11)
+    rel = float(np.max(np.abs(curve - plain) / np.abs(plain)))
+    print(f"phase 10: config 3 mega on the UJI fixture, {UJI_EPOCHS} epochs x "
+          f"{n // tc.batch_size} steps with refresh_data: {steps / dt:.1f} steps/s incl. "
+          f"augmenting (wall); total {curve[0]:.4f} -> {curve[-1]:.4f}, twice identical "
+          f"bits; vs plain max rel err {rel:.3e} (rtol 1e-3); launches {launches} "
+          f"[{card}]", flush=True)
+    assert rel <= 1e-3, "the mega and plain per-epoch totals disagree"
+
+    # 4. Save and evaluate per encoding: in process and through the CLI.
+    eval_launches = {}
+    states = {"resample": mega}
+    rbf_ds = feats["rbf"]
+    states["rbf"], rbf_curve, _ = _uji_train(cfg, tc, rbf_ds, state0, seed=12, epochs=10)
+    assert np.isfinite(rbf_curve).all() and rbf_curve[-1] < rbf_curve[0]
+    with tempfile.TemporaryDirectory() as d:
+        for enc, st in states.items():
+            sub = os.path.join(d, enc)
+            model = AssocVariationalAutoEncoder([], model_config=cfg, train_config=tc)
+            model.state = st
+            model.save_model(sub)
+            with open(os.path.join(sub, "model_config.json")) as f:
+                raw = json.load(f)
+            raw["data"] = {"source": "uji", "traj_encoding": enc, "rbf_centers": 100}
+            with open(os.path.join(sub, "model_config.json"), "w") as f:
+                json.dump(raw, f, indent=1)
+
+            xs = list(feats[enc].features())
+            labels = np.asarray(feats[enc].labels)
+            params = eval_params(tc, st)
+            ekw = dict(compute_dtype=tc.compute_dtype, use_pallas=tc.use_pallas)
+            reset_launches()
+            want = {f"mse_{k}": v for k, v in ev.evaluate(params, xs, cfg, **ekw).items()}
+            em = ev.eval_metrics(params, xs, cfg, batch_size=1024, seed=0, **ekw)
+            want.update({k: v for k, v in em.items() if "->" not in k})
+            want.update(ev.recognition_accuracy(params, xs, labels, cfg, k=5, **ekw))
+            want.update(ev.marginal_log_likelihood(params, xs, cfg, n_importance=16, seed=0,
+                                                   max_samples=4096, **ekw))
+            eval_launches[enc] = launch_counts()
+            t0 = time.perf_counter()
+            out = subprocess.run(
+                [sys.executable, "-m", "vae_assoc_tpu_torch.evaluate", sub, "--data", "uji",
+                 "--uji-paths", fixture, "--mll-samples", "16"],
+                cwd=here, env=dict(os.environ, PYTHONPATH=here), capture_output=True,
+                text=True, timeout=300,
+            )
+            cli_s = time.perf_counter() - t0
+            assert out.returncode == 0, out.stderr[-3000:]
+            res = json.loads(out.stdout.strip().splitlines()[-1])
+            missing = _eval_keys(cfg, mll=True) - set(res)
+            assert not missing, f"the evaluate CLI's output lacks {sorted(missing)}"
+            assert (res["data"], res["n_samples"], res["backend"]) == ("uji", n, "cuda")
+            for key, w in want.items():
+                slack = 0.01 if key.startswith("knn_") else tol + tol * abs(w)
+                assert np.isfinite(res[key]) and abs(res[key] - w) <= slack, \
+                    f"evaluate --data uji ({enc}) {key}: {res[key]} vs in process {w}"
+            other = "resample" if enc == "rbf" else "rbf"
+            bad = subprocess.run(
+                [sys.executable, "-m", "vae_assoc_tpu_torch.evaluate", sub, "--data", "uji",
+                 "--uji-paths", fixture, "--traj-encoding", other],
+                cwd=here, env=dict(os.environ, PYTHONPATH=here), capture_output=True,
+                text=True, timeout=300,
+            )
+            assert bad.returncode != 0 and "contradicts" in bad.stderr, bad.stderr[-2000:]
+            print(f"phase 10: evaluate --data uji ({enc}): exit 0 in {cli_s:.2f} s wall, "
+                  f"{len(res)} keys, each within rtol=atol={tol} of train/eval.py in process "
+                  f"(k-NN 0.01); --traj-encoding {other} exits {bad.returncode} [{card}]",
+                  flush=True)
+            print(f"phase 10: evaluate --data uji ({enc}): " + json.dumps(res), flush=True)
+
+    # 5. The streamed input against a synchronous loop over the same slices.
+    big = dataclasses.replace(tc, batch_size=STREAM_BATCH, compute_dtype="bfloat16")
+    data = [x.cpu().numpy() for x in
+            PairedDataset.from_synthetic(STREAM_ROWS, seed=3, device="cuda").features()]
+    step_fn = make_train_step(cfg, big)
+    start = init_train_state(cfg, big, device="cuda")
+    streamed, hist = stream_train(step_fn, copy.deepcopy(start), data, STREAM_BATCH, seed=5)
+    sync = copy.deepcopy(start)
+    order = np.random.default_rng(5).permutation(STREAM_ROWS)
+    for b in range(STREAM_ROWS // STREAM_BATCH):
+        sel = order[b * STREAM_BATCH:(b + 1) * STREAM_BATCH]
+        sync, _ = step_fn(sync, [torch.from_numpy(x[sel]).to("cuda") for x in data])
+    assert _same_state(streamed, sync), "stream_train's state differs from the synchronous loop's"
+    t0 = time.perf_counter()
+    stream_train(step_fn, copy.deepcopy(start), data, STREAM_BATCH, seed=6)
+    stream_rate = STREAM_ROWS / (time.perf_counter() - t0)
+    dev_data = [torch.from_numpy(x).cuda() for x in data]
+    train_loop_fused(cfg, big, dev_data, epochs=1, device="cuda")
+    _, h = train_loop_fused(cfg, big, dev_data, epochs=1, device="cuda")
+    print(f"phase 10: stream_train over {STREAM_ROWS} pairs at batch {STREAM_BATCH} bf16 mega, "
+          f"1 epoch: the synchronous loop's bits; {stream_rate:.1f} samples/s, "
+          f"train_loop_fused {h[0]['samples_per_sec']:.1f} samples/s [{card}]", flush=True)
+    print(f"phase 10 took {time.perf_counter() - t_phase:.2f} s wall", flush=True)
+    total = dict(launches)
+    for c in eval_launches.values():
+        for k, v in c.items():
+            total[k] = total.get(k, 0) + v
+    return total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch finds no CUDA device", file=sys.stderr)
@@ -2057,6 +2318,7 @@ def main() -> int:
     composable_launches = train_composable_and_check(card)
     # Phase 7c
     conv_launches = train_conv_and_check(card)
+    check_conv_plain_bits(card)
     # Phase 7d
     train_one_modality_and_check(card)
 
@@ -2070,6 +2332,9 @@ def main() -> int:
     # Phase 9
     eval_launches = api_and_eval_check(rng, card)
     errs.update(check_mll_decode(pred.params, rng, card))
+
+    # Phase 10
+    uji_launches = data_surface_check(card)
 
     cd = pred.compute_dtype
     big, small = TRAIN_TIMED[-1], TRAIN_TIMED[0]
@@ -2185,6 +2450,8 @@ def main() -> int:
             "bound_by": bound_by, "library_ms": ms(timed, "library"),
             # launches by phase 9's evaluation and MLL on both kernel settings
             "eval_launches": sum(c.get(name, 0) for c in eval_launches.values()),
+            # launches by phase 10's UJI training and its in-process evaluation
+            "uji_launches": uji_launches.get(name, 0),
         }
         if "alone" in timed["call"]:  # the kernel without its weight-gradient launches
             row["alone_ms"] = ms(timed, "alone")

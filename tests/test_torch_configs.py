@@ -97,18 +97,35 @@ def test_port_never_imports_jax():
         "import vae_assoc_tpu_torch as p\n"
         "mods = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
         "for m in mods: importlib.import_module(m)\n"
-        "assert len(mods) >= 39, mods\n"
+        "assert len(mods) >= 45, mods\n"
         "for need in ('ops.losses', 'ops.sampling', 'ops.resample', 'ops.rasterize',\n"
         "             'kernels.megakernel', 'kernels.sampling', 'kernels.loss',\n"
         "             'train.step', 'train.loop', 'data.pipeline', 'data.synthetic',\n"
         "             'models.conv', 'kernels.conv', 'kernels.conv_mega',\n"
-        "             'api', 'evaluate', 'train.eval', 'utils.logging'):\n"
+        "             'api', 'evaluate', 'train.eval', 'utils.logging',\n"
+        "             'native', 'data.uji', 'data.stream', 'ops.rbf', 'ops.augment',\n"
+        "             'utils.viz'):\n"
         "    assert 'vae_assoc_tpu_torch.' + need in mods, need\n"
         "bad = sorted(k for k in sys.modules if k in ('jax', 'vae_assoc_tpu') or k.startswith(('jax.', 'vae_assoc_tpu.')))\n"
         "assert not bad, bad\n"
+        "assert 'matplotlib' not in sys.modules  # viz imports it only to plot\n"
         "print(len(mods))\n"
     )
     env = dict(os.environ, PYTHONPATH=REPO)
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
+
+
+def test_import_makes_cudnn_deterministic():
+    """cuDNN's convolution backward may add with atomics; the port turns
+    deterministic algorithms on at import, with benchmark left off."""
+    code = ("import torch, vae_assoc_tpu_torch\n"
+            "b = torch.backends\n"
+            "print(b.cudnn.deterministic, b.cudnn.benchmark, b.cudnn.allow_tf32,"
+            " b.cuda.matmul.allow_tf32)\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         env=dict(os.environ, PYTHONPATH=REPO), capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == ["True", "False", "False", "False"]

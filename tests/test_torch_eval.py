@@ -215,15 +215,77 @@ def test_evaluate_cli_on_a_converted_jax_model_matches_the_jax_cli(tmp_path):
         assert got[f"iwae_{m}"] >= got[f"elbo_{m}"]
 
 
-@pytest.mark.parametrize("flags", [["--data", "uji", "--uji-paths", "x.txt"],
-                                   ["--traj-encoding", "rbf"]], ids=["uji", "rbf"])
-def test_evaluate_cli_refuses_the_unported_data_surface(flags, tmp_path):
-    tv.AssocVariationalAutoEncoder([_arch(784), _arch(200)], device="cpu").save_model(
-        tmp_path)
-    with pytest.raises(SystemExit, match="item 10"):
-        teval_cli.main([str(tmp_path), "--device", "cpu", *flags])
+@pytest.mark.parametrize("flags,match", [
+    (["--data", "uji"], "requires --uji-paths"),
+    (["--traj-encoding", "rbf", "--rbf-centers", "50"], "feature width mismatch"),
+], ids=["uji", "rbf"])
+def test_evaluate_cli_refuses_the_unported_data_surface(flags, match, tmp_path):
+    """What the data surface refuses: UJI without files, and features whose
+    width is not the arch's (50 RBF centers give 100, the model takes 200)."""
+    tv.AssocVariationalAutoEncoder([_arch(784), _arch(200)], names=["image", "trajectory"],
+                                   device="cpu").save_model(tmp_path)
+    with pytest.raises(SystemExit, match=match):
+        teval_cli.main([str(tmp_path), "--device", "cpu", "--n-samples", "8", *flags])
     with pytest.raises(SystemExit, match="model_config.json"):
         teval_cli.main([str(tmp_path / "missing"), "--device", "cpu"])
+
+
+FIXTURE = os.path.join(REPO, "tests", "fixtures", "ujipenchars2_format.txt")
+
+
+def _record_data(model_dir, traj_encoding, rbf_centers):
+    """Write model_config.json's "data" section as the JAX package's
+    training driver does."""
+    path = os.path.join(model_dir, "model_config.json")
+    with open(path) as f:
+        raw = json.load(f)
+    raw["data"] = {"source": "uji", "traj_encoding": traj_encoding, "rbf_centers": rbf_centers}
+    with open(path, "w") as f:
+        json.dump(raw, f)
+
+
+def test_evaluate_cli_on_uji_matches_the_jax_cli(tmp_path):
+    jm = jv.AssocVariationalAutoEncoder(
+        [_arch(784), _arch(200)], recon_types=["bernoulli", "gaussian"],
+        names=["image", "trajectory"], batch_size=16, learning_rate=0.01)
+    jm.partial_fit(_data(16, (784, 200)))
+    jdir, tdir = str(tmp_path / "jax"), str(tmp_path / "torch")
+    jm.save_model(jdir)
+    _record_data(jdir, "resample", 100)
+    _converter().convert_dir(jdir, tdir)
+    flags = ["--data", "uji", "--uji-paths", FIXTURE, "--batch-size", "64",
+             "--mll-samples", "2"]
+    want = _cli(jeval_cli.main, [jdir, "--cpu", *flags])
+    got = _cli(teval_cli.main, [tdir, "--device", "cpu", *flags])
+    assert sorted(got) == sorted(want)
+    assert (got["data"], got["n_samples"], got["backend"]) == ("uji", 240, "cpu")
+    for k in want:
+        if k.startswith("mse_"):
+            np.testing.assert_allclose(got[k], want[k], rtol=RTOL, atol=ATOL, err_msg=k)
+        elif k.startswith("knn_"):
+            assert abs(got[k] - want[k]) <= 1.0 / 240, k  # at most one neighbour set
+        elif k not in ("model_dir", "data", "backend"):
+            assert np.isfinite(got[k]), k
+
+
+def test_evaluate_cli_resolves_the_recorded_rbf_encoding(tmp_path):
+    """A model trained on 20 RBF centers (40-wide trajectory features):
+    the recorded "data" section selects the encoding, an explicit
+    contradicting --traj-encoding exits, and a width off the arch exits."""
+    tv.AssocVariationalAutoEncoder([_arch(784), _arch(40)], names=["image", "trajectory"],
+                                   device="cpu").save_model(tmp_path)
+    base = [str(tmp_path), "--device", "cpu", "--data", "uji", "--uji-paths", FIXTURE,
+            "--batch-size", "64"]
+    with pytest.raises(SystemExit, match="feature width mismatch"):
+        teval_cli.main(base)  # nothing recorded: resample, 200 wide
+    _record_data(str(tmp_path), "rbf", 20)
+    res = _cli(teval_cli.main, base)
+    assert res["n_samples"] == 240 and np.isfinite(res["mse_image->trajectory"])
+    assert res == _cli(teval_cli.main, [*base, "--traj-encoding", "rbf"])
+    with pytest.raises(SystemExit, match="contradicts the recorded"):
+        teval_cli.main([*base, "--traj-encoding", "resample"])
+    with pytest.raises(SystemExit, match="feature width mismatch"):
+        teval_cli.main([*base, "--rbf-centers", "30"])
 
 
 def test_evaluate_cli_on_a_conditional_model(tmp_path):

@@ -10,6 +10,7 @@ summation order), 1e-6 for the optimizer fed identical gradients.
 
 import contextlib
 import dataclasses
+import os
 import warnings
 
 import jax
@@ -436,8 +437,12 @@ def test_pipeline_features_match_jax():
     assert ti.shape == (29, 784) and tt.shape == (29, 200)
     np.testing.assert_allclose(ti.numpy(), np.asarray(ji), rtol=1e-5, atol=1e-5)
     np.testing.assert_allclose(tt.numpy(), np.asarray(jt), rtol=1e-5, atol=1e-5)
-    with pytest.raises(NotImplementedError, match="uji"):
-        tpipe.PairedDataset.from_uji(["x.txt"])
+    fixture = os.path.join(os.path.dirname(__file__), "fixtures", "ujipenchars2_format.txt")
+    ji, jt = jpipe.PairedDataset.from_uji([fixture]).features()
+    ti, tt = tpipe.PairedDataset.from_uji([fixture], device="cpu").features()
+    assert ti.shape == (240, 784) and tt.shape == (240, 200)
+    np.testing.assert_allclose(ti.numpy(), np.asarray(ji), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(tt.numpy(), np.asarray(jt), rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.parametrize("entry", ["init_train_state", "train_loop", "train_loop_fused",

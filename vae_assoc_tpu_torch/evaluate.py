@@ -14,8 +14,12 @@ runs the evaluation battery without retraining, on the card unless
   probed label-blind with the uniform class prior),
 - with ``--mll-samples K``, the IWAE and ELBO bounds (``iwae_*``, ``elbo_*``).
 
-One JSON object on stdout. ``--data uji`` and ``--traj-encoding rbf`` need
-the UJI loader and the RBF encoding, which the port does not have yet.
+The data are synthetic strokes or UJI Pen Characters v2 files (``--data
+uji --uji-paths FILE ...``), featurized as the model was trained: the
+trajectory encoding and RBF width come from model_config.json's "data"
+section unless given, an explicit ``--traj-encoding`` contradicting the
+recorded one exits, and every feature width is checked against the arch.
+One JSON object on stdout.
 """
 
 from __future__ import annotations
@@ -24,11 +28,6 @@ import argparse
 import json
 import os
 import sys
-
-_NOT_PORTED = ("{what} needs {mod}, which the PyTorch port does not have yet "
-               "(ROADMAP.md item 10, the data surface); evaluate with the JAX "
-               "package's vae-assoc-eval")
-
 
 def _build_parser():
     p = argparse.ArgumentParser(
@@ -88,17 +87,20 @@ def main(argv=None) -> int:
             "(model_config.json 'data')"
         )
     enc = args.traj_encoding or meta.get("traj_encoding") or "resample"
-    if enc == "rbf":
-        raise SystemExit(_NOT_PORTED.format(what="--traj-encoding rbf", mod="ops/rbf.py"))
-    if args.data == "uji":
-        raise SystemExit(_NOT_PORTED.format(what="--data uji", mod="data/uji.py"))
+    centers = args.rbf_centers or meta.get("rbf_centers") or 100
+    if args.data == "uji" and not args.uji_paths:
+        raise SystemExit("--data uji requires --uji-paths")
 
     device = cuda_or_raise(args.device, "evaluate")
     state = ckpt.restore(model_dir, init_train_state(cfg, tc, device=device), step=args.step)
     # EMA-trained models evaluate on the debiased averaged weights.
     params = eval_params(tc, state)
 
-    ds = PairedDataset.from_synthetic(args.n_samples, seed=args.data_seed, device=device)
+    kw = dict(traj_encoding=enc, rbf_centers=centers, device=device)
+    if args.data == "uji":
+        ds = PairedDataset.from_uji(args.uji_paths, **kw)
+    else:
+        ds = PairedDataset.from_synthetic(args.n_samples, seed=args.data_seed, **kw)
     imgs, trajs = ds.features()
     by_name = {"image": imgs, "trajectory": trajs}
     missing = [m.name for m in cfg.modalities if m.name not in by_name]
@@ -109,7 +111,8 @@ def main(argv=None) -> int:
         if int(x.shape[1]) != int(m.arch["n_input"]):
             raise SystemExit(
                 f"feature width mismatch for {m.name!r}: dataset gives "
-                f"{int(x.shape[1])}, model expects {m.arch['n_input']}"
+                f"{int(x.shape[1])}, model expects {m.arch['n_input']}; check "
+                "--traj-encoding/--rbf-centers against the training run"
             )
 
     labels = None if ds.labels is None else np.asarray(ds.labels)

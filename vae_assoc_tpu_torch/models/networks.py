@@ -19,6 +19,11 @@ Precision policy, set once here for the whole package:
 - ``compute_dtype="float32"``: true fp32 multiplies. TF32 is switched off
   for matmuls and cuDNN at import, since PyTorch lets cuDNN use TF32 by
   default and TF32 keeps about three decimal digits.
+- cuDNN runs deterministic algorithms (``torch.backends.cudnn.deterministic``,
+  set at import): some of its convolution backward algorithms add with
+  atomics, so the plain conv tower's gradients would change in the last
+  bits from run to run. ``benchmark`` stays off, so the choice does not
+  follow timings either.
 - ``compute_dtype="bfloat16"``: each matmul operand is rounded to bf16 and
   the product accumulates in fp32, as the JAX kernels' ``_mm`` does with
   ``preferred_element_type=float32``. ``torch.matmul`` on bf16 tensors
@@ -35,6 +40,7 @@ from torch import nn
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
+torch.backends.cudnn.deterministic = True
 
 COMPUTE_DTYPES = ("float32", "bfloat16")
 

@@ -10,6 +10,14 @@ from __future__ import annotations
 import torch
 
 
+def arc_length_resample(points: torch.Tensor, length, num_samples: int):
+    """One padded polyline [max_pts, D] with ``length`` valid points →
+    [num_samples, D] uniform in arc length (:func:`batch_resample` on a
+    batch of one)."""
+    length = torch.as_tensor(length, device=points.device).reshape(1)
+    return batch_resample(points[None], length, num_samples)[0]
+
+
 def batch_resample(points: torch.Tensor, lengths: torch.Tensor, num_samples: int):
     """[B, max_pts, D] + [B] lengths → [B, num_samples, D], uniform in arc length.
 
@@ -53,3 +61,27 @@ def normalize_and_flatten(points: torch.Tensor, lengths: torch.Tensor,
     if flatten:
         return traj.reshape(traj.shape[0], -1)
     return traj
+
+
+def validate_strokes(points: torch.Tensor, lengths: torch.Tensor) -> bool:
+    """Check strokes against the resampler's contract, raising ValueError.
+
+    Lengths outside [1, max_pts] would make the clamped gathers silently
+    wrong, and a non-finite point inside a stroke poisons the arc-length
+    cumsum; padding past each length is not read. The JAX package runs the
+    same three checks under checkify, with the same messages."""
+    max_pts = points.shape[-2]
+    lengths = torch.as_tensor(lengths, device=points.device)
+    if not bool(torch.all(lengths >= 1)):
+        raise ValueError("stroke lengths must be >= 1")
+    if not bool(torch.all(lengths <= max_pts)):
+        raise ValueError(f"stroke lengths exceed the padded point capacity {max_pts}")
+    valid = torch.arange(max_pts, device=points.device)[None, :, None] < lengths[:, None, None]
+    if not bool(torch.all(torch.where(valid, torch.isfinite(points), True))):
+        raise ValueError("non-finite coordinates inside valid stroke region")
+    return True
+
+
+def unflatten_trajectory(flat: torch.Tensor, n_dims: int = 2):
+    """[B, T·D] → [B, T, D]: undo the pipeline's flattening (plots, robots)."""
+    return flat.reshape(flat.shape[0], -1, n_dims)

@@ -37,9 +37,13 @@ reads ``train_loop_fused``'s samples/s on 65,536 synthetic pairs
 featurized on the card (after one warm-up run each): config 3 on the mega
 path at batch 16384 bf16 (steps_per_call=4, 4 epochs) and config 5's
 settings (batch 1024 bf16) on the composable, mega and plain paths (2
-epochs each). It prints one line per (root, round, case) and, as its last
-line, a JSON object of the means per root with the card's name and power
-limit. Exits non-zero without a CUDA card.
+epochs each), and config 4's on the plain path (``use_pallas=False``,
+plain ``F.conv2d`` on the image tower) at batch 64 fp32 on 4096 pairs and
+batch 2048 bf16 on 16384 (1 epoch each); and whether config 4's step
+repeats its bits (:func:`conv_plain_bits`: 1 if it does, else 0). It
+prints one line per (root, round, case) and, as its last line, a JSON
+object of the means per root with the card's name and power limit. Exits
+non-zero without a CUDA card.
 """
 
 from __future__ import annotations
@@ -107,9 +111,41 @@ def _busy_ms(fn, n=10):
     return us / n / 1e3 if us > 0 and sum(e.count for e in device) >= n else None
 
 
+def conv_plain_bits(steps: int = 5) -> dict:
+    """Config 4 (batch 64 fp32) as it ships (``"mega"``: plain convs on the
+    image tower, the megakernel on the trajectory tower) and on the plain
+    path: ``steps`` train_loop steps from two copies of one
+    ``init_train_state``, in this process. Returns {path: (identical bits
+    in every parameter and every step's total, the totals of each copy)}."""
+    import copy
+    import dataclasses
+
+    import torch
+
+    from vae_assoc_tpu_torch.configs import baseline_config
+    from vae_assoc_tpu_torch.data import PairedDataset
+    from vae_assoc_tpu_torch.train import init_train_state, train_loop
+
+    cfg, tc = baseline_config(4)
+    batch = list(PairedDataset.from_synthetic(tc.batch_size, seed=0, device="cuda").features())
+    out = {}
+    for path, up in (("shipped", tc.use_pallas), ("plain", False)):
+        t = dataclasses.replace(tc, use_pallas=up, steps_per_call=1)
+        state = init_train_state(cfg, t, device="cuda")
+        runs = []
+        for _ in range(2):
+            s, h = train_loop(cfg, t, batch, epochs=steps, state=copy.deepcopy(state))
+            runs.append((list(s.params.parameters()), [e["total"] for e in h]))
+        (p1, t1), (p2, t2) = runs
+        same = t1 == t2 and all(torch.equal(a, b) for a, b in zip(p1, p2))
+        out[path] = (same, t1, t2)
+    return out
+
+
 def _train_rates() -> dict:
-    """train_loop_fused samples/s: config 3 mega at batch 16384 bf16, and
-    config 5's settings on its three paths."""
+    """train_loop_fused samples/s: config 3 mega at batch 16384 bf16,
+    config 5's settings on its three paths and config 4 plain; and whether
+    config 4's plain step repeats its bits."""
     import dataclasses
 
     from vae_assoc_tpu_torch.configs import baseline_config
@@ -119,18 +155,26 @@ def _train_rates() -> dict:
     data = list(PairedDataset.from_synthetic(65536, seed=0, device="cuda").features())
     cfg3, tc3 = baseline_config(3)
     cfg5, tc5 = baseline_config(5)
-    runs = {
+    cfg4, tc4 = baseline_config(4)
+    runs = {  # name: (cfg, tc, epochs, rows)
         "config 3 mega batch 16384 bf16": (cfg3, dataclasses.replace(
             tc3, use_pallas="mega", batch_size=16384, compute_dtype="bfloat16",
-            steps_per_call=4), 4),
-        **{f"config 5 {name}": (cfg5, dataclasses.replace(tc5, use_pallas=up), 2)
+            steps_per_call=4), 4, 65536),
+        **{f"config 5 {name}": (cfg5, dataclasses.replace(tc5, use_pallas=up), 2, 65536)
            for name, up in (("composable", True), ("mega", "mega"), ("plain", False))},
+        "config 4 plain batch 64 fp32": (cfg4, dataclasses.replace(
+            tc4, use_pallas=False, batch_size=64, compute_dtype="float32"), 1, 4096),
+        "config 4 plain batch 2048 bf16": (cfg4, dataclasses.replace(
+            tc4, use_pallas=False, batch_size=2048, compute_dtype="bfloat16"), 1, 16384),
     }
     rates = {}
-    for name, (cfg, tc, epochs) in runs.items():
-        train_loop_fused(cfg, tc, data, epochs=1, device="cuda")
-        _, h = train_loop_fused(cfg, tc, data, epochs=epochs, device="cuda")
+    for name, (cfg, tc, epochs, rows) in runs.items():
+        part = [d[:rows] for d in data]
+        train_loop_fused(cfg, tc, part, epochs=1, device="cuda")
+        _, h = train_loop_fused(cfg, tc, part, epochs=epochs, device="cuda")
         rates[f"train_loop_fused {name} samples/s"] = h[0]["samples_per_sec"]
+    for path, (same, _, _) in conv_plain_bits().items():
+        rates[f"config 4 {path} same bits"] = float(same)
     return rates
 
 
@@ -246,7 +290,7 @@ def main(argv) -> int:
         times = json.loads(out.stdout.strip().splitlines()[-1])
         runs[root].append(times)
         for case, v in times.items():
-            unit = "" if case.endswith("samples/s") else " ms"
+            unit = "" if case.endswith(("samples/s", "same bits")) else " ms"
             print(f"{root} round {len(runs[root])}: {case} "
                   f"{'not measured' if v is None else f'{v:.4f}{unit}'} [{card}]", flush=True)
     means = {r: {c: (None if any(t.get(c) is None for t in ts) else sum(t[c] for t in ts) / len(ts))

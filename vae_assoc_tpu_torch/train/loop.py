@@ -46,15 +46,19 @@ def _device(state, data, device, what):
 
 def train_loop(cfg: AssocConfig, tc: TrainConfig, data, *, epochs: int = 10,
                state: TrainState | None = None, display_step: int = 1,
-               on_metrics=None, shuffle: bool = True, device=None):
+               on_metrics=None, shuffle: bool = True, device=None, refresh_data=None):
     """Train for ``epochs`` over K row-paired arrays [N, n_input_k].
 
     Each epoch's permutation is ``np.random.default_rng([tc.seed,
     start_step]).permutation(N)`` drawn in sequence, the JAX package's
     stream, gathered on the device into ``steps_per_call`` stacks; the
     remainder past whole batches is dropped. ``on_metrics(epoch, metrics)``
-    runs every ``display_step`` epochs. Returns (state, history of
-    per-epoch mean metrics with ``samples_per_sec``)."""
+    runs every ``display_step`` epochs. ``refresh_data(epoch)``, called at
+    each epoch's start with the loop's own epoch index, returns the K
+    arrays to train that epoch on, of the original shapes (the per-epoch
+    augmentation hook: ``PairedDataset.features(augment=, generator=)``).
+    Returns (state, history of per-epoch mean metrics with
+    ``samples_per_sec``)."""
     dev = _device(state, data, device, "train_loop")
     dev_data = _stage(data, dev)
     n = dev_data[0].shape[0]
@@ -73,6 +77,16 @@ def train_loop(cfg: AssocConfig, tc: TrainConfig, data, *, epochs: int = 10,
 
     history = []
     for epoch in range(epochs):
+        if refresh_data is not None:
+            fresh = list(refresh_data(epoch))
+            if len(fresh) != len(dev_data) or any(
+                    tuple(f.shape) != tuple(d.shape) for f, d in zip(fresh, dev_data)):
+                raise ValueError(
+                    "refresh_data must return arrays with the original shapes "
+                    f"{[tuple(d.shape) for d in dev_data]}, got "
+                    f"{[tuple(f.shape) for f in fresh]}"
+                )
+            dev_data = _stage(fresh, dev)
         perm = shuffle_rng.permutation(n) if shuffle else np.arange(n)
         idx = torch.as_tensor(perm[:used], dtype=torch.int64, device=dev)
         stacks = [a[idx].reshape(n_calls, spc, bs, a.shape[-1]) for a in dev_data]
