@@ -157,6 +157,27 @@ Phases, each of which raises on failure (nothing is caught):
    (mega, 1 epoch) gives the bits of a synchronous loop over the same
    slices. Prints the parser's build and parse seconds, steps/s, the CLI's
    wall seconds, and stream_train's samples/s beside train_loop_fused's.
+11. The deploy path: config 3 (phase 4's weights), config 4 with
+   encoder="conv_pallas" and config 3 conditional (n_cond=10) at full
+   width, each written with save_params and exported by `python -m
+   vae_assoc_tpu_torch.export DIR OUT --device cuda` (the three at once);
+   a fresh process loads the three artifacts on the card, poisons the
+   model modules and serves every endpoint at batches 1, 7, 64, 257, 1024,
+   4096 and 5000 (chunked): each output within rtol = atol = 1e-5 of the
+   plain Predictor and within phase 4's tolerance of the kernel-path
+   Predictor (whose launches, counted from 0, must include enc_fwd,
+   dec_fwd and conv_fwd); config 3 exported on the CPU and served on the
+   card within 1e-5 of the card-written artifact, launching no kernel;
+   `serve_http --from-export --compile-cache DIR` as a subprocess answers
+   one POST per route (within 1e-4 of plain) and exits 0 on SIGTERM; phase
+   2's library copied into a fresh cache directory serves the kernel path
+   in a process with --compile-cache, an empty CUDA_HOME and no nvcc on
+   PATH, without a build (start seconds beside phase 2's build seconds).
+   Prints the artifact's load and warmup seconds, cross_generate
+   image->trajectory p50/p95 of the artifact, the kernel path and plain at
+   buckets 1 to 4096, and an empty kernel's launch timed beside the
+   sampler at B = 1024 and 16384, as the kernel rows are and queued behind
+   a spin kernel.
 
 The line before the last is the kernel record as JSON, each kernel with
 its bound: the larger of the bytes it must move over 3.35 TB/s and its
@@ -168,7 +189,11 @@ dec_bwd) also carry a "bf16" object with the same fields; the times of
 mega_dec_loss_bwd, enc_bwd and dec_bwd include their weight-gradient
 launches, and "alone_ms" is the kernel's without them; "eval_launches" is
 the kernel's launches in phase 9's evaluation, "uji_launches" in phase
-10's training and in-process evaluation; enc_bwd and dec_bwd
+10's training and in-process evaluation, "export_launches" by phase 11's
+kernel-path Predictors; reparam also gives "floor_ms", an empty kernel's
+launch timed as its row, and "queued_ms" and "floor_queued_ms", the two
+queued behind a spin kernel (the device's time a launch, without the
+host's pace); enc_bwd and dec_bwd
 also give "nodx_ms" and
 "nodx_bound_ms", with their weight-gradient launches but without dx. The
 last line is {"ok": true, "device": {...}}. Without a CUDA device, or
@@ -178,6 +203,7 @@ no result.
 
 from __future__ import annotations
 
+import functools
 import hashlib
 import json
 import os
@@ -2271,6 +2297,372 @@ def data_surface_check(card):
     return total
 
 
+EXPORT_BATCHES = (1, 7, 64, 257, 1024, 4096, 5000)  # 5000: chunked past MAX_BUCKET
+EXPORT_TOL = 1e-5  # the artifact against the plain Predictor: the same aten ops
+EXPORT_COND = 10  # phase 11's conditional model, as phase 3's conditional tower
+
+# Phase 11's fresh process: load each artifact on the card, poison the model
+# modules, run every endpoint at every batch on the saved requests and save
+# the outputs. It imports this file for the batches and the verbs.
+EXPORT_CHILD = """
+import sys
+import numpy as np
+from chip_smoke import EXPORT_BATCHES, _export_verbs
+from vae_assoc_tpu_torch.export import ExportedPredictor
+
+out, inputs, jobs = sys.argv[1], np.load(sys.argv[2]), sys.argv[3:]
+eps = {label: ExportedPredictor.load(art, device="cuda")
+       for label, art in zip(jobs[0::2], jobs[1::2])}
+for name in list(sys.modules):
+    if "vae_assoc_tpu_torch.models" in name or name.endswith(".serve"):
+        del sys.modules[name]
+sys.modules["vae_assoc_tpu_torch.models"] = None  # an import would raise
+sys.modules["vae_assoc_tpu_torch.serve"] = None
+res = {}
+for label, ep in eps.items():
+    img, traj, z = (inputs[f"{label}/{k}"] for k in ("img", "traj", "z"))
+    cond = inputs[f"{label}/cond"] if f"{label}/cond" in inputs.files else None
+    for b in EXPORT_BATCHES:
+        got = _export_verbs(ep, img[:b], traj[:b], z[:b], None if cond is None else cond[:b])
+        res.update({f"{label}/{b}/{k}": v for k, v in got.items()})
+np.savez(out, **res)
+print(f"{len(res)} outputs of {len(eps)} artifacts in a process without model code")
+"""
+
+
+def _export_verbs(p, img, traj, z, cond=None):
+    """Every exported endpoint of a Predictor-like object on one batch, by
+    endpoint name (phase 11; its fresh process imports this)."""
+    ck = {} if cond is None else {"cond": cond}
+    xs = [img, traj] + ([] if cond is None else [cond])
+    outs = {f"transform[{i}]": o for i, o in enumerate(p.transform(xs))}
+    for j in (0, 1):
+        outs[f"generate_{j}"] = p.generate(z, j, **ck)
+    for i, x in enumerate((img, traj)):
+        for j in (0, 1):
+            outs[f"cross_generate_{i}_{j}"] = p.cross_generate(x, i, j, **ck)
+    return outs
+
+
+def _serve_http(root, args, env):
+    """Start ``python -m vae_assoc_tpu_torch.serve_http *args`` on the card;
+    returns (process, base URL, seconds to the bound socket, its lines so
+    far). A process that has not bound its socket in 300 s is killed."""
+    import threading
+
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "vae_assoc_tpu_torch.serve_http", *args, "--device", "cuda",
+         "--port", "0"], cwd=root, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+    timer = threading.Timer(300, proc.kill)
+    timer.start()
+    lines = []
+    try:
+        for line in proc.stdout:
+            lines.append(line.rstrip())
+            if " on http://" in line:
+                break
+    finally:
+        timer.cancel()
+    if not lines or " on http://" not in lines[-1]:
+        proc.kill()
+        proc.wait()
+        raise RuntimeError("serve_http did not bind its socket:\n" + "\n".join(lines[-40:]))
+    base = lines[-1].split(" on ", 1)[1].split(" ", 1)[0]
+    return proc, base, time.perf_counter() - t0, lines
+
+
+def _stop(proc):
+    """SIGTERM, as an orchestrator stops a server; returns (exit code, output)."""
+    import signal
+
+    proc.send_signal(signal.SIGTERM)
+    try:
+        out, _ = proc.communicate(timeout=60)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise
+    return proc.returncode, out
+
+
+def _http_verbs(base, img, traj, z):
+    """One POST per route (both cross_generate directions), and /healthz."""
+    assert _get(base, "/healthz")["status"] == "ok"
+    post = functools.partial(_post, base)
+    return {
+        "transform[0]": post("/v1/transform",
+                             {"inputs": [img.tolist(), traj.tolist()]})["latents"][0],
+        "generate_0": post("/v1/generate", {"latents": z.tolist(),
+                                            "modality": "image"})["outputs"],
+        "cross_generate_0_0": post("/v1/reconstruct", {"inputs": img.tolist(),
+                                                       "modality": "image"})["outputs"],
+        "cross_generate_0_1": post("/v1/cross_generate",
+                                   {"inputs": img.tolist(), "src": "image",
+                                    "dst": "trajectory"})["outputs"],
+        "cross_generate_1_0": post("/v1/cross_generate",
+                                   {"inputs": traj.tolist(), "src": "trajectory",
+                                    "dst": "image"})["outputs"],
+    }
+
+
+def time_export_serving(ep, pred, plain, rng, card, buckets=BUCKETS):
+    """Phase 11: host-clock latency of cross_generate image→trajectory on
+    the exported artifact, the kernel-path and the plain Predictor, in turns
+    (plain, kernel, export, export, kernel, plain), 25 calls each a turn."""
+    paths = {"export": ep, "kernel": pred, "plain": plain}
+    for b in buckets:
+        x = rng.uniform(0, 1, (b, 784)).astype(np.float32)
+        for p in paths.values():
+            for _ in range(3):
+                p.cross_generate(x, "image", "trajectory")
+        samples = {name: [] for name in paths}
+        for name in ("plain", "kernel", "export", "export", "kernel", "plain"):
+            p = paths[name]
+            samples[name] += _pcts(lambda: p.cross_generate(x, "image", "trajectory"), 25)
+        print(f"latency config 3 cross_generate image->trajectory bucket={b}: " + "; ".join(
+            f"{name} p50={np.percentile(s, 50):.4f} p95={np.percentile(s, 95):.4f} ms"
+            for name, s in samples.items()) + f" [{card}]", flush=True)
+
+
+def _queued_ms(fn, n=100):
+    """Device ms per call of ``fn`` with ``n`` calls queued behind a spin
+    kernel (``torch.cuda._sleep``), so that the device runs them back to
+    back and the host's pace, which CUDA events around calls of a few µs
+    read instead, does not show. The spin grows until it outlasts the
+    host's queueing (the start event still pending when the last call is
+    queued)."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    for cycles in (10**7, 10**8, 10**9):
+        torch.cuda.synchronize()
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(n):
+            fn()
+        end.record()
+        queued = not start.query()
+        torch.cuda.synchronize()
+        if queued:
+            return start.elapsed_time(end) / n
+    raise RuntimeError("the host did not queue the calls before the spin kernel ended")
+
+
+def time_launch_floor(card):
+    """Phase 11: one launch of an empty kernel of the library, timed in the
+    same windows and by the same means as the kernel rows (CUDA events around
+    10 calls; the profiler's busy time), beside the sampler at B = 1024 and
+    16384; and both again queued behind a spin (``_queued_ms``). Returns
+    {batch: the timed case, with the queued times under "queued"}."""
+    from vae_assoc_tpu_torch.kernels import _build
+    from vae_assoc_tpu_torch.kernels import sampling as ksamp
+
+    lib = _build.load()
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def empty():
+        _build.check(lib, lib.vae_empty(stream), "empty kernel launch")
+
+    times = {}
+    with torch.no_grad():
+        for b in TRAIN_TIMED:
+            mu = torch.rand(b, 20, device="cuda")
+            lv = torch.rand(b, 20, device="cuda")
+            fns = {"kernel": lambda: ksamp.reparameterize_kernel(mu, lv, 5),
+                   "plain": lambda: ksamp.reparameterize_plain(mu, lv, 5), "floor": empty}
+            times[b] = _time_case(f"reparam beside the launch floor B={b} float32", fns,
+                                  card, _bound(*_reparam_work(b)), n=10)
+            times[b]["queued"] = {w: _queued_ms(fns[w]) for w in ("kernel", "floor")}
+            print(f"time reparam B={b} float32 queued behind a spin, device ms per launch: "
+                  f"kernel {times[b]['queued']['kernel']:.4f}, empty kernel "
+                  f"{times[b]['queued']['floor']:.4f} [{card}]", flush=True)
+    return times
+
+
+def export_and_check(rng, card, pred, plain, lib_path, build_s):
+    """Phase 11: the deploy path. Returns (the kernels' launches by the
+    kernel-path Predictors the artifacts are held against, the launch
+    floor's timed cases)."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    from vae_assoc_tpu_torch.configs import baseline_config
+    from vae_assoc_tpu_torch.export import ExportedPredictor, export_predictor
+    from vae_assoc_tpu_torch.kernels import launch_counts, reset_launches
+    from vae_assoc_tpu_torch.models.assoc import init_assoc
+    from vae_assoc_tpu_torch.serve import Predictor
+    from vae_assoc_tpu_torch.utils.checkpoint import save_params
+
+    t_phase = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root)
+    cfg3, tc3 = baseline_config(3)
+    cfg4, tc4 = baseline_config(4)
+    kcfg4 = _conv_pallas(cfg4)
+    ccfg = dataclasses.replace(cfg3, modalities=[
+        dataclasses.replace(m, n_cond=EXPORT_COND) for m in cfg3.modalities])
+    m4, mc = init_assoc(0, kcfg4, device="cuda"), init_assoc(0, ccfg, device="cuda")
+    kw = dict(device="cuda", compute_dtype=tc3.compute_dtype)
+    # label: (kernel-path Predictor, plain Predictor, saved config, its train config)
+    models = {
+        "config3": (pred, plain, cfg3, tc3),
+        "config4": (Predictor(m4, kcfg4, use_pallas=True, **kw),
+                    Predictor(m4, cfg4, use_pallas=False, **kw), kcfg4, tc4),
+        "cond": (Predictor(mc, ccfg, use_pallas=True, **kw),
+                 Predictor(mc, ccfg, use_pallas=False, **kw), ccfg, tc3),
+    }
+    with tempfile.TemporaryDirectory() as tmp:
+        # 1. Save each model and export it with the CLI on the card, the
+        # three exports at once.
+        procs = {}
+        for label, (kp, _, cfg, tc) in models.items():
+            save_params(f"{tmp}/{label}_model", kp.params, cfg,
+                        dataclasses.replace(tc, use_pallas=True))
+            procs[label] = (time.perf_counter(), subprocess.Popen(
+                [sys.executable, "-m", "vae_assoc_tpu_torch.export", f"{tmp}/{label}_model",
+                 f"{tmp}/{label}_art", "--device", "cuda"], cwd=root, env=env,
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        for label, (t0, proc) in procs.items():
+            out, _ = proc.communicate(timeout=600)
+            assert proc.returncode == 0, f"export CLI of {label} exited {proc.returncode}:\n{out}"
+            with open(f"{tmp}/{label}_art/manifest.json") as f:
+                manifest = json.load(f)
+            assert manifest["platforms"] == ["cuda"] and len(manifest["endpoints"]) == 7
+            print(f"phase 11: {label}: {out.strip()} ({time.perf_counter() - t0:.2f} s "
+                  f"wall, the three CLIs at once)", flush=True)
+
+        # 2. An artifact written on the CPU, served on the card.
+        t0 = time.perf_counter()
+        export_predictor(Predictor.load(f"{tmp}/config3_model", device="cpu"), f"{tmp}/cpu_art")
+        print(f"phase 11: config3 exported on the CPU in {time.perf_counter() - t0:.2f} s",
+              flush=True)
+        t0 = time.perf_counter()
+        ep3 = ExportedPredictor.load(f"{tmp}/config3_art", device="cuda")
+        t1 = time.perf_counter()
+        ep3.warmup((64, 128, 256, 512, 1024), all_endpoints=True)  # as ModelServer's
+        print(f"phase 11: config3 artifact loaded on the card in {t1 - t0:.2f} s, warmed "
+              f"(buckets 64-1024, every endpoint) in {time.perf_counter() - t1:.2f} s",
+              flush=True)
+        from_cpu = ExportedPredictor.load(f"{tmp}/cpu_art", device="cuda")
+        assert from_cpu.manifest["platforms"] == ["cpu"]
+
+        n = max(EXPORT_BATCHES)
+        inputs = {}
+        for label, (kp, *_) in models.items():
+            inputs[f"{label}/img"] = rng.uniform(0, 1, (n, 784)).astype(np.float32)
+            inputs[f"{label}/traj"] = rng.normal(size=(n, 200)).astype(np.float32)
+            inputs[f"{label}/z"] = rng.normal(size=(n, 20)).astype(np.float32)
+            if kp.cfg.n_cond:
+                inputs[f"{label}/cond"] = rng.integers(0, kp.cfg.n_cond, n)
+        np.savez(f"{tmp}/inputs.npz", **inputs)
+
+        def args(label, b):
+            out = [inputs[f"{label}/{k}"][:b] for k in ("img", "traj", "z")]
+            return out + ([inputs[f"{label}/cond"][:b]] if f"{label}/cond" in inputs else [])
+
+        reset_launches()
+        worst = 0.0
+        for b in EXPORT_BATCHES:
+            want = _export_verbs(ep3, *args("config3", b))
+            for name, g in _export_verbs(from_cpu, *args("config3", b)).items():
+                np.testing.assert_allclose(g, want[name], rtol=EXPORT_TOL, atol=EXPORT_TOL,
+                                           err_msg=f"CPU-written artifact {name} B={b}")
+                worst = max(worst, float(np.abs(g - want[name]).max()))
+        assert not any(launch_counts().values()), f"the artifact launched {launch_counts()}"
+        print(f"phase 11: the CPU-written artifact on the card against the card-written one "
+              f"at B = {', '.join(map(str, EXPORT_BATCHES))}: max abs err {worst:.3e} "
+              f"(rtol=atol={EXPORT_TOL}); no kernel launched", flush=True)
+
+        # 3. The three artifacts in a fresh process without model code,
+        # against the plain and the kernel-path Predictors.
+        t0 = time.perf_counter()
+        child = subprocess.run(
+            [sys.executable, "-c", EXPORT_CHILD, f"{tmp}/outputs.npz", f"{tmp}/inputs.npz",
+             *(x for label in models for x in (label, f"{tmp}/{label}_art"))],
+            cwd=root, env=env, capture_output=True, text=True, timeout=600)
+        assert child.returncode == 0, child.stderr[-4000:]
+        print(f"phase 11: {child.stdout.strip()}, {time.perf_counter() - t0:.2f} s wall",
+              flush=True)
+        reset_launches()
+        for label, (kp, pp, *_) in models.items():
+            errs = {"plain": 0.0, "kernel": 0.0}
+            for b in EXPORT_BATCHES:
+                want = {"plain": _export_verbs(pp, *args(label, b)),
+                        "kernel": _export_verbs(kp, *args(label, b))}
+                with np.load(f"{tmp}/outputs.npz") as res:
+                    got = {name: res[f"{label}/{b}/{name}"] for name in want["plain"]}
+                for name, g in got.items():
+                    assert g.shape == want["plain"][name].shape, (label, name, b, g.shape)
+                    assert np.isfinite(g).all(), (label, name, b)
+                    for path, tol in (("plain", EXPORT_TOL), ("kernel", TOL[kp.compute_dtype])):
+                        np.testing.assert_allclose(g, want[path][name], rtol=tol, atol=tol,
+                                                   err_msg=f"{label} {name} B={b} vs {path}")
+                        errs[path] = max(errs[path], float(np.abs(g - want[path][name]).max()))
+            print(f"phase 11: {label} artifact, 7 endpoints at B = "
+                  f"{', '.join(map(str, EXPORT_BATCHES))}: max abs err {errs['plain']:.3e} "
+                  f"against plain (rtol=atol={EXPORT_TOL}), {errs['kernel']:.3e} against the "
+                  f"kernel path (rtol=atol={TOL[kp.compute_dtype]})", flush=True)
+        launches = launch_counts()
+        print(f"phase 11: launches by the kernel-path Predictors: {launches}", flush=True)
+        for k in ("enc_fwd", "dec_fwd", "conv_fwd"):
+            assert launches[k] > 0, f"kernel {k} was not launched by phase 11's kernel path"
+
+        # 4. serve_http --from-export --compile-cache over HTTP, ended by SIGTERM.
+        img, traj, z = (inputs[f"config3/{k}"][:5] for k in ("img", "traj", "z"))
+        proc, base, start_s, _ = _serve_http(
+            root, [f"{tmp}/config3_art", "--from-export", "--compile-cache", f"{tmp}/cache"], env)
+        try:
+            got = _http_verbs(base, img, traj, z)
+        finally:
+            rc, out = _stop(proc)
+        assert rc == 0 and "server closed" in out, (rc, out[-3000:])
+        want = _export_verbs(plain, img, traj, z)
+        for name, g in got.items():
+            np.testing.assert_allclose(np.asarray(g, np.float32), want[name], rtol=TOL["float32"],
+                                       atol=TOL["float32"], err_msg=f"HTTP {name}")
+        print(f"phase 11: serve_http --from-export --compile-cache: bound in {start_s:.2f} s, "
+              f"{len(got)} routes agree with plain (rtol=atol={TOL['float32']}), SIGTERM exit 0",
+              flush=True)
+
+        # 5. A warm cache with no nvcc reachable: phase 2's library copied
+        # into a fresh cache directory serves the kernel path.
+        cache = f"{tmp}/warm"
+        dst = os.path.join(cache, "kernels", lib_path.parent.name)
+        os.makedirs(dst)
+        shutil.copy2(lib_path, dst)
+        mtime = os.stat(os.path.join(dst, lib_path.name)).st_mtime_ns
+        os.makedirs(f"{tmp}/no_cuda")
+        path = os.pathsep.join(d for d in env.get("PATH", "").split(os.pathsep)
+                               if d and not os.path.exists(os.path.join(d, "nvcc")))
+        no_nvcc = dict(env, CUDA_HOME=f"{tmp}/no_cuda", PATH=path)
+        no_nvcc.pop("CUDA_PATH", None)
+        assert shutil.which("nvcc", path=path) is None
+        proc, base, start_s, lines = _serve_http(
+            root, [f"{tmp}/config3_model", "--compile-cache", cache], no_nvcc)
+        try:
+            got = _post(base, "/v1/cross_generate", {"inputs": img.tolist(), "src": "image",
+                                                     "dst": "trajectory"})["outputs"]
+        finally:
+            rc, out = _stop(proc)
+        assert rc == 0, (rc, out[-3000:])
+        assert f"compile cache: {cache}" in lines, lines
+        np.testing.assert_allclose(np.asarray(got, np.float32),
+                                   plain.cross_generate(img, "image", "trajectory"),
+                                   rtol=TOL["float32"], atol=TOL["float32"])
+        assert os.listdir(os.path.join(cache, "kernels")) == [lib_path.parent.name]
+        assert os.stat(os.path.join(dst, lib_path.name)).st_mtime_ns == mtime
+        print(f"phase 11: warm-cache serve_http (kernel path, no nvcc reachable): bound in "
+              f"{start_s:.2f} s, against the kernel build of {build_s:.2f} s in phase 2 "
+              f"[{card}]", flush=True)
+
+        # 6. Times: the artifact against the two Predictors, and the launch floor.
+        time_export_serving(ep3, pred, plain, rng, card)
+    floor = time_launch_floor(card)
+    print(f"phase 11 took {time.perf_counter() - t_phase:.2f} s wall", flush=True)
+    return launches, floor
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch finds no CUDA device", file=sys.stderr)
@@ -2289,7 +2681,8 @@ def main() -> int:
     t0 = time.perf_counter()
     lib_path = _build.build()
     _build.load()
-    print(f"built {lib_path.name} in {time.perf_counter() - t0:.2f} s", flush=True)
+    build_s = time.perf_counter() - t0
+    print(f"built {lib_path.name} in {build_s:.2f} s", flush=True)
     print((lib_path.parent / "build.log").read_text().strip(), flush=True)
 
     # Phase 3
@@ -2335,6 +2728,9 @@ def main() -> int:
 
     # Phase 10
     uji_launches = data_surface_check(card)
+
+    # Phase 11
+    export_launches, floor = export_and_check(rng, card, pred, plain, lib_path, build_s)
 
     cd = pred.compute_dtype
     big, small = TRAIN_TIMED[-1], TRAIN_TIMED[0]
@@ -2452,7 +2848,13 @@ def main() -> int:
             "eval_launches": sum(c.get(name, 0) for c in eval_launches.values()),
             # launches by phase 10's UJI training and its in-process evaluation
             "uji_launches": uji_launches.get(name, 0),
+            # launches by phase 11's kernel-path Predictors (the artifacts launch none)
+            "export_launches": export_launches.get(name, 0),
         }
+        if name == "reparam":  # an empty kernel's launch, timed as this row and queued
+            row["floor_ms"] = ms(floor[small], "floor")
+            row["queued_ms"] = floor[small]["queued"]["kernel"]
+            row["floor_queued_ms"] = floor[small]["queued"]["floor"]
         if "alone" in timed["call"]:  # the kernel without its weight-gradient launches
             row["alone_ms"] = ms(timed, "alone")
         if name in nodx_work:  # with its weight-gradient launches, without dx

@@ -6,8 +6,9 @@ parameter layout, hand-written Hopper kernels for every Pallas kernel of
 the JAX package, the train step and loops, the reference's class API
 (`VariationalAutoencoder`, `AssocVariationalAutoEncoder`, `train`) with
 whole-state checkpoints, evaluation (`train.eval`, the `evaluate` CLI), a
-bucketing `serve.Predictor` with its `MicroBatcher`, and the stdlib HTTP
-front end `serve_http`. The JAX package
+bucketing `serve.Predictor` with its `MicroBatcher`, the stdlib HTTP
+front end `serve_http`, and `export` (self-contained `torch.export`
+serving artifacts). The JAX package
 `vae_assoc_tpu` is the reference that every part is tested against; this
 package imports torch and never jax.
 

@@ -6,7 +6,9 @@ the sources in this package only, into ``kernels/build/<hash>/``
 (``build/`` is git-ignored): one ``nvcc -c`` per source, all started
 together, then one link. The hash covers the sources, the headers and the
 command, so an edited file rebuilds and an unchanged one is loaded as it
-is. A missing ``nvcc`` raises: nothing falls back.
+is. ``BUILD_DIR`` moves under a cache directory with
+``utils.compile_cache.enable_compile_cache``. A missing ``nvcc`` raises
+when a build is needed: nothing falls back.
 """
 
 from __future__ import annotations
@@ -73,20 +75,29 @@ def find_nvcc() -> str:
     )
 
 
-def build() -> Path:
-    """Compile the library if this source hash has not been built; return it.
-
-    The compiler's output (``-Xptxas=-v``: registers and shared memory per
-    kernel) is kept beside the library as ``build.log``, each source headed
-    by the seconds from the start of the build to the end of its compile."""
-    nvcc = find_nvcc()
+def library_path() -> Path:
+    """Where the library of these sources and this command lives:
+    ``BUILD_DIR/<hash>/``. The hash names the command with the bare
+    ``nvcc``, so it does not depend on where ``nvcc`` is found, or whether."""
     h = hashlib.sha256(" ".join(nvcc_command()).encode())
     for src in sources() + sorted(CSRC.glob("*.cuh")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
-    out = BUILD_DIR / h.hexdigest()[:16] / LIB_NAME
+    return BUILD_DIR / h.hexdigest()[:16] / LIB_NAME
+
+
+def build() -> Path:
+    """Compile the library if this source hash has not been built; return it.
+
+    A library that is built already is returned before ``nvcc`` is looked
+    for, so it loads on a host without one. The compiler's output
+    (``-Xptxas=-v``: registers and shared memory per kernel) is kept beside
+    the library as ``build.log``, each source headed by the seconds from
+    the start of the build to the end of its compile."""
+    out = library_path()
     if out.exists():
         return out
+    nvcc = find_nvcc()
     out.parent.mkdir(parents=True, exist_ok=True)
     tag = os.getpid()
     objs = [out.with_name(f"{s.stem}.{tag}.o") for s in sources()]
@@ -157,6 +168,7 @@ def load() -> ctypes.CDLL:
                 i32, ptr,
             ]
             lib.vae_reparam.argtypes = [ptr, ptr, i32, i32, u64, ptr, ptr, ptr]
+            lib.vae_empty.argtypes = [ptr]
             lib.vae_loss_fwd.argtypes = [ptr, i32, i32, i32, i32, ptr, ptr]
             lib.vae_loss_bwd.argtypes = [ptr, i32, i32, i32, i32, ptr, ptr]
             lib.vae_conv_fwd.argtypes = [
@@ -177,7 +189,7 @@ def load() -> ctypes.CDLL:
             ]
             for fn in (lib.vae_mega_fwd, lib.vae_mega_dec_loss_bwd,
                        lib.vae_mlp_enc_bwd, lib.vae_mlp_dec_bwd, lib.vae_wgrad,
-                       lib.vae_reparam, lib.vae_loss_fwd, lib.vae_loss_bwd,
+                       lib.vae_reparam, lib.vae_empty, lib.vae_loss_fwd, lib.vae_loss_bwd,
                        lib.vae_conv_fwd, lib.vae_conv_dw, lib.vae_conv_enc,
                        lib.vae_conv_dec):
                 fn.restype = i32

@@ -7,6 +7,8 @@ go through the `MicroBatcher`, so concurrent small requests coalesce into
 batched device calls.
 
     python -m vae_assoc_tpu_torch.serve_http /path/to/model_dir --device cuda
+    python -m vae_assoc_tpu_torch.serve_http /path/to/artifact --from-export \\
+        --compile-cache /path/to/cache
 
 Endpoints (JSON in / JSON out):
 
@@ -272,9 +274,15 @@ def _build_parser():
         prog="vae_assoc_tpu_torch.serve_http", description=__doc__,
         formatter_class=argparse.RawDescriptionHelpFormatter,
     )
-    p.add_argument("model_dir", help="directory written by "
-                                     "utils.checkpoint.save_params "
-                                     "(model_config.json + params.pt)")
+    p.add_argument("model_dir", help="save_model or utils.checkpoint."
+                                     "save_params directory "
+                                     "(model_config.json), or with "
+                                     "--from-export an export_predictor "
+                                     "artifact directory (manifest.json)")
+    p.add_argument("--from-export", action="store_true",
+                   help="serve a torch.export artifact written by "
+                        "python -m vae_assoc_tpu_torch.export: loads no "
+                        "model classes and restores no checkpoint")
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                    help="device the model runs on; cuda without a GPU fails")
     p.add_argument("--host", default="127.0.0.1")
@@ -288,12 +296,26 @@ def _build_parser():
     p.add_argument("--no-warm", action="store_true",
                    help="skip the startup warmup (the first requests then "
                         "build the kernel library)")
+    p.add_argument("--compile-cache", default=None, metavar="DIR",
+                   help="build cache directory for the kernel library (and "
+                        "the UJI parser); a restarted server loads the "
+                        "library from it instead of running nvcc again")
     return p
 
 
 def main(argv=None) -> int:
     args = _build_parser().parse_args(argv)
-    pred = Predictor.load(args.model_dir, device=args.device)
+    if args.compile_cache:
+        from vae_assoc_tpu_torch.utils.compile_cache import enable_compile_cache
+
+        print(f"compile cache: {enable_compile_cache(args.compile_cache)}",
+              flush=True)
+    if args.from_export:
+        from vae_assoc_tpu_torch.export import ExportedPredictor
+
+        pred = ExportedPredictor.load(args.model_dir, device=args.device)
+    else:
+        pred = Predictor.load(args.model_dir, device=args.device)
     with ModelServer(pred, max_batch=args.max_batch,
                      min_batch=args.min_batch,
                      max_wait_ms=args.max_wait_ms,
