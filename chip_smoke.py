@@ -178,6 +178,38 @@ Phases, each of which raises on failure (nothing is caught):
    buckets 1 to 4096, and an empty kernel's launch timed beside the
    sampler at B = 1024 and 16384, as the kernel rows are and queued behind
    a spin kernel.
+12. The parallel layouts (vae_assoc_tpu_torch/parallel/) on one NCCL
+   process group of world size 1 (a file store in a temp dir; NCCL refuses
+   two ranks on one card): DP on config 5 as shipped, 3 steps with
+   injected ε equal to train/step.py's _one_step bit for bit (grad_norm
+   within 1e-6), dp_train_loop for 2 epochs with exactly
+   COMPOSABLE_PER_STEP launches a step, the loss falling, and twice from
+   one state to the same bits; ZeRO on config 5, on config 3 "mega" at
+   batch 16384 bf16 and on config 4 conv_pallas (batch 64 fp32, conv_fwd
+   and conv_dw launched) against DP from one state and seed, bit for bit
+   or within rtol 3e-5 / atol 1e-6 (the reason printed); TP on config 3
+   with use_pallas=True in fp32 and bf16 at batch 1024, 5 steps with
+   exactly TP_PER_STEP launches a step, each step's loss and gradient norm
+   within rtol 1e-3 of the single-device composable step's, step 1's
+   gradient of every leaf within an error norm of 1e-4 (fp32) or 1e-2
+   (bf16) of its norm, and after 5 steps 99.9 % of the weights within
+   rtol 1e-3 / atol 1e-5 (Adam turns the two paths' other rounding into
+   whole steps on weights whose gradient nearly cancels) with every leaf's
+   error norm within 0.25 of its movement, the gather/shard round trip bit
+   for bit; two gloo ranks sharing the card on config 3 composable at
+   batch 1024 with injected ε: step-1 gradients within rtol 2e-5 / atol
+   1e-6 of the world-1 step's on the global batch, 3 steps' losses and
+   gradient norms within rtol 2e-5, both ranks' weights equal, ZeRO's
+   equal to DP's bit for bit, and every weight within rtol 2e-5 / atol
+   1e-6 of the world-1 step's. Prints config 5's samples/s under dp_train_loop beside
+   train_loop_fused, DP's, ZeRO's and TP's steps/s, each layout's host
+   enqueue and wall ms a step on config 3 at batch 1024 beside the
+   single-device step's, an NCCL all-reduce's time at world size 1, and
+   the phase's wall seconds.
+
+Phases 3 and 6b also check a stack with no hidden layer (the config-3
+image decoder's output layer alone, TP's column-split layer), forward
+and backward, with identical bits on a second call.
 
 The line before the last is the kernel record as JSON, each kernel with
 its bound: the larger of the bytes it must move over 3.35 TB/s and its
@@ -190,7 +222,8 @@ mega_dec_loss_bwd, enc_bwd and dec_bwd include their weight-gradient
 launches, and "alone_ms" is the kernel's without them; "eval_launches" is
 the kernel's launches in phase 9's evaluation, "uji_launches" in phase
 10's training and in-process evaluation, "export_launches" by phase 11's
-kernel-path Predictors; reparam also gives "floor_ms", an empty kernel's
+kernel-path Predictors, "parallel_launches" by phase 12's layouts (their
+own runs, not the single-device steps they are held against); reparam also gives "floor_ms", an empty kernel's
 launch timed as its row, and "queued_ms" and "floor_queued_ms", the two
 queued behind a spin kernel (the device's time a launch, without the
 host's pace); enc_bwd and dec_bwd
@@ -296,10 +329,40 @@ def check_kernels(rng):
                         failed.append(f"{name} {kind} B={b} {cd} err={err:.3e}")
                 print(f"check {name} {kind}_fwd {cd} (rtol=atol={tol}): "
                       + " ".join(line), flush=True)
+    # A stack with no hidden layer, as tensor parallelism runs a column-split
+    # output layer: the config-3 image decoder's output layer alone.
+    gen = torch.Generator().manual_seed(1)
+    dec0 = _Depth0(init_mlp_vae_params(gen, default_image_arch(), device="cuda"))
+    for cd, tol in TOL.items():
+        line = []
+        for b in BATCHES:
+            h = torch.from_numpy(rng.normal(size=(b, 500)).astype(np.float32)).cuda()
+            got = kmlp.decode_mlp_fused(dec0, h, compute_dtype=cd)
+            again = kmlp.decode_mlp_fused(dec0, h, compute_dtype=cd)
+            want = kmlp.decode_mlp_plain(dec0, h, compute_dtype=cd)
+            failed += _forward_bits(f"depth-0 dec B={b} {cd}", (got,), (again,))
+            err, ok = _max_err(got, want, tol)
+            errs[("image_out_depth0_dec", b, cd)] = err
+            line.append(f"B={b}:{err:.2e}")
+            if not ok:
+                failed.append(f"depth-0 dec B={b} {cd} err={err:.3e}")
+        print(f"check image_out_depth0 dec_fwd {cd} (rtol=atol={tol}): " + " ".join(line),
+              flush=True)
     if failed:
         raise AssertionError("kernel disagrees with its plain twin: "
                              + "; ".join(failed))
     return errs
+
+
+class _Depth0:
+    """The output layer of a model's generator as a stack with no hidden
+    layer, as decode_mlp_fused reads one (parallel/tp.py's column split)."""
+
+    def __init__(self, m):
+        self.gener = {"out": m.gener["out"]}
+
+    def parameters(self):
+        return [self.gener["out"].w, self.gener["out"].b]
 
 
 def _close(got, want, tol, summed=False):
@@ -557,6 +620,29 @@ def check_composable_kernels(rng, batches=TRAIN_BATCHES):
                 f"B={b}:{e:.2e}" for b, e in zip(batches, line)), flush=True)
     print("dec_bwd " + _stack_plans(kmlp, [500, 500], batches,
                                     kmlp.sm_count(torch.device("cuda", 0))), flush=True)
+    # The stack with no hidden layer (phase 3's): dz = dout·Wᵀ in the stack
+    # backward, the weight grads in wgrad.
+    head = init_mlp_vae_params(torch.Generator().manual_seed(3), default_image_arch(),
+                               device="cuda").gener["out"]
+    for cd, tol in TOL.items():
+        line = []
+        for b in batches:
+            h = torch.from_numpy(rng.normal(size=(b, 500)).astype(np.float32)).cuda()
+            dout = torch.from_numpy(rng.normal(size=(b, 784)).astype(np.float32)).cuda() / b
+            got = kmlp.decode_bwd([], head, h, dout, compute_dtype=cd)
+            want = kmlp.decode_bwd_plain([], head, h, dout, compute_dtype=cd)
+            failed += _same_bits(f"dec_bwd depth-0 B={b} {cd}", got,
+                                 kmlp.decode_bwd([], head, h, dout, compute_dtype=cd),
+                                 kmlp.decode_bwd([], head, h, dout, compute_dtype=cd,
+                                                 want_dx=False))
+            pairs = [("dz", got[1], want[1], False), ("dw", got[0][0][0], want[0][0][0], True),
+                     ("db", got[0][0][1], want[0][0][1], True)]
+            line.append(record(("dec_bwd", "image_out_depth0", b, cd), pairs, tol))
+        print(f"check image_out_depth0 dec_bwd {cd} (tol {tol}): " + " ".join(
+            f"B={b}:{e:.2e}" for b, e in zip(batches, line)), flush=True)
+    print("dec_bwd depth-0 " + _stack_plans(kmlp, [], batches,
+                                            kmlp.sm_count(torch.device("cuda", 0))),
+          flush=True)
 
     line = {"reparam": [], "loss_fwd": [], "loss_bwd": []}
     for b in batches:
@@ -2663,6 +2749,404 @@ def export_and_check(rng, card, pred, plain, lib_path, build_s):
     return launches, floor
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: the parallel layouts on the card
+# ---------------------------------------------------------------------------
+
+TP_PER_STEP = {"dec_fwd": 6, "dec_bwd": 6, "wgrad": 10, "reparam": 2, "loss_fwd": 1,
+               "loss_bwd": 1}
+"""Hand-written launches per TP step of config 3 on the kernels: per tower
+a pair block in the encoder, a pair block and the depth-0 output block in
+the decoder (a stack forward and backward each; 2 + 2 + 1 weight-gradient
+launches), the sampler; the joint loss forward and backward."""
+PAR_TOL = {"zero": (3e-5, 1e-6), "tp": 1e-3, "two_rank": (2e-5, 1e-6),
+           "tp_grad": {"float32": 1e-4, "bfloat16": 1e-2}, "tp_leaf": 0.25}
+"""Phase 12's tolerances: ZeRO against DP where the sums run in another
+order (tests/test_zero.py's); TP's losses and gradient norms against the
+single-device step, per step (rtol); two gloo ranks against the world-1
+step on the global batch, every weight (tests/test_parallel.py's gradient
+tolerance). TP per leaf: the step-1 gradient's error norm over its norm
+(``tp_grad``, by compute dtype), and after 5 Adam steps the weights'
+error norm over the leaf's movement from its initial value (``tp_leaf``).
+A leaf whose gradient is missing or misplaced reads about 1 on both."""
+TWO_RANK_BATCH = 1024
+
+
+def _params_of(state):
+    return [p.detach() for p in state.params.parameters()]
+
+
+def _against(label, got, want, rtol, atol):
+    """Raise unless the tensors are equal bit for bit or within rtol/atol;
+    returns (bitwise, max abs err) and prints which it was."""
+    bitwise = all(torch.equal(a, b) for a, b in zip(got, want))
+    err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+    if not bitwise:
+        assert all(torch.allclose(a, b, rtol=rtol, atol=atol) for a, b in zip(got, want)), (
+            f"{label}: max abs err {err:.3e} beyond rtol {rtol} / atol {atol}")
+    return bitwise, err
+
+
+def _share_within(got, want, rtol, atol):
+    """(share of the elements within rtol/atol, max abs err)."""
+    n = bad = 0
+    for a, b in zip(got, want):
+        n += b.numel()
+        bad += int(((a - b).abs() > atol + rtol * b.abs()).sum())
+    return 1.0 - bad / n, max(float((a - b).abs().max()) for a, b in zip(got, want))
+
+
+def _leaf_errs(names, got, want, base=None):
+    """{leaf: ||got - want|| / ||want - base||} (``base`` None: over
+    ||want||), each leaf's error norm relative to its norm or movement."""
+    out = {}
+    for i, (name, a, b) in enumerate(zip(names, got, want)):
+        ref = b if base is None else b - base[i]
+        out[name] = float((a - b).norm()) / max(float(ref.norm()), 1e-30)
+    return out
+
+
+def _steps_per_s(step, state, batches, n=10):
+    """(state, steps/s) over ``n`` steps, the device synchronised at both ends."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(n):
+        state, _ = step(state, batches[i % len(batches)])
+    torch.cuda.synchronize()
+    return state, n / (time.perf_counter() - t0)
+
+
+def _host_and_wall(step, state, x, n=20):
+    """(state, host ms, wall ms) a step over ``n`` steps on one batch: the
+    host's time to enqueue them, and the time to their end on the device."""
+    for _ in range(3):
+        state, _ = step(state, x)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        state, _ = step(state, x)
+    host = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return state, host / n * 1e3, (time.perf_counter() - t0) / n * 1e3
+
+
+def _two_rank_inputs():
+    rng = np.random.default_rng(31)
+    xs = [[rng.uniform(0, 1, (TWO_RANK_BATCH, 784)).astype(np.float32),
+           rng.normal(size=(TWO_RANK_BATCH, 200)).astype(np.float32)] for _ in range(3)]
+    eps = [[rng.normal(size=(TWO_RANK_BATCH, 20)).astype(np.float32) for _ in range(2)]
+           for _ in range(3)]
+    return xs, eps
+
+
+def _two_rank_worker(rank):
+    """One of two ranks on one card over gloo (phase 12): DP and ZeRO on
+    config 3's composable path, 3 steps with this rank's rows of ε."""
+    from vae_assoc_tpu_torch.configs import baseline_config
+    from vae_assoc_tpu_torch.models import assoc as assoc_mod
+    from vae_assoc_tpu_torch.parallel import dp, mesh, zero
+    from vae_assoc_tpu_torch.train import step as tstep
+
+    cfg, tc = baseline_config(3, batch_size=TWO_RANK_BATCH, use_pallas=True)
+    xs, eps = _two_rank_inputs()
+    m = mesh.make_mesh()
+    out = {"device": str(mesh.mesh_device(m)), "backend": torch.distributed.get_backend()}
+    model = assoc_mod.init_assoc(tc.seed, cfg, device="cuda")
+    x0, e0 = mesh.shard_batch(m, xs[0]), list(mesh.shard_batch(m, eps[0]))
+    total, _ = assoc_mod.assoc_loss_fn(model, list(x0), cfg, eps=e0, use_pallas=True,
+                                       data_group=m.get_group("data"))
+    grads = tstep.all_reduce_mean(torch.autograd.grad(total, list(model.parameters())),
+                                  m.get_group("data"))
+    out["grads"] = [g.cpu().numpy() for g in grads]
+    for name, init, make in (("dp", dp.init_dp_train_state, dp.make_dp_train_step),
+                             ("zero", zero.init_zero_train_state, zero.make_zero_train_step)):
+        state, step, ms = init(cfg, tc, m), make(cfg, tc, m), []
+        for x, e in zip(xs, eps):
+            state, mt = step(state, mesh.shard_batch(m, x), eps=list(mesh.shard_batch(m, e)))
+            ms.append({k: float(v) for k, v in mt.items()})
+        if name == "zero":
+            state = zero.gather_zero_train_state(state, cfg, tc, m)
+        out[name] = ([p.detach().cpu().numpy() for p in state.params.parameters()], ms)
+    return out
+
+
+def parallel_check(card):
+    """Phase 12; returns each kernel's launches by the layouts' own runs."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    from vae_assoc_tpu_torch.configs import baseline_config
+    from vae_assoc_tpu_torch.data import PairedDataset
+    from vae_assoc_tpu_torch.kernels import launch_counts, reset_launches
+    from vae_assoc_tpu_torch.models import assoc as assoc_mod
+    from vae_assoc_tpu_torch.parallel import dp, mesh, tp, zero
+    from vae_assoc_tpu_torch.train import step as tstep
+    from vae_assoc_tpu_torch.train import train_loop_fused
+
+    t_phase = time.perf_counter()
+    total = {}
+
+    def counted(fn):
+        """fn() with the launch counts zeroed before it; its launches are
+        added to the phase's and returned beside its result."""
+        reset_launches()
+        out = fn()
+        got = launch_counts()
+        for k, v in got.items():
+            total[k] = total.get(k, 0) + v
+        return out, got
+
+    def synthetic(n, seed):
+        return list(PairedDataset.from_synthetic(n, seed=seed, device="cuda").features())
+
+    tmp = tempfile.mkdtemp()
+    mesh.init_distributed("nccl", init_method=f"file://{tmp}/store", rank=0, world_size=1)
+    try:
+        m = mesh.make_mesh()
+        print(f"phase 12: process group of world size {dist.get_world_size()} on "
+              f"{dist.get_backend()}, mesh {m.mesh_dim_names} {tuple(m.shape)} on "
+              f"{mesh.mesh_device(m)}; {card}", flush=True)
+
+        # 1. DP, config 5 as shipped (composable, batch 1024 bf16, 10 steps a call).
+        cfg5, tc5 = baseline_config(5)
+        bs, spc = tc5.batch_size, tc5.steps_per_call
+        one = dataclasses.replace(tc5, steps_per_call=1)
+        rng = np.random.default_rng(12)
+        batches = [synthetic(bs, 20 + i) for i in range(3)]
+        eps = [[torch.from_numpy(rng.normal(size=(bs, 20)).astype(np.float32)).cuda()
+                for _ in range(2)] for _ in range(3)]
+        a = dp.init_dp_train_state(cfg5, one, m)
+        b = tstep.init_train_state(cfg5, one, device="cuda")
+        step, opt = dp.make_dp_train_step(cfg5, one, m), tstep.make_optimizer(one)
+        for x, e in zip(batches, eps):
+            (a, ma), _ = counted(lambda: step(a, x, eps=e))
+            b, mb = tstep._one_step(b, x, cfg5, one, opt, eps=e)
+            assert all(torch.equal(ma[k], mb[k]) for k in mb if k != "grad_norm"), (ma, mb)
+            assert abs(float(ma["grad_norm"]) / float(mb["grad_norm"]) - 1) < 1e-6
+        assert all(torch.equal(p, q) for p, q in zip(_params_of(a), _params_of(b))), (
+            "DP at world size 1 differs from _one_step")
+        print("phase 12: DP config 5, 3 steps with injected ε: weights and losses equal "
+              "_one_step's bit for bit, grad_norm "
+              f"{'bit for bit' if torch.equal(ma['grad_norm'], mb['grad_norm']) else 'within 1e-6'}",
+              flush=True)
+        data = synthetic(bs * spc * 2, 1)
+        runs = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            (st, hist), got = counted(lambda: dp.dp_train_loop(cfg5, tc5, data, m, epochs=2))
+            torch.cuda.synchronize()
+            runs.append((st, hist, got, time.perf_counter() - t0))
+        st, hist, got, wall = runs[0]
+        want = {k: COMPOSABLE_PER_STEP.get(k, 0) * st.step for k in got}
+        assert got == want, f"DP launches {got} != {want}"
+        assert hist[-1]["total"] < hist[0]["total"], "DP's loss did not fall"
+        assert all(torch.equal(p, q) for p, q in zip(_params_of(st), _params_of(runs[1][0]))), (
+            "dp_train_loop twice from one state differs")
+        t0 = time.perf_counter()
+        _, fused = train_loop_fused(cfg5, tc5, data, epochs=2, device="cuda")
+        fused_wall = time.perf_counter() - t0
+        print(f"phase 12: dp_train_loop config 5, 2 epochs x {st.step // 2} steps: launches "
+              f"exactly COMPOSABLE_PER_STEP x {st.step}, total {hist[0]['total']:.4f} -> "
+              f"{hist[-1]['total']:.4f}, twice from one state to the same bits", flush=True)
+        print("phase 12: config 5 samples/s, dp_train_loop (world 1) epochs "
+              + ", ".join(f"{h['samples_per_sec']:.1f}" for r in runs for h in r[1])
+              + f" (runs of {runs[0][3]:.2f} and {runs[1][3]:.2f} s wall); train_loop_fused "
+              f"{fused[0]['samples_per_sec']:.1f} over 2 epochs ({fused_wall:.2f} s wall); "
+              f"{card}", flush=True)
+
+        # 2. ZeRO against DP: config 5 and config 3 "mega" at batch 16384 bf16.
+        cfg3m, tc3m = baseline_config(3, batch_size=16384, compute_dtype="bfloat16",
+                                      use_pallas="mega")
+        for label, cfg, tc, xs in (("config 5", cfg5, one, batches),
+                                   ("config 3 mega", cfg3m, tc3m,
+                                    [synthetic(16384, 40 + i) for i in range(2)])):
+            d, z = dp.init_dp_train_state(cfg, tc, m), zero.init_zero_train_state(cfg, tc, m)
+            dstep, zstep = dp.make_dp_train_step(cfg, tc, m), zero.make_zero_train_step(cfg, tc, m)
+            for i in range(5):
+                d, md = dstep(d, xs[i % len(xs)])
+                (z, mz), _ = counted(lambda: zstep(z, xs[i % len(xs)]))
+                np.testing.assert_allclose(float(mz["total"]), float(md["total"]),
+                                           rtol=PAR_TOL["zero"][0])
+            bitwise, err = _against(f"ZeRO {label}", _params_of(
+                zero.gather_zero_train_state(z, cfg, tc, m)), _params_of(d), *PAR_TOL["zero"])
+            rates = []
+            for _ in range(2):
+                d, r_d = _steps_per_s(dstep, d, xs)
+                (z, r_z), _ = counted(lambda: _steps_per_s(zstep, z, xs))
+                rates.append((r_d, r_z))
+            print(f"phase 12: ZeRO {label}, 5 steps against DP from one state and seed: "
+                  + ("weights equal bit for bit (one rank: the sums run in one order)"
+                     if bitwise else f"weights within rtol {PAR_TOL['zero'][0]} / atol "
+                     f"{PAR_TOL['zero'][1]} (max abs err {err:.3e}: the gradient sum and "
+                     "Adam run on flat slices in another order)")
+                  + "; steps/s DP / ZeRO " + ", ".join(f"{x:.1f} / {y:.1f}" for x, y in rates)
+                  + f" (batch {tc.batch_size} {tc.compute_dtype}, use_pallas={tc.use_pallas!r}; "
+                  f"{card})", flush=True)
+
+        # 3. ZeRO on config 4's conv_pallas tower, batch 64 fp32, the conv kernels.
+        cfg4, tc4 = baseline_config(4, use_pallas=True)
+        cfg4 = _conv_pallas(cfg4)
+        xs4 = [synthetic(64, 50 + i) for i in range(3)]
+        d, z = dp.init_dp_train_state(cfg4, tc4, m), zero.init_zero_train_state(cfg4, tc4, m)
+        dstep, zstep = dp.make_dp_train_step(cfg4, tc4, m), zero.make_zero_train_step(cfg4, tc4, m)
+        conv = {}
+        for x in xs4:
+            d, md = dstep(d, x)
+            (z, mz), got = counted(lambda: zstep(z, x))
+            conv = {k: conv.get(k, 0) + v for k, v in got.items()}
+            np.testing.assert_allclose(float(mz["total"]), float(md["total"]),
+                                       rtol=PAR_TOL["zero"][0])
+        bitwise, err = _against("ZeRO config 4", _params_of(
+            zero.gather_zero_train_state(z, cfg4, tc4, m)), _params_of(d), *PAR_TOL["zero"])
+        assert conv["conv_fwd"] > 0 and conv["conv_dw"] > 0, conv
+        print(f"phase 12: ZeRO config 4 conv_pallas, 3 steps against DP: "
+              f"{'bit for bit' if bitwise else f'max abs err {err:.3e}'}; launches {conv}",
+              flush=True)
+
+        # 4. TP on config 3, the blocks on the stack kernels, against the
+        # single-device composable step from one state and seed.
+        tm = tp.make_tp_mesh()
+        cfg3, _ = baseline_config(3)
+        xs3 = [synthetic(1024, 60 + i) for i in range(5)]
+        for cd in ("float32", "bfloat16"):
+            tc = baseline_config(3, batch_size=1024, use_pallas=True, compute_dtype=cd)[1]
+            ts = tp.init_tp_train_state(cfg3, tc, tm)
+            ref = tstep.init_train_state(cfg3, tc, device="cuda")
+            names = [k for k, _ in ref.params.named_parameters()]
+            init = [p.clone() for p in _params_of(ref)]
+            tstep_fn, rstep = tp.make_tp_train_step(cfg3, tc, tm), tstep.make_train_step(cfg3, tc)
+            # Step 1's gradients, leaf by leaf, with one injected ε.
+            e0 = [torch.from_numpy(rng.normal(size=(1024, 20)).astype(np.float32)).cuda()
+                  for _ in range(2)]
+            lt, _ = tp._tp_loss_fn(ts.params, xs3[0], cfg3, tp._splits(cfg3, tc, tm),
+                                   use_pallas=True, eps=e0)
+            lr_, _ = assoc_mod.assoc_loss_fn(ref.params, xs3[0], cfg3, eps=e0, compute_dtype=cd,
+                                             use_pallas=True)
+            gt = torch.autograd.grad(lt, list(ts.params.parameters()))
+            gr = torch.autograd.grad(lr_, list(ref.params.parameters()))
+            assert [g.shape for g in gt] == [g.shape for g in gr]
+            gerr = _leaf_errs(names, gt, gr)
+            gworst = max(gerr, key=gerr.get)
+            assert gerr[gworst] <= PAR_TOL["tp_grad"][cd], (
+                f"TP {cd} step-1 gradient of {gworst}: error norm {gerr[gworst]:.3e} of its norm")
+            worst = 0.0
+            for x in xs3:
+                (ts, mt), got = counted(lambda: tstep_fn(ts, x))
+                ref, mr = rstep(ref, x)
+                assert got == {k: TP_PER_STEP.get(k, 0) for k in got}, f"TP launches {got}"
+                for k in ("total", "grad_norm"):
+                    rel = abs(float(mt[k]) / float(mr[k]) - 1)
+                    worst = max(worst, rel)
+                    assert rel <= PAR_TOL["tp"], f"TP {cd} {k}: {float(mt[k])} vs {float(mr[k])}"
+            full = tp.gather_tp_train_state(ts, cfg3, tc, tm)
+            share, err = _share_within(_params_of(full), _params_of(ref), PAR_TOL["tp"], 1e-5)
+            assert share >= 0.999, f"TP {cd}: {share:.6f} of the weights within rtol 1e-3"
+            werr = _leaf_errs(names, _params_of(full), _params_of(ref), init)
+            wworst = max(werr, key=werr.get)
+            lshare = {k: _share_within([a], [b], PAR_TOL["tp"], 1e-5)[0] for k, a, b in
+                      zip(names, _params_of(full), _params_of(ref))}
+            sworst = min(lshare, key=lshare.get)
+            assert werr[wworst] <= PAR_TOL["tp_leaf"], (
+                f"TP {cd} weights of {wworst}: error norm {werr[wworst]:.3e} of the leaf's "
+                "movement in 5 steps")
+            back = tp.gather_tp_train_state(tp.shard_tp_train_state(tm, full, cfg3, tc), cfg3,
+                                            tc, tm)
+            assert all(torch.equal(p, q) for p, q in zip(_params_of(back), _params_of(full)))
+            ts, r1 = counted(lambda: _steps_per_s(tstep_fn, ts, xs3))[0]
+            ref, r2 = _steps_per_s(rstep, ref, xs3)
+            ts, r3 = counted(lambda: _steps_per_s(tstep_fn, ts, xs3))[0]
+            print(f"phase 12: TP config 3 {cd} batch 1024 (world 1, no pads): step-1 "
+                  f"gradients per leaf within error norm {gerr[gworst]:.3e} of the composable "
+                  f"step's (worst {gworst}; limit {PAR_TOL['tp_grad'][cd]}); 5 steps, losses "
+                  f"and grad norms within rel {worst:.2e} of the composable step (rtol "
+                  f"{PAR_TOL['tp']}), {share:.6f} of the weights within rtol 1e-3 / atol 1e-5 "
+                  f"(max abs err {err:.3e}; worst leaf by share {sworst} "
+                  f"{lshare[sworst]:.6f}), per leaf error norm {werr[wworst]:.3e} of its "
+                  f"movement (worst {wworst}; limit {PAR_TOL['tp_leaf']}); launches exactly "
+                  f"TP_PER_STEP a step; gather/shard "
+                  f"round trip bit for bit; steps/s TP {r1:.1f}, {r3:.1f}, composable {r2:.1f} "
+                  f"({card})", flush=True)
+
+        # Where a step's time goes at batch 1024: the host's enqueue against
+        # the wall, per layout, and one NCCL all-reduce at world size 1.
+        tc = baseline_config(3, batch_size=1024, use_pallas=True)[1]
+        x = xs3[0]
+        steps = {"single-device": (tstep.init_train_state(cfg3, tc, device="cuda"),
+                                   tstep.make_train_step(cfg3, tc)),
+                 "DP": (dp.init_dp_train_state(cfg3, tc, m), dp.make_dp_train_step(cfg3, tc, m)),
+                 "ZeRO": (zero.init_zero_train_state(cfg3, tc, m),
+                          zero.make_zero_train_step(cfg3, tc, m)),
+                 "TP": (tp.init_tp_train_state(cfg3, tc, tm), tp.make_tp_train_step(cfg3, tc, tm))}
+        line = []
+        for label, (st, step) in steps.items():
+            _, host, wall = _host_and_wall(step, st, x)
+            line.append(f"{label} {host:.3f} / {wall:.3f}")
+        costs = []
+        for numel in (2_049_064, 8):
+            t = torch.zeros(numel, device="cuda")
+            for _ in range(5):
+                dist.all_reduce(t)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(100):
+                dist.all_reduce(t)
+            torch.cuda.synchronize()
+            costs.append((time.perf_counter() - t0) / 100 * 1e3)
+        print("phase 12: config 3 composable fp32 batch 1024, host enqueue / wall ms a step: "
+              + ", ".join(line) + f"; an NCCL all-reduce at world size 1, back to back: "
+              f"{costs[0]:.4f} ms of 8 MB, {costs[1]:.4f} ms of 32 B ({card})", flush=True)
+
+        # 5. Two ranks on the one card, over gloo with CUDA tensors.
+        t0 = time.perf_counter()
+        ranks = mesh.spawn(_two_rank_worker, 2, device_type="cuda", backend="gloo",
+                           timeout_s=300)
+        xs, eps2 = _two_rank_inputs()
+        cfg, tc = baseline_config(3, batch_size=TWO_RANK_BATCH, use_pallas=True)
+        model = assoc_mod.init_assoc(tc.seed, cfg, device="cuda")
+        cuda = [[torch.from_numpy(a).cuda() for a in x] for x in xs]
+        ceps = [[torch.from_numpy(a).cuda() for a in e] for e in eps2]
+        total_loss, _ = assoc_mod.assoc_loss_fn(model, cuda[0], cfg, eps=ceps[0], use_pallas=True)
+        g_ref = torch.autograd.grad(total_loss, list(model.parameters()))
+        ref, opt, ref_ms = tstep.init_train_state(cfg, tc, device="cuda"), \
+            tstep.make_optimizer(tc), []
+        for x, e in zip(cuda, ceps):
+            ref, mr = tstep._one_step(ref, x, cfg, tc, opt, eps=e)
+            ref_ms.append({k: float(v) for k, v in mr.items()})
+        rtol, atol = PAR_TOL["two_rank"]
+        want = [p.cpu().numpy() for p in _params_of(ref)]
+        for r, res in enumerate(ranks):
+            for g, w in zip(res["grads"], g_ref):
+                np.testing.assert_allclose(g, w.cpu().numpy(), rtol=rtol, atol=atol)
+            for name in ("dp", "zero"):
+                params, ms = res[name]
+                assert all(np.array_equal(p, q) for p, q in zip(params, ranks[0][name][0]))
+                for mt, mr in zip(ms, ref_ms):
+                    for k in ("total", "grad_norm"):
+                        np.testing.assert_allclose(mt[k], mr[k], rtol=rtol)
+        assert all(np.array_equal(p, q) for p, q in zip(ranks[0]["zero"][0], ranks[0]["dp"][0])), (
+            "two ranks: ZeRO's weights differ from DP's")
+        bitwise, err = _against("two ranks' weights after 3 steps",
+                                [torch.from_numpy(p) for p in ranks[0]["dp"][0]],
+                                [torch.from_numpy(p) for p in want], rtol, atol)
+        print(f"phase 12: two ranks on {ranks[0]['device']} over {ranks[0]['backend']}, "
+              f"config 3 composable batch {TWO_RANK_BATCH} fp32 with injected ε: step-1 "
+              f"gradients within rtol {rtol} / atol {atol} of the world-1 step's, losses and "
+              f"grad norms of 3 steps within rtol {rtol}, both ranks' weights equal and ZeRO's "
+              f"equal DP's bit for bit; every weight after 3 Adam steps "
+              f"{'equal to' if bitwise else f'within rtol {rtol} / atol {atol} of'} the "
+              f"world-1 step's (max abs err {err:.3e}); "
+              f"{time.perf_counter() - t0:.2f} s wall", flush=True)
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"phase 12: launches by the layouts' runs: {total}", flush=True)
+    print(f"phase 12 took {time.perf_counter() - t_phase:.2f} s wall", flush=True)
+    return total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch finds no CUDA device", file=sys.stderr)
@@ -2731,6 +3215,9 @@ def main() -> int:
 
     # Phase 11
     export_launches, floor = export_and_check(rng, card, pred, plain, lib_path, build_s)
+
+    # Phase 12
+    parallel_launches = parallel_check(card)
 
     cd = pred.compute_dtype
     big, small = TRAIN_TIMED[-1], TRAIN_TIMED[0]
@@ -2850,6 +3337,8 @@ def main() -> int:
             "uji_launches": uji_launches.get(name, 0),
             # launches by phase 11's kernel-path Predictors (the artifacts launch none)
             "export_launches": export_launches.get(name, 0),
+            # launches by phase 12's parallel layouts (DP, ZeRO, TP) at world size 1
+            "parallel_launches": parallel_launches.get(name, 0),
         }
         if name == "reparam":  # an empty kernel's launch, timed as this row and queued
             row["floor_ms"] = ms(floor[small], "floor")

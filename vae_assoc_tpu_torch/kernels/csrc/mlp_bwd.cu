@@ -15,7 +15,9 @@
 // order; GPU blocks run at once, so wgrad below sums them instead. Rows
 // past the batch (a ragged last tile) write nothing, so they add nothing.
 // Depth comes from the layer table (up to kMaxHidden hidden layers), passed
-// by value: no device-side table, nothing to copy per call.
+// by value: no device-side table, nothing to copy per call. A stack with no
+// hidden layer (a linear layer, as tensor parallelism's column-split output
+// layer runs one) has only dx to compute.
 //
 // wgrad computes dW = A^T D and db = sum of the rows of D over all B rows,
 // A [B, M], D [B, N]: the in-kernel `ref[:] += aT @ d` of
@@ -136,6 +138,17 @@ __global__ void __launch_bounds__(kThreads, TM == 64 ? 2 : 1)
     shared_rows();
     dense_rows<TM, BF16, true, true>(A, nullptr, K, valid, W, K, N, ring, epi, part, parts);
   };
+  // No hidden layer: the stack is its heads, linear layers on x, and the
+  // only per-row product is dx = g0 W0^T [+ g1 W1^T] (the wrapper launches
+  // this only when dx is read).
+  if (n_hidden == 0) {
+    if (dx != nullptr) {
+      float* o = dx + (size_t)row0 * n_in;
+      back(g0 + (size_t)row0 * n_g, n_g, w0, n_in, o, nullptr, false);
+      if (g1 != nullptr) back(g1 + (size_t)row0 * n_g, n_g, w1, n_in, o, nullptr, true);
+    }
+    return;
+  }
   // The heads: da_L = (g0 W0^T [+ g1 W1^T]) * sigmoid(pre_L).
   const EncLayer& top = t.l[n_hidden - 1];
   float* da = top.da + (size_t)row0 * top.n_out;
@@ -397,7 +410,7 @@ int run_stack_bwd(const void* x, int batch, int n_in, const long long* layers,
                   int n_hidden, const void* w0, const void* w1, int n_g,
                   const void* g0, const void* g1, void* dx, int tile_rows,
                   int smem, int parts, int bf16, void* stream) {
-  if (batch <= 0 || n_in <= 0 || n_g <= 0 || n_hidden < 1 || n_hidden > kMaxHidden ||
+  if (batch <= 0 || n_in <= 0 || n_g <= 0 || n_hidden < 0 || n_hidden > kMaxHidden ||
       (tile_rows != 16 && tile_rows != 32 && tile_rows != 64) ||
       (parts != 1 && parts != 2) || smem != stack_smem(tile_rows, bf16 != 0) ||
       smem > vae::kSmemLimit || (w1 == nullptr) != (g1 == nullptr))

@@ -96,7 +96,7 @@ def _layer_table(layers, device) -> torch.Tensor:
 
 def _check_stack(x, hidden, heads):
     """Validate device, dtype, contiguity and the width chain of a stack."""
-    prev = x.shape[1]
+    n_in = x.shape[1]  # the heads chain from the last hidden width, or from x's
     for i, l in enumerate(hidden + heads):
         for name, t in (("w", l.w), ("b", l.b)):
             if t.device != x.device or t.dtype != torch.float32:
@@ -106,14 +106,13 @@ def _check_stack(x, hidden, heads):
                 )
             if not t.is_contiguous():
                 raise ValueError(f"layer {i} {name} is not contiguous")
-        n_in = prev if i < len(hidden) else hidden[-1].w.shape[1]
         if l.w.ndim != 2 or l.w.shape[0] != n_in or l.b.shape != (l.w.shape[1],):
             raise ValueError(
                 f"layer {i}: w {tuple(l.w.shape)} / b {tuple(l.b.shape)} do "
                 f"not chain from width {n_in}"
             )
         if i < len(hidden):
-            prev = l.w.shape[1]
+            n_in = l.w.shape[1]
 
 
 def _launch(name, x, hidden, heads, compute_dtype):
@@ -287,10 +286,12 @@ def _stack_bwd(hidden, heads, x, cts, cd, want_dx, dsoftplus):
         a = mm(acts[-1], w) + b
         pres.append(a)
         acts.append(networks.softplus(a))
+    grads = [None] * len(hw) + [(mm(acts[-1].T, c), c.sum(0)) for c in cts]
+    if not (hw or want_dx):
+        return grads, None
     dh = mm(cts[0], heads[0].w.detach().T)
     for c, h in zip(cts[1:], heads[1:]):
         dh = dh + mm(c, h.w.detach().T)
-    grads = [None] * len(hw) + [(mm(acts[-1].T, c), c.sum(0)) for c in cts]
     for i in reversed(range(len(hw))):
         da = dh * dsoftplus(pres[i], acts[i + 1])
         grads[i] = (mm(acts[i].T, da), da.sum(0))
@@ -428,10 +429,11 @@ def stack_bwd_plan(hidden_widths, batch: int, n_sm: int, compute_dtype="float32"
     shared memory: the ring of its largest product, Wᵀ with A streamed;
     blocks: :func:`dense_parts`. Every row's operands stream from device
     memory, so no width bounds the tile. Raises on an empty batch and
-    outside 1 to ``ENC_BWD_MAX_HIDDEN`` hidden layers."""
-    if not 1 <= len(hidden_widths) <= ENC_BWD_MAX_HIDDEN:
+    past ``ENC_BWD_MAX_HIDDEN`` hidden layers (none is a linear layer:
+    the kernel computes only its dx)."""
+    if not 0 <= len(hidden_widths) <= ENC_BWD_MAX_HIDDEN:
         raise ValueError(
-            f"the stack-backward kernel takes 1 to {ENC_BWD_MAX_HIDDEN} hidden layers, "
+            f"the stack-backward kernel takes 0 to {ENC_BWD_MAX_HIDDEN} hidden layers, "
             f"got {len(hidden_widths)}"
         )
     rows = dense_tile_rows(batch, n_sm)
@@ -533,7 +535,7 @@ def _stack_bwd_kernel(name, hidden, heads, x, cts, cd, want_dx=True):
     """The stack-backward kernel alone (the encoder's two heads or the
     decoder's one): (dx, or None unless ``want_dx``, and the weight grads'
     (A, D) operand pairs from its scratch: (the input of hidden layer i,
-    da_i) per layer, then (h_L, the cotangent) per head)."""
+    da_i) per layer, then (h_L, the cotangent) per head, h_0 being x)."""
     dev = x.device
     x = x.detach().float().contiguous()
     cts = [t.detach().float().contiguous() for t in cts]
@@ -547,7 +549,9 @@ def _stack_bwd_kernel(name, hidden, heads, x, cts, cd, want_dx=True):
     acts = [torch.empty(batch, w, dtype=torch.float32, device=dev) for w in widths]
     das = [torch.empty(batch, w, dtype=torch.float32, device=dev) for w in widths]
     dx = torch.empty(batch, n_in, dtype=torch.float32, device=dev) if want_dx else None
-    if batch:
+    # With no hidden layer and no dx there is nothing per row to compute:
+    # the weight grads read x and the cotangent as they are.
+    if batch and (hidden or want_dx):
         lib = _build.load()
         rows, smem, parts = stack_bwd_plan(widths, batch, sm_count(dev), cd)
         table = (ctypes.c_longlong * (6 * len(hidden)))(*[
@@ -570,7 +574,8 @@ def _stack_bwd_kernel(name, hidden, heads, x, cts, cd, want_dx=True):
                 )
         _build.check(lib, err, f"{name} kernel launch")
         _launches.count(_launches.TRAINING, "enc_bwd" if len(heads) == 2 else "dec_bwd")
-    pairs = list(zip([x] + acts[:-1], das)) + [(acts[-1], c) for c in cts]
+    top = acts[-1] if acts else x
+    pairs = list(zip([x] + acts[:-1], das)) + [(top, c) for c in cts]
     return dx, pairs
 
 

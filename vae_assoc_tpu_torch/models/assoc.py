@@ -142,7 +142,7 @@ def mega_fallback_reason(cfg: AssocConfig):
 
 def assoc_loss_fn(params: AssocVAE, xs, cfg: AssocConfig, *, seed=None, eps=None,
                   compute_dtype="float32", parity_mode: bool = False,
-                  use_pallas=False, cond=None, remat: bool = False):
+                  use_pallas=False, cond=None, remat: bool = False, data_group=None):
     """Joint objective → (total, metrics dict): total, ``recon_<m>``,
     ``kl_<m>`` per modality, and ``assoc``.
 
@@ -159,13 +159,17 @@ def assoc_loss_fn(params: AssocVAE, xs, cfg: AssocConfig, *, seed=None, eps=None
     runs the composable path, as the reference does. ``parity_mode`` keeps
     the ordered plain losses on every path; with a kernel path it runs the
     kernel towers under them. ``remat`` recomputes each tower in the
-    backward; the megakernel recomputes its decoder anyway."""
+    backward; the megakernel recomputes its decoder anyway. ``data_group``:
+    the data-parallel process group whose ranks hold the other rows of the
+    global batch, where this runs inside a data-parallel step; InfoNCE with
+    ``assoc_negatives="global"`` gathers its negatives over it."""
     xs, cond = split_cond(xs, cfg, cond)
     if use_pallas == "mega" and not parity_mode:
         reason = mega_fallback_reason(cfg)
         if reason is None:
             return _assoc_loss_mega(params, xs, cfg, seed=seed, eps=eps,
-                                    compute_dtype=compute_dtype, cond=cond)
+                                    compute_dtype=compute_dtype, cond=cond,
+                                    data_group=data_group)
         warnings.warn(
             f"use_pallas='mega' fell back to the composable kernels: {reason}. The "
             "step still runs the fused kernels, but not the single-launch tower "
@@ -176,6 +180,15 @@ def assoc_loss_fn(params: AssocVAE, xs, cfg: AssocConfig, *, seed=None, eps=None
         use_pallas = True
     outs = assoc_forward(params, xs, cfg, seed=seed, eps=eps, compute_dtype=compute_dtype,
                          use_pallas=use_pallas, cond=cond, remat=remat)
+    return joint_objective(outs, xs, cfg, use_pallas=use_pallas, parity_mode=parity_mode,
+                           data_group=data_group)
+
+
+def joint_objective(outs, xs, cfg: AssocConfig, *, use_pallas=False,
+                    parity_mode: bool = False, data_group=None):
+    """(total, metrics) of the joint objective from the towers' forward
+    outputs ``outs`` on the inputs ``xs``: on the fused loss kernel where
+    ``use_pallas`` (and not ``parity_mode``), else the plain losses."""
     metrics = {}
     total = torch.zeros((), dtype=torch.float32, device=xs[0].device)
     if use_pallas and not parity_mode:
@@ -198,7 +211,7 @@ def assoc_loss_fn(params: AssocVAE, xs, cfg: AssocConfig, *, seed=None, eps=None
         if is_mean_l2:
             assoc = col_means[2 * k]
         else:
-            assoc = torch.mean(_assoc_per_sample(outs, cfg))
+            assoc = torch.mean(_assoc_per_sample(outs, cfg, data_group=data_group))
     else:
         for m, x, out in zip(cfg.modalities, xs, outs):
             terms = vae_mod.vae_loss(out, x, m, parity_mode=parity_mode)
@@ -206,24 +219,27 @@ def assoc_loss_fn(params: AssocVAE, xs, cfg: AssocConfig, *, seed=None, eps=None
             metrics[f"kl_{m.name}"] = terms["kl"]
             total = total + terms["recon"] + terms["kl"]
         mean = losses.ordered_mean if parity_mode else torch.mean
-        assoc = mean(_assoc_per_sample(outs, cfg, ordered=parity_mode))
+        assoc = mean(_assoc_per_sample(outs, cfg, ordered=parity_mode,
+                                       data_group=data_group))
     metrics["assoc"] = assoc
     total = total + cfg.assoc_lambda * assoc
     metrics["total"] = total
     return total, metrics
 
 
-def _assoc_per_sample(outs, cfg: AssocConfig, *, ordered: bool = False):
+def _assoc_per_sample(outs, cfg: AssocConfig, *, ordered: bool = False,
+                      data_group=None):
     """Per-sample association term in the configured form, from the
     per-modality forward outputs (ops/losses.assoc_loss does the math)."""
     return losses.assoc_loss(
         [o.z_mean for o in outs], z_logvars=[o.z_logvar for o in outs],
         zs=[o.z for o in outs], form=cfg.assoc_form, temp=cfg.assoc_temp,
-        ordered=ordered, negatives=cfg.assoc_negatives,
+        ordered=ordered, negatives=cfg.assoc_negatives, gather_group=data_group,
     )
 
 
-def _assoc_loss_mega(params, xs, cfg, *, seed=None, eps=None, compute_dtype, cond=None):
+def _assoc_loss_mega(params, xs, cfg, *, seed=None, eps=None, compute_dtype, cond=None,
+                     data_group=None):
     """Joint objective through one tower megakernel per modality, plus the
     small association term in torch on the surfaced μ, logσ² (and ε)."""
     from vae_assoc_tpu_torch.kernels.megakernel import vae_tower_fused
@@ -265,7 +281,7 @@ def _assoc_loss_mega(params, xs, cfg, *, seed=None, eps=None, compute_dtype, con
             zs.append(out["mu"] + torch.exp(0.5 * out["lv"]) * out["eps"])
     assoc = torch.mean(losses.assoc_loss(
         mus, z_logvars=lvs, zs=zs or None, form=cfg.assoc_form,
-        temp=cfg.assoc_temp, negatives=cfg.assoc_negatives,
+        temp=cfg.assoc_temp, negatives=cfg.assoc_negatives, gather_group=data_group,
     ))
     metrics["assoc"] = assoc
     total = total + cfg.assoc_lambda * assoc

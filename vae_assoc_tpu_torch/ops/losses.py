@@ -25,6 +25,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from vae_assoc_tpu_torch.configs import ASSOC_FORMS
+from vae_assoc_tpu_torch.ops.collectives import gather_rows_summed_grad
 
 _EPS = 1e-10  # reference's log-clamp epsilon
 
@@ -84,7 +85,7 @@ def kl_divergence(z_mean, z_logvar, *, ordered: bool = False):
 
 def assoc_loss(z_means, *, z_logvars=None, zs=None, form: str = "mean_l2",
                temp: float = 0.1, ordered: bool = False,
-               negatives: str = "local"):
+               negatives: str = "local", gather_group=None):
     """Cross-modal latent-association term, [batch], summed over pairs i<j.
 
     - ``"mean_l2"``: ‖μ_i − μ_j‖².
@@ -93,14 +94,19 @@ def assoc_loss(z_means, *, z_logvars=None, zs=None, form: str = "mean_l2",
       Gaussians, ½ Σ_d [(σ_i² + Δμ²)/σ_j² + (σ_j² + Δμ²)/σ_i² − 2].
     - ``"infonce"``: symmetric CLIP-style contrastive loss on the
       L2-normalized means at temperature ``temp``, the rest of the batch as
-      negatives. ``negatives="global"`` gathers them over a data-parallel
-      group in the JAX package; the port runs on one device, where global
-      and local are the same set.
+      negatives. With ``negatives="global"`` and a data-parallel
+      ``gather_group`` (the process group whose ranks hold the other rows
+      of the global batch), the normalized means are all-gathered over the
+      group, so every rank contrasts against the global batch and the
+      objective does not depend on the number of ranks; the gather's
+      backward sums the ranks' cotangents, as JAX's ``all_gather``
+      transposes. Without a group (one device) global and local are the
+      same set.
     """
     if form not in ASSOC_FORMS:
         raise ValueError(f"unknown assoc_form {form!r}; one of {ASSOC_FORMS}")
     if form == "infonce":
-        return _infonce(z_means, temp, negatives=negatives)
+        return _infonce(z_means, temp, negatives=negatives, gather_group=gather_group)
     if form == "sample_l2":
         if zs is None:
             raise ValueError("assoc_form='sample_l2' needs zs (sampled latents)")
@@ -168,7 +174,7 @@ def _lse_rows(a, bmat, inv_t):
     return torch.logsumexp((a @ bmat.T) * inv_t, dim=1)
 
 
-def _infonce(z_means, temp: float, *, negatives: str = "local"):
+def _infonce(z_means, temp: float, *, negatives: str = "local", gather_group=None):
     """Per-sample symmetric InfoNCE over all modality pairs, [batch]."""
     if temp <= 0:
         raise ValueError(f"infonce temperature must be > 0, got {temp}")
@@ -183,10 +189,15 @@ def _infonce(z_means, temp: float, *, negatives: str = "local"):
         return total
     inv_t = 1.0 / temp
     normed = [z * torch.rsqrt(torch.sum(z * z, dim=-1, keepdim=True) + 1e-12) for z in zs]
+    gathered = normed
+    if negatives == "global" and gather_group is not None:
+        gathered = [gather_rows_summed_grad(z, gather_group) for z in normed]
     for i in range(len(zs)):
         for j in range(i + 1, len(zs)):
+            # The positive is the matched local pair, which the gathered
+            # negative set holds too, as the softmax denominator needs.
             pos = torch.sum(normed[i] * normed[j], dim=-1) * inv_t
-            ce_row = _lse_rows(normed[i], normed[j], inv_t) - pos
-            ce_col = _lse_rows(normed[j], normed[i], inv_t) - pos
+            ce_row = _lse_rows(normed[i], gathered[j], inv_t) - pos
+            ce_col = _lse_rows(normed[j], gathered[i], inv_t) - pos
             total = total + 0.5 * (ce_row + ce_col)
     return total

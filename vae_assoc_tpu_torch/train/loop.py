@@ -61,6 +61,23 @@ def train_loop(cfg: AssocConfig, tc: TrainConfig, data, *, epochs: int = 10,
     ``samples_per_sec``)."""
     dev = _device(state, data, device, "train_loop")
     dev_data = _stage(data, dev)
+    if state is None:
+        state = init_train_state(cfg, tc, device=dev)
+    return epoch_loop(tc, dev_data, make_train_step(cfg, tc), state, epochs=epochs,
+                      display_step=display_step, on_metrics=on_metrics, shuffle=shuffle,
+                      refresh_data=refresh_data)
+
+
+def epoch_loop(tc: TrainConfig, dev_data: list, step_fn, state: TrainState, *,
+               epochs: int, display_step: int = 1, on_metrics=None, shuffle: bool = True,
+               refresh_data=None, rows: slice = slice(None), n_chips=None):
+    """The epoch body of ``train_loop`` and of the parallel layouts' loops:
+    ``step_fn(state, xs)`` over the staged arrays ``dev_data``, as
+    ``train_loop`` says. ``rows``: the rows of every global batch this
+    process takes (its shard; all of them by default). ``n_chips``: the
+    devices the global batch spans, which adds
+    ``samples_per_sec_per_chip`` to the history."""
+    dev = dev_data[0].device
     n = dev_data[0].shape[0]
     bs, spc = tc.batch_size, tc.steps_per_call
     nb = n // bs
@@ -69,10 +86,7 @@ def train_loop(cfg: AssocConfig, tc: TrainConfig, data, *, epochs: int = 10,
     n_calls = nb // spc
     if n_calls == 0:
         raise ValueError(f"steps_per_call {spc} > batches/epoch {nb}")
-    if state is None:
-        state = init_train_state(cfg, tc, device=dev)
-    step_fn = make_train_step(cfg, tc)
-    shuffle_rng = np.random.default_rng([tc.seed, state.step])
+    shuffle_rng = np.random.default_rng([tc.seed, int(state.step)])
     used = n_calls * spc * bs
 
     history = []
@@ -88,8 +102,9 @@ def train_loop(cfg: AssocConfig, tc: TrainConfig, data, *, epochs: int = 10,
                 )
             dev_data = _stage(fresh, dev)
         perm = shuffle_rng.permutation(n) if shuffle else np.arange(n)
-        idx = torch.as_tensor(perm[:used], dtype=torch.int64, device=dev)
-        stacks = [a[idx].reshape(n_calls, spc, bs, a.shape[-1]) for a in dev_data]
+        local = np.ascontiguousarray(perm[:used].reshape(n_calls, spc, bs)[:, :, rows])
+        idx = torch.as_tensor(local, dtype=torch.int64, device=dev)
+        stacks = [a[idx] for a in dev_data]  # [n_calls, spc, rows, n_input]
         t0 = time.perf_counter()
         acc = []
         for c in range(n_calls):
@@ -103,6 +118,8 @@ def train_loop(cfg: AssocConfig, tc: TrainConfig, data, *, epochs: int = 10,
         mean_metrics = {k: float(np.mean([np.mean(h[i]) for h in host]))
                         for i, k in enumerate(keys)}
         mean_metrics["samples_per_sec"] = used / dt
+        if n_chips is not None:
+            mean_metrics["samples_per_sec_per_chip"] = used / dt / n_chips
         history.append(mean_metrics)
         if on_metrics is not None and epoch % display_step == 0:
             on_metrics(epoch, mean_metrics)

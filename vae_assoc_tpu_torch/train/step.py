@@ -21,6 +21,7 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from vae_assoc_tpu_torch.configs import AssocConfig, TrainConfig
 from vae_assoc_tpu_torch.models import assoc as assoc_mod
@@ -93,15 +94,22 @@ def global_norm(tensors) -> torch.Tensor:
 class Optimizer:
     """Adam with optional clipping, schedule, accumulation and EMA, as
     optax's chain in the JAX package's make_optimizer. ``update`` applies
-    the step to the weights in place and advances the state in place."""
+    the step to the weights in place and advances the state in place.
 
-    def __init__(self, tc: TrainConfig):
+    ``norm_fn`` computes the norm that clipping compares with
+    ``grad_clip_norm`` (``global_norm`` by default); a layout whose
+    gradients are shards passes the norm of the whole gradient, as the JAX
+    package's layouts pass their ``clip_transform``. Every other stage is
+    elementwise, so it runs as well on shards as on whole tensors."""
+
+    def __init__(self, tc: TrainConfig, norm_fn=global_norm):
         if tc.ema_decay > 0 and not 0.0 < tc.ema_decay < 1.0:
             raise ValueError(f"ema_decay must be in (0, 1), got {tc.ema_decay}")
         if tc.accum_steps < 1:
             raise ValueError(f"accum_steps must be >= 1, got {tc.accum_steps}")
         lr_at(tc, 0)  # validates the schedule
         self.tc = tc
+        self.norm_fn = norm_fn
 
     def init(self, params) -> OptState:
         params = list(params)
@@ -136,7 +144,7 @@ class Optimizer:
     def _inner(self, grads, state: OptState, params) -> None:
         tc = self.tc
         if tc.grad_clip_norm > 0:
-            norm = global_norm(grads)
+            norm = self.norm_fn(grads)
             keep = norm < tc.grad_clip_norm
             scaled = torch._foreach_div(grads, norm)
             torch._foreach_mul_(scaled, tc.grad_clip_norm)
@@ -172,9 +180,10 @@ class Optimizer:
         torch._foreach_add_(params, upd)
 
 
-def make_optimizer(tc: TrainConfig) -> Optimizer:
-    """The one optimizer source (see module docstring)."""
-    return Optimizer(tc)
+def make_optimizer(tc: TrainConfig, norm_fn=global_norm) -> Optimizer:
+    """The one optimizer source (see module docstring); ``norm_fn`` as
+    :class:`Optimizer`'s."""
+    return Optimizer(tc, norm_fn)
 
 
 def ema_params(tc: TrainConfig, opt_state: OptState):
@@ -269,43 +278,93 @@ def step_seed(seed: int, step: int) -> int:
     return fold_in(seed, step)
 
 
+def step_seed_of_rank(seed: int, step: int, group=None) -> int:
+    """The ε seed of micro-step ``step`` on this process: ``step_seed``, with
+    the rank in ``group`` folded in where a data-parallel group shards the
+    batch (the JAX package folds the mesh position, ``axis_index``), so
+    each shard draws its own ε."""
+    s = step_seed(seed, step)
+    return s if group is None else fold_in(s, dist.get_rank(group))
+
+
+def all_reduce_mean(tensors, group) -> list:
+    """The mean of ``tensors`` over ``group``: one all-reduce of one flat
+    bucket, divided by the group's size. Returns new tensors, views of
+    the bucket."""
+    tensors = list(tensors)
+    flat = torch.cat([t.reshape(-1) for t in tensors])
+    dist.all_reduce(flat, group=group)
+    flat.div_(dist.get_world_size(group))
+    return [v.view_as(t) for v, t in zip(flat.split([t.numel() for t in tensors]), tensors)]
+
+
+def mean_metrics(metrics: dict, group) -> dict:
+    """Scalar metrics averaged over ``group`` in one all-reduce."""
+    keys = list(metrics)
+    vals = all_reduce_mean([torch.stack([metrics[k].float() for k in keys])], group)[0]
+    return dict(zip(keys, vals.unbind()))
+
+
 def _one_step(state: TrainState, xs, cfg: AssocConfig, tc: TrainConfig,
-              opt: Optimizer, *, eps=None):
+              opt: Optimizer, *, eps=None, group=None):
     """One optimizer micro-step on the batch list ``xs``. ε comes from the
     state's stream unless ``eps`` (one tensor per modality) is given.
-    Returns (state', metrics) with the metrics as device scalars."""
+    Returns (state', metrics) with the metrics as device scalars.
+
+    ``group``: the data-parallel process group when ``xs`` are this rank's
+    rows of a global batch (the JAX package's ``axis_name``). The rank
+    folds into the ε seed, global InfoNCE negatives are gathered over it,
+    the gradients are averaged over it in one all-reduce, and so are the
+    metrics; ``grad_norm`` is that of the averaged gradient. The step then
+    follows the gradient of the global batch's mean loss."""
     params = list(state.params.parameters())
     total, metrics = assoc_mod.assoc_loss_fn(
         state.params, list(xs), cfg,
-        seed=step_seed(state.seed, state.step) if eps is None else None, eps=eps,
-        compute_dtype=tc.compute_dtype, parity_mode=tc.parity_mode,
-        use_pallas=tc.use_pallas, remat=tc.remat,
+        seed=step_seed_of_rank(state.seed, state.step, group) if eps is None else None,
+        eps=eps, compute_dtype=tc.compute_dtype, parity_mode=tc.parity_mode,
+        use_pallas=tc.use_pallas, remat=tc.remat, data_group=group,
     )
     total, metrics = apply_objective_weights(total, metrics, cfg, tc, state.step)
     grads = torch.autograd.grad(total, params)
     metrics = {k: v.detach() for k, v in metrics.items()}
+    if group is not None:
+        grads = all_reduce_mean(grads, group)
+        metrics = mean_metrics(metrics, group)
     metrics["grad_norm"] = global_norm(grads)
     opt.update(grads, state.opt_state, params)
     return state._replace(step=state.step + 1), metrics
 
 
-def make_train_step(cfg: AssocConfig, tc: TrainConfig):
-    """``step_fn(state, xs) -> (state', metrics)``.
+def stacked_steps(one_step, n: int):
+    """``step_fn(state, xs, eps=None)`` over ``one_step(state, xs, eps)``:
+    with ``n == 1`` one step on [B, ...] batches; with n > 1, n steps on
+    [n, B, ...] stacks (``eps`` stacked alike) run back to back, every
+    metric with a leading [n] axis. The one ``steps_per_call`` loop of the
+    single-device step and of the parallel layouts."""
 
-    With ``steps_per_call == 1`` ``xs`` is a list of per-modality batches
-    [B, n_input_k] and the metrics are scalars; with N > 1 it is a list of
-    batch stacks [N, B, n_input_k], the N steps run back to back and every
-    metric has a leading [N] axis."""
-    opt = make_optimizer(tc)
-    n = tc.steps_per_call
-
-    def step_fn(state: TrainState, xs):
+    def step_fn(state, xs, eps=None):
         if n == 1:
-            return _one_step(state, xs, cfg, tc, opt)
+            return one_step(state, list(xs), eps)
         out = []
         for i in range(n):
-            state, m = _one_step(state, [x[i] for x in xs], cfg, tc, opt)
+            state, m = one_step(state, [x[i] for x in xs],
+                                None if eps is None else [e[i] for e in eps])
             out.append(m)
         return state, {k: torch.stack([m[k] for m in out]) for k in out[0]}
 
     return step_fn
+
+
+def make_train_step(cfg: AssocConfig, tc: TrainConfig):
+    """``step_fn(state, xs, eps=None) -> (state', metrics)``.
+
+    With ``steps_per_call == 1`` ``xs`` is a list of per-modality batches
+    [B, n_input_k] and the metrics are scalars; with N > 1 it is a list of
+    batch stacks [N, B, n_input_k], the N steps run back to back and every
+    metric has a leading [N] axis (``stacked_steps``)."""
+    opt = make_optimizer(tc)
+
+    def one(state, xs, eps):
+        return _one_step(state, xs, cfg, tc, opt, eps=eps)
+
+    return stacked_steps(one, tc.steps_per_call)

@@ -10,6 +10,12 @@ resume. The state file is written under a temporary name and renamed
 when complete, so a reader never sees half a checkpoint, and a step saved
 again keeps its old checkpoint until the new one is whole.
 
+A sharded state (``parallel/zero.py``'s flat slices, ``parallel/tp.py``'s
+split leaves) is saved as the whole state its ``gather_*_train_state``
+returns on every rank (rank 0 writing it is enough), and restored into a
+whole template and cut again by ``shard_*_train_state``: a checkpoint is
+one layout, whichever layout wrote it or reads it.
+
 ``save_params``/``load_params`` keep the serving layout of a bare model
 directory (``model_config.json`` plus ``params.pt``), and ``load_params``
 reads the weights of a whole-state checkpoint too. Directories written by
