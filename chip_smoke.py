@@ -206,6 +206,26 @@ Phases, each of which raises on failure (nothing is caught):
    enqueue and wall ms a step on config 3 at batch 1024 beside the
    single-device step's, an NCCL all-reduce's time at world size 1, and
    the phase's wall seconds.
+13. The rest of the parallel layouts, on a second NCCL group of world
+   size 1 and on gloo ranks sharing the card, each run 5 steps with
+   injected ε: TP under the package's GSPMD names on config 4's conv tower
+   (encoder="conv", plain convs, batch 64 fp32) against the single-device
+   step, and remat=True on config 3's TP step (composable, batch 1024)
+   against remat=False; TP × FSDP on config 5 (batch 1024 bf16,
+   composable) on a 1 × 1 ("data", "model") mesh against TP on the same
+   mesh from one seed, weights and losses bit for bit with exactly
+   TP_PER_STEP launches a step; two gloo ranks: the conv TP (channel
+   splits 16/32) against world 1, and the GPipe ring (S = 2, M = 4) on
+   config 3 deepened to 5 hidden layers of 500 per net, batch 1024 fp32,
+   against the single-device plain step (losses within rel 1e-3, every
+   leaf within an error norm of 1e-3 of its norm) and twice to the same
+   bits; four gloo ranks: TP × FSDP on a 2 × 2 mesh against world 1. The
+   tolerance gates are phase 12's TP ones (losses and gradient norms rel
+   1e-3, 99.9 % of the weights within rtol 1e-3 / atol 1e-5, every leaf's
+   error norm within 0.25 of its movement). Prints each layout's steps/s,
+   samples/s and host enqueue ms a step beside the single-device step's
+   (or TP's), a TP × FSDP rank's share of the weights, and the phase's
+   wall seconds.
 
 Phases 3 and 6b also check a stack with no hidden layer (the config-3
 image decoder's output layer alone, TP's column-split layer), forward
@@ -222,8 +242,9 @@ mega_dec_loss_bwd, enc_bwd and dec_bwd include their weight-gradient
 launches, and "alone_ms" is the kernel's without them; "eval_launches" is
 the kernel's launches in phase 9's evaluation, "uji_launches" in phase
 10's training and in-process evaluation, "export_launches" by phase 11's
-kernel-path Predictors, "parallel_launches" by phase 12's layouts (their
-own runs, not the single-device steps they are held against); reparam also gives "floor_ms", an empty kernel's
+kernel-path Predictors, "parallel_launches" by phases 12 and 13's layouts
+at world size 1 (their own runs, not the single-device steps they are
+held against; the gloo ranks' launches are their processes'); reparam also gives "floor_ms", an empty kernel's
 launch timed as its row, and "queued_ms" and "floor_queued_ms", the two
 queued behind a spin kernel (the device's time a launch, without the
 host's pace); enc_bwd and dec_bwd
@@ -3147,6 +3168,365 @@ def parallel_check(card):
     return total
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: TP on a conv tower and with remat, TP × FSDP, and the GPipe ring
+# ---------------------------------------------------------------------------
+
+L_STEPS = 5  # phase 13's steps a layout, with injected ε
+PP_DEPTH, PP_MICRO, PP_BATCH = 5, 4, 1024
+L_SEEDS = {"conv": 41, "tpf": 42, "pp": 43}
+
+
+def _tp_conv_cfg():
+    """Config 4 (28×28 → 32 → 64 → 500 → 20 conv image tower and the MLP
+    trajectory tower) on the plain convs, batch 64 fp32: what the GSPMD TP
+    names split by channels."""
+    import dataclasses
+
+    from vae_assoc_tpu_torch.configs import baseline_config
+
+    cfg, tc = baseline_config(4, use_pallas=False)
+    assert cfg.modalities[0].encoder == "conv"
+    return cfg, dataclasses.replace(tc, steps_per_call=1)
+
+
+def _pp_cfg():
+    """Config 3's widths deepened to 5 hidden layers of 500 per net
+    (784-500×5-20 Bernoulli image, 200-500×5-20 Gaussian trajectory), the
+    depth ``configs.validate_arch`` admits; batch 1024 fp32, plain."""
+    import dataclasses
+
+    from vae_assoc_tpu_torch.configs import (baseline_config, default_image_arch,
+                                             default_traj_arch)
+
+    cfg, tc = baseline_config(3, batch_size=PP_BATCH)
+    arches = (default_image_arch(depth=PP_DEPTH), default_traj_arch(depth=PP_DEPTH))
+    mods = [dataclasses.replace(m, arch=a) for m, a in zip(cfg.modalities, arches)]
+    return dataclasses.replace(cfg, modalities=mods), tc
+
+
+def _l_inputs(cfg, batch, seed, steps=L_STEPS):
+    """``steps`` (batch list, ε list) pairs as numpy, the same in every
+    process: images in [0, 1), trajectories normal."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(steps):
+        xs = [rng.uniform(0, 1, (batch, m.arch["n_input"])).astype(np.float32)
+              if m.recon == "bernoulli" else
+              rng.normal(size=(batch, m.arch["n_input"])).astype(np.float32)
+              for m in cfg.modalities]
+        out.append((xs, [rng.normal(size=(batch, m.arch["n_z"])).astype(np.float32)
+                         for m in cfg.modalities]))
+    return out
+
+
+def _nonzero(counts):
+    return {k: v for k, v in counts.items() if v}
+
+
+def _cuda(arrays):
+    return [torch.from_numpy(a).cuda() for a in arrays]
+
+
+def _drive(step, state, inputs, shard=_cuda):
+    """(state, per-step metrics as floats) of ``step`` over the inputs with
+    their ε (``shard`` places a batch list and an ε list)."""
+    ms = []
+    for xs, eps in inputs:
+        state, mt = step(state, shard(xs), eps=list(shard(eps)))
+        ms.append({k: float(v) for k, v in mt.items()})
+    return state, ms
+
+
+def _rate(step, state, x, n=10):
+    """(state, steps/s, host enqueue ms a step) over ``n`` steps on one batch."""
+    state, host, wall = _host_and_wall(step, state, x, n=n)
+    return state, 1e3 / wall, host
+
+
+def _pair_worker(rank):
+    """One of two gloo ranks sharing the card (phase 13): TP on config 4's
+    conv tower through the GSPMD names (channel splits 16/32), then PP over
+    2 stages on the deepened config 3, run twice from one state."""
+    from vae_assoc_tpu_torch import parallel
+    from vae_assoc_tpu_torch.parallel import pp, tp
+
+    out = {"device": f"cuda:{torch.cuda.current_device()}",
+           "backend": torch.distributed.get_backend()}
+    cfg, tc = _tp_conv_cfg()
+    m = tp.make_tp_mesh()
+    st = tp.init_tp_train_state(cfg, tc, m)
+    out["conv_shapes"] = [tuple(st.params.modalities[0].recog[k].w.shape)
+                          for k in ("conv1", "conv2")]
+    step = parallel.make_tp_train_step(cfg, tc, m)
+    inputs = _l_inputs(cfg, tc.batch_size, L_SEEDS["conv"])
+    st, ms = _drive(step, st, inputs)
+    full = tp.gather_tp_train_state(st, cfg, tc, m)
+    out["tp_conv"] = (ms, [p.detach().cpu().numpy() for p in full.params.parameters()])
+    out["tp_conv_rate"] = _rate(step, st, _cuda(inputs[0][0]))[1:]
+    cfg, tc = _pp_cfg()
+    pm = pp.make_pp_mesh()
+    inputs = _l_inputs(cfg, tc.batch_size, L_SEEDS["pp"])
+    runs = []
+    for _ in range(2):
+        st = pp.init_pp_train_state(cfg, tc, pm)
+        step = pp.make_pp_train_step(cfg, tc, pm, n_micro=PP_MICRO)
+        st, ms = _drive(step, st, inputs)
+        full = pp.gather_pp_train_state(st, cfg, tc, pm)
+        runs.append((ms, [p.detach().cpu().numpy() for p in full.params.parameters()]))
+    out["pp"] = runs[0]
+    out["pp_bits"] = runs[0][0] == runs[1][0] and all(
+        np.array_equal(a, b) for a, b in zip(runs[0][1], runs[1][1]))
+    out["pp_mid"] = tuple(st.params.modalities[0].recog["mid"].w.shape)
+    out["pp_rate"] = _rate(step, st, _cuda(inputs[0][0]))[1:]
+    return out
+
+
+def _tpf_cfg():
+    """Config 5 (composable kernels, batch 1024 bf16), one step a call."""
+    import dataclasses
+
+    from vae_assoc_tpu_torch.configs import baseline_config
+
+    cfg, tc = baseline_config(5)
+    return cfg, dataclasses.replace(tc, steps_per_call=1)
+
+
+def _tpf_worker(rank):
+    """One of four gloo ranks sharing the card (phase 13): TP × FSDP on a
+    2 × 2 mesh, config 5 (composable kernels, batch 1024 bf16), this rank's
+    rows of each batch and of ε."""
+    from vae_assoc_tpu_torch.parallel import tp, tp_fsdp
+
+    cfg, tc = _tpf_cfg()
+    m = tp.make_tp_mesh(4, data_parallel=2)
+    st = tp_fsdp.init_tp_fsdp_train_state(cfg, tc, m)
+    step = tp_fsdp.make_tp_fsdp_train_step(cfg, tc, m)
+    inputs = _l_inputs(cfg, tc.batch_size, L_SEEDS["tpf"])
+    st, ms = _drive(step, st, inputs, shard=lambda a: tp.shard_tp_batch(m, a))
+    full = tp_fsdp.gather_tp_fsdp_train_state(st, cfg, tc, m)
+    return {"ms": ms, "params": [p.detach().cpu().numpy() for p in full.params.parameters()],
+            "slice_numel": sum(t.numel() for t in st.params),
+            "rate": _rate(step, st, tp.shard_tp_batch(m, inputs[0][0]))[1:]}
+
+
+def _layout_gate(label, names, got, want, init, ms_got, ms_want):
+    """PR 13's TP gate: every step's loss and gradient norm within rel
+    PAR_TOL["tp"], 99.9 % of the weights within rtol PAR_TOL["tp"] / atol
+    1e-5, every leaf's error norm within PAR_TOL["tp_leaf"] of its movement
+    from ``init``. Returns a line that says what held."""
+    rel = 0.0
+    for mg, mw in zip(ms_got, ms_want):
+        for k in ("total", "grad_norm"):
+            r = abs(mg[k] / mw[k] - 1)
+            rel = max(rel, r)
+            assert r <= PAR_TOL["tp"], f"{label} {k}: {mg[k]} vs {mw[k]}"
+    bitwise = all(torch.equal(a, b) for a, b in zip(got, want))
+    share, err = _share_within(got, want, PAR_TOL["tp"], 1e-5)
+    assert share >= 0.999, f"{label}: {share:.6f} of the weights within rtol 1e-3"
+    werr = _leaf_errs(names, got, want, init)
+    worst = max(werr, key=werr.get)
+    assert werr[worst] <= PAR_TOL["tp_leaf"], (
+        f"{label} weights of {worst}: error norm {werr[worst]:.3e} of the leaf's movement")
+    if bitwise:
+        return "weights and losses bit for bit"
+    return (f"losses and grad norms within rel {rel:.2e}, {share:.6f} of the weights within "
+            f"rtol 1e-3 / atol 1e-5 (max abs err {err:.3e}), per leaf error norm "
+            f"{werr[worst]:.3e} of its movement (worst {worst})")
+
+
+def layouts_check(card):
+    """Phase 13; returns each kernel's launches by the layouts' own runs."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    from vae_assoc_tpu_torch import parallel
+    from vae_assoc_tpu_torch.configs import baseline_config
+    from vae_assoc_tpu_torch.kernels import launch_counts, reset_launches
+    from vae_assoc_tpu_torch.models import assoc as assoc_mod
+    from vae_assoc_tpu_torch.parallel import mesh, tp, tp_fsdp
+    from vae_assoc_tpu_torch.train import step as tstep
+
+    t_phase = time.perf_counter()
+    total = {}
+
+    def counted(fn):
+        """fn() with the launch counts zeroed before it; its launches are
+        added to the phase's and returned beside its result."""
+        reset_launches()
+        out = fn()
+        got = launch_counts()
+        for k, v in got.items():
+            total[k] = total.get(k, 0) + v
+        return out, got
+
+    def single(cfg, tc, inputs):
+        st = tstep.init_train_state(cfg, tc, device="cuda")
+        init = [p.detach().clone() for p in st.params.parameters()]
+        st, ms = _drive(tstep.make_train_step(cfg, tc), st, inputs)
+        return st, ms, init
+
+    def named(cfg):
+        return [k for k, _ in assoc_mod.AssocVAE(cfg, device="meta").named_parameters()]
+
+    tmp = tempfile.mkdtemp()
+    mesh.init_distributed("nccl", init_method=f"file://{tmp}/store", rank=0, world_size=1)
+    try:
+        m1 = tp.make_tp_mesh()
+        # 1. TP on config 4's conv tower (GSPMD names), world 1, against the
+        # single-device plain step with the same ε.
+        cfg4, tc4 = _tp_conv_cfg()
+        conv_in = _l_inputs(cfg4, tc4.batch_size, L_SEEDS["conv"])
+        ref4, ref4_ms, init4 = single(cfg4, tc4, conv_in)
+        ts = tp.init_tp_train_state(cfg4, tc4, m1)
+        step = parallel.make_tp_train_step(cfg4, tc4, m1)
+        (ts, tp4_ms), got = counted(lambda: _drive(step, ts, conv_in))
+        tp4 = _params_of(tp.gather_tp_train_state(ts, cfg4, tc4, m1))
+        names4 = named(cfg4)
+        line = _layout_gate("TP config 4 conv", names4, tp4, _params_of(ref4), init4, tp4_ms,
+                            ref4_ms)
+        x4 = _cuda(conv_in[0][0])
+        ts, r_tp, h_tp = _rate(step, ts, x4)
+        _, r_sd, h_sd = _rate(tstep.make_train_step(cfg4, tc4), ref4, x4)
+        print(f"phase 13: TP config 4 conv tower (GSPMD names, plain convs) batch 64 fp32, world "
+              f"1, {L_STEPS} steps with injected ε against the single-device step: {line}; "
+              f"launches {_nonzero(got)}; steps/s TP {r_tp:.1f}, single-device {r_sd:.1f}; "
+              f"samples/s {64 * r_tp:.1f}, {64 * r_sd:.1f}; host enqueue ms a step {h_tp:.3f}, "
+              f"{h_sd:.3f} ({card})", flush=True)
+
+        # 2. remat on config 3's TP step (the kernels inside the checkpoint).
+        cfg3, tc3 = baseline_config(3, batch_size=1024, use_pallas=True)
+        rem = dataclasses.replace(tc3, remat=True)
+        in3 = _l_inputs(cfg3, 1024, 44)
+        a, b = tp.init_tp_train_state(cfg3, tc3, m1), tp.init_tp_train_state(cfg3, rem, m1)
+        init3 = _params_of(tp.gather_tp_train_state(a, cfg3, tc3, m1))
+        init3 = [p.clone() for p in init3]
+        sa, sb = parallel.make_tp_train_step(cfg3, tc3, m1), parallel.make_tp_train_step(
+            cfg3, rem, m1)
+        a, ms_a = _drive(sa, a, in3)
+        (b, ms_b), got = counted(lambda: _drive(sb, b, in3))
+        line = _layout_gate("TP config 3 remat", named(cfg3),
+                            _params_of(tp.gather_tp_train_state(b, cfg3, rem, m1)),
+                            _params_of(tp.gather_tp_train_state(a, cfg3, tc3, m1)), init3,
+                            ms_b, ms_a)
+        x3 = _cuda(in3[0][0])
+        b, r_rem, h_rem = _rate(sb, b, x3)
+        a, r_tp3, h_tp3 = _rate(sa, a, x3)
+        print(f"phase 13: TP config 3 composable batch 1024 fp32 with remat=True against "
+              f"remat=False, world 1, {L_STEPS} steps with injected ε: {line}; launches "
+              f"{ {k: v // L_STEPS for k, v in _nonzero(got).items()} } a step (the forward's "
+              f"twice); steps/s remat {r_rem:.1f}, TP {r_tp3:.1f}; host ms {h_rem:.3f}, "
+              f"{h_tp3:.3f} ({card})", flush=True)
+
+        # 3. TP × FSDP on config 5 at world 1 on a 1 × 1 ("data", "model")
+        # mesh, against TP on the same mesh from one seed: bit for bit, TP's
+        # launches; then with injected ε, the reference of the 2 × 2 ranks.
+        cfg5, tc5 = _tpf_cfg()
+        m11 = mesh.make_mesh(1, model_axis="model", model_parallel=1)
+        tpf_in = _l_inputs(cfg5, tc5.batch_size, L_SEEDS["tpf"])
+        t5 = tp.init_tp_train_state(cfg5, tc5, m11)
+        f5 = tp_fsdp.init_tp_fsdp_train_state(cfg5, tc5, m11)
+        st5, sf5 = (parallel.make_tp_train_step(cfg5, tc5, m11),
+                    tp_fsdp.make_tp_fsdp_train_step(cfg5, tc5, m11))
+        for xs, _ in tpf_in:
+            (t5, mt), got_t = counted(lambda: st5(t5, _cuda(xs)))
+            (f5, mf), got_f = counted(lambda: sf5(f5, _cuda(xs)))
+            want = {k: TP_PER_STEP.get(k, 0) for k in got_f}
+            assert got_f == want and got_t == want, f"launches TP {got_t}, TP×FSDP {got_f}"
+            assert all(torch.equal(mt[k], mf[k]) for k in mt if k != "grad_norm"), (mt, mf)
+            assert abs(float(mf["grad_norm"]) / float(mt["grad_norm"]) - 1) < 1e-6
+        assert all(torch.equal(p, q) for p, q in zip(
+            _params_of(tp_fsdp.gather_tp_fsdp_train_state(f5, cfg5, tc5, m11)),
+            _params_of(tp.gather_tp_train_state(t5, cfg5, tc5, m11)))), (
+            "TP×FSDP at world 1 differs from TP")
+        x5 = _cuda(tpf_in[0][0])
+        f5, r_f, h_f = counted(lambda: _rate(sf5, f5, x5))[0]
+        t5, r_t, h_t = counted(lambda: _rate(st5, t5, x5))[0]
+        sd5 = tstep.init_train_state(cfg5, tc5, device="cuda")
+        _, r_s, h_s = _rate(tstep.make_train_step(cfg5, tc5), sd5, x5)
+        f1, ms_f = counted(lambda: _drive(sf5, tp_fsdp.init_tp_fsdp_train_state(cfg5, tc5, m11),
+                                          tpf_in))[0]
+        tpf1 = _params_of(tp_fsdp.gather_tp_fsdp_train_state(f1, cfg5, tc5, m11))
+        print(f"phase 13: TP×FSDP config 5 (composable, batch 1024 bf16) at world 1 against TP "
+              f"on the same 1 × 1 mesh from one seed, {L_STEPS} steps: weights and losses bit "
+              "for bit, grad norms within 1e-6, launches exactly TP_PER_STEP a step; steps/s "
+              f"TP×FSDP {r_f:.1f}, TP {r_t:.1f}, single-device {r_s:.1f}; samples/s "
+              f"{1024 * r_f:.1f}, {1024 * r_t:.1f}, {1024 * r_s:.1f}; host enqueue ms a step "
+              f"{h_f:.3f}, {h_t:.3f}, {h_s:.3f} ({card})", flush=True)
+
+        # 4. Two gloo ranks on the card: TP conv against world 1, PP against
+        # the single-device plain step, PP twice to the same bits.
+        t0 = time.perf_counter()
+        pair = mesh.spawn(_pair_worker, 2, device_type="cuda", backend="gloo", timeout_s=300)
+        for r, res in enumerate(pair):
+            assert res["conv_shapes"] == [(3, 3, 1, 16), (3, 3, 16, 64)], res["conv_shapes"]
+            ms, params = res["tp_conv"]
+            line_c = _layout_gate(f"TP conv rank {r}", names4,
+                                  [torch.from_numpy(p) for p in params], [p.cpu() for p in tp4],
+                                  [p.cpu() for p in init4], ms, tp4_ms)
+        cfgp, tcp = _pp_cfg()
+        pp_in = _l_inputs(cfgp, tcp.batch_size, L_SEEDS["pp"])
+        refp, refp_ms, _ = single(cfgp, tcp, pp_in)
+        namesp = named(cfgp)
+        rel = 0.0
+        for r, res in enumerate(pair):
+            assert res["pp_bits"], f"PP rank {r}: two runs from one state differ"
+            ms, params = res["pp"]
+            for mg, mw in zip(ms, refp_ms):
+                for k in ("total", "grad_norm"):
+                    rel = max(rel, abs(mg[k] / mw[k] - 1))
+            assert rel <= PAR_TOL["tp"], f"PP rank {r}: losses off by rel {rel:.3e}"
+            perr = _leaf_errs(namesp, [torch.from_numpy(p) for p in params],
+                              [p.cpu() for p in _params_of(refp)])
+            pworst = max(perr, key=perr.get)
+            assert perr[pworst] <= PAR_TOL["tp"], (
+                f"PP rank {r} leaf {pworst}: error norm {perr[pworst]:.3e} of its norm")
+        pshare, perr_max = _share_within([torch.from_numpy(p) for p in pair[0]["pp"][1]],
+                                         [p.cpu() for p in _params_of(refp)], PAR_TOL["tp"], 1e-5)
+        _, r_p, h_p = _rate(tstep.make_train_step(cfgp, tcp), refp, _cuda(pp_in[0][0]))
+        print(f"phase 13: two gloo ranks on {pair[0]['device']} over {pair[0]['backend']}: TP "
+              f"config 4 conv (channel splits 16/32) against world 1: {line_c}; steps/s "
+              f"{pair[0]['tp_conv_rate'][0]:.1f} (samples/s "
+              f"{64 * pair[0]['tp_conv_rate'][0]:.1f}), host ms "
+              f"{pair[0]['tp_conv_rate'][1]:.3f}; PP "
+              f"S = 2, M = {PP_MICRO}, config 3 deepened to {PP_DEPTH} × 500 (mid block "
+              f"{pair[0]['pp_mid']}), batch {PP_BATCH} fp32, {L_STEPS} steps with injected ε "
+              f"against the single-device plain step: losses and grad norms within rel "
+              f"{rel:.2e}, every leaf within error norm {perr[pworst]:.3e} of its norm (worst "
+              f"{pworst}; limit {PAR_TOL['tp']}), {pshare:.6f} of the weights within rtol 1e-3 "
+              f"/ atol 1e-5 (max abs err {perr_max:.3e}), identical bits twice; steps/s PP "
+              f"{pair[0]['pp_rate'][0]:.1f} (host ms {pair[0]['pp_rate'][1]:.3f}), "
+              f"single-device {r_p:.1f} (host ms {h_p:.3f}); samples/s "
+              f"{PP_BATCH * pair[0]['pp_rate'][0]:.1f}, {PP_BATCH * r_p:.1f}; "
+              f"{time.perf_counter() - t0:.2f} s wall ({card})", flush=True)
+
+        # 5. Four gloo ranks on the card: TP × FSDP 2 × 2 against world 1.
+        t0 = time.perf_counter()
+        quad = mesh.spawn(_tpf_worker, 4, device_type="cuda", backend="gloo", timeout_s=300)
+        init5 = [p.cpu() for p in _params_of(tstep.init_train_state(cfg5, tc5, device="cuda"))]
+        for r, res in enumerate(quad):
+            line_q = _layout_gate(f"TP×FSDP 2×2 rank {r}", named(cfg5),
+                                  [torch.from_numpy(p) for p in res["params"]],
+                                  [p.cpu() for p in tpf1], init5, res["ms"], ms_f)
+        numel = sum(p.numel() for p in tpf1)
+        print(f"phase 13: four gloo ranks, TP×FSDP 2 × 2 on config 5 against world 1, "
+              f"{L_STEPS} steps with injected ε: {line_q}; a rank stores "
+              f"{quad[0]['slice_numel']} of {numel} weights "
+              f"({quad[0]['slice_numel'] / numel:.4f}); "
+              f"steps/s {quad[0]['rate'][0]:.1f} (samples/s {1024 * quad[0]['rate'][0]:.1f}), "
+              f"host ms {quad[0]['rate'][1]:.3f}; "
+              f"{time.perf_counter() - t0:.2f} s wall ({card})", flush=True)
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"phase 13: launches by the layouts' runs: {_nonzero(total)}", flush=True)
+    print(f"phase 13 took {time.perf_counter() - t_phase:.2f} s wall", flush=True)
+    return total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch finds no CUDA device", file=sys.stderr)
@@ -3218,6 +3598,9 @@ def main() -> int:
 
     # Phase 12
     parallel_launches = parallel_check(card)
+    # Phase 13
+    for k, v in layouts_check(card).items():
+        parallel_launches[k] = parallel_launches.get(k, 0) + v
 
     cd = pred.compute_dtype
     big, small = TRAIN_TIMED[-1], TRAIN_TIMED[0]
@@ -3337,7 +3720,7 @@ def main() -> int:
             "uji_launches": uji_launches.get(name, 0),
             # launches by phase 11's kernel-path Predictors (the artifacts launch none)
             "export_launches": export_launches.get(name, 0),
-            # launches by phase 12's parallel layouts (DP, ZeRO, TP) at world size 1
+            # launches by phases 12 and 13's parallel layouts at world size 1
             "parallel_launches": parallel_launches.get(name, 0),
         }
         if name == "reparam":  # an empty kernel's launch, timed as this row and queued

@@ -97,7 +97,7 @@ def test_port_never_imports_jax():
         "import vae_assoc_tpu_torch as p\n"
         "mods = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
         "for m in mods: importlib.import_module(m)\n"
-        "assert len(mods) >= 54, mods\n"
+        "assert len(mods) >= 57, mods\n"
         "for need in ('ops.losses', 'ops.sampling', 'ops.resample', 'ops.rasterize',\n"
         "             'kernels.megakernel', 'kernels.sampling', 'kernels.loss',\n"
         "             'train.step', 'train.loop', 'data.pipeline', 'data.synthetic',\n"
@@ -106,7 +106,7 @@ def test_port_never_imports_jax():
         "             'native', 'data.uji', 'data.stream', 'ops.rbf', 'ops.augment',\n"
         "             'utils.viz', 'export', 'utils.compile_cache', 'ops.collectives',\n"
         "             'parallel.mesh', 'parallel.dp', 'parallel.zero', 'parallel.fsdp',\n"
-        "             'parallel.tp'):\n"
+        "             'parallel.tp', 'parallel.tp_fsdp', 'parallel.pp', 'parallel.slices'):\n"
         "    assert 'vae_assoc_tpu_torch.' + need in mods, need\n"
         "bad = sorted(k for k in sys.modules if k in ('jax', 'vae_assoc_tpu') or k.startswith(('jax.', 'vae_assoc_tpu.')))\n"
         "assert not bad, bad\n"

@@ -27,7 +27,7 @@ import torch
 from vae_assoc_tpu_torch import configs as tcfg
 from vae_assoc_tpu_torch import convert
 from vae_assoc_tpu_torch.models import assoc as tassoc
-from vae_assoc_tpu_torch.parallel import dp, mesh, tp, zero
+from vae_assoc_tpu_torch.parallel import dp, mesh, pp, tp, tp_fsdp, zero
 from vae_assoc_tpu_torch.train import step as tstep
 
 B = 16
@@ -263,19 +263,25 @@ def test_shard_rows_rejects_an_indivisible_batch():
 
 
 @pytest.mark.parametrize("entry", ["make_mesh", "spawn", "init_dp_train_state",
-                                   "init_zero_train_state", "init_tp_train_state"])
+                                   "init_zero_train_state", "init_tp_train_state",
+                                   "make_pp_mesh", "init_pp_train_state",
+                                   "init_tp_fsdp_train_state"])
 def test_parallel_entry_points_default_to_the_card(entry, monkeypatch):
     """Without a GPU the card, the default, raises; nothing falls back to
     the CPU unless the caller names it."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg, tc = _cfg(tcfg), tcfg.TrainConfig(batch_size=B)
-    like = SimpleNamespace(device_type="cuda", ndim=1, shape=(1,), size=lambda *a: 1,
-                           mesh_dim_names=("model",) if entry.endswith("tp_train_state")
-                           else ("data",), get_local_rank=lambda *a: 0)
+    names = {"init_tp_train_state": ("model",), "init_pp_train_state": ("stage",),
+             "init_tp_fsdp_train_state": ("data", "model")}.get(entry, ("data",))
+    like = SimpleNamespace(device_type="cuda", ndim=len(names), shape=(2,) * len(names),
+                           size=lambda *a: 2, mesh_dim_names=names, get_local_rank=lambda *a: 0)
     fns = {"make_mesh": lambda: mesh.make_mesh(),
            "spawn": lambda: mesh.spawn(_dp_worker, 2),
            "init_dp_train_state": lambda: dp.init_dp_train_state(cfg, tc, like),
            "init_zero_train_state": lambda: zero.init_zero_train_state(cfg, tc, like),
-           "init_tp_train_state": lambda: tp.init_tp_train_state(cfg, tc, like)}
+           "init_tp_train_state": lambda: tp.init_tp_train_state(cfg, tc, like),
+           "make_pp_mesh": lambda: pp.make_pp_mesh(),
+           "init_pp_train_state": lambda: pp.init_pp_train_state(cfg, tc, like),
+           "init_tp_fsdp_train_state": lambda: tp_fsdp.init_tp_fsdp_train_state(cfg, tc, like)}
     with pytest.raises(RuntimeError, match=re.escape(entry) + r"\(device='cuda'\).*no CUDA"):
         fns[entry]()

@@ -1,7 +1,13 @@
 """The port's tensor-parallel layout (vae_assoc_tpu_torch/parallel/tp.py)
 against the JAX package's tp_shard and the port's single-device and DP
 steps, Megatron's operators against the single-process product, and the
-depth-0 stack that the column-split layers run on the MLP kernels.
+depth-0 stack that the column-split layers run on the MLP kernels. Under
+the package's GSPMD names (``parallel.make_tp_train_step``) the layout
+also splits a conv tower's channels and takes ``remat`` and
+``parity_mode``: those runs are held against the JAX package's GSPMD
+``make_tp_train_step`` from its initial weights with the ε its key draws
+(JAX's run on a 4-way model mesh, the same function at any width), and
+rank r's conv slices against JAX's shard r.
 
 The ranks are gloo processes on the CPU, spawned once per world size (2
 and 4) by a module fixture; each runs every case and hands back numpy
@@ -10,8 +16,11 @@ imported only here. Widths are 21 and the inputs 38 and 35 wide, which
 neither world size divides, so every split leaf carries pads.
 
 Tolerances: the trajectories rtol 2e-4 / atol 2e-5, as
-tests/test_tp_shard.py (sums of partial products reassociate); the
-operators and the depth-0 stack fp32 rtol = atol = 1e-5 and bf16 2e-2, as
+tests/test_tp_shard.py (sums of partial products reassociate); against
+JAX's GSPMD TP the losses rtol 1e-5 and each weight leaf rtol 2e-4 with an
+atol of 2e-4 times the leaf's largest value (two frameworks' convs, as
+tests/test_torch_train.py scales its atol per leaf); the operators and the
+depth-0 stack fp32 rtol = atol = 1e-5 and bf16 2e-2, as
 tests/test_torch_composable.py.
 """
 
@@ -27,6 +36,7 @@ from torch import nn
 
 from vae_assoc_tpu_torch import configs as tcfg
 from vae_assoc_tpu_torch import convert
+from vae_assoc_tpu_torch import parallel
 from vae_assoc_tpu_torch.kernels import mlp as kmlp
 from vae_assoc_tpu_torch.models import networks
 from vae_assoc_tpu_torch.parallel import dp, mesh, tp
@@ -74,6 +84,64 @@ def _jax_state():
     return state
 
 
+def _conv_cfg(c, hidden=16):
+    """Config 4's shape (tests/test_tp.py): a conv image tower and an MLP
+    trajectory tower."""
+    img = dict(n_input=784, n_z=4, n_hidden_recog_1=hidden, n_hidden_recog_2=hidden,
+               n_hidden_gener_1=hidden, n_hidden_gener_2=hidden)
+    return c.AssocConfig([c.ModalityConfig("image", img, recon="bernoulli", encoder="conv"),
+                          c.ModalityConfig("trajectory", dict(img, n_input=24),
+                                           recon="gaussian")],
+                         assoc_lambda=0.5)
+
+
+# The GSPMD names' cases on the conv config: TrainConfig fields.
+CONV_CASES = {"plain": {}, "remat": dict(remat=True), "parity": dict(parity_mode=True)}
+
+
+def _conv_data(rng, n=B):
+    return [rng.uniform(0, 1, (n, 784)).astype(np.float32),
+            rng.normal(size=(n, 24)).astype(np.float32)]
+
+
+def _jax_eps(rng_key, step, cfg, b):
+    """The ε that the JAX step at ``step`` draws from the state's key
+    (train/step.py::_one_step, models/assoc.py::assoc_forward): the key
+    split, the step folded in, one key per modality. Returns (ε list, the
+    next key)."""
+    import jax
+
+    rng_key, k = jax.random.split(rng_key)
+    keys = jax.random.split(jax.random.fold_in(k, step), len(cfg.modalities))
+    return [np.asarray(jax.random.normal(kk, (b, m.arch["n_z"])))
+            for kk, m in zip(keys, cfg.modalities)], rng_key
+
+
+def _jax_conv_run(case):
+    """Three steps of JAX's GSPMD TP on the conv config: its initial
+    weights, each step's batch and ε, metrics and the final weights."""
+    import jax
+
+    from vae_assoc_tpu import configs as jcfg
+    from vae_assoc_tpu.parallel import mesh as jmesh
+    from vae_assoc_tpu.parallel import tp as jtp
+
+    cfg, tc = _conv_cfg(jcfg), jcfg.TrainConfig(batch_size=B, **CONV_CASES[case])
+    m = jmesh.make_mesh(4, model_axis="model", model_parallel=4)
+    state = jtp.init_tp_train_state(cfg, tc, m)
+    init = jax.tree.map(np.array, state.params)
+    step = jtp.make_tp_train_step(cfg, tc, m)
+    rng, key, calls, metrics = np.random.default_rng(21), state.rng, [], []
+    for t in range(3):
+        xs = _conv_data(rng)
+        eps, key = _jax_eps(key, t, cfg, B)
+        state, mt = step(state, jtp.shard_tp_batch(m, xs))
+        calls.append((xs, eps))
+        metrics.append({k: float(v) for k, v in mt.items()})
+    return dict(init=init, calls=calls, metrics=metrics,
+                final=dict(convert._flatten(jax.tree.map(np.array, state.params))))
+
+
 def _inputs():
     import jax
 
@@ -86,7 +154,9 @@ def _inputs():
                       jax.tree.map(np.asarray, adam.nu)),
                 step=int(st.step), xs=_data(rng), cond=cond, data=_data(rng, 64),
                 ops=[rng.normal(size=s).astype(np.float32)
-                     for s in ((8, 10), (10, 12), (12, 7), (8, 7), (8, 12))])
+                     for s in ((8, 10), (10, 12), (12, 7), (8, 7), (8, 12))],
+                conv={case: _jax_conv_run(case) for case in CONV_CASES},
+                conv_xs=_conv_data(rng), conv_data=_conv_data(rng, 64))
 
 
 def _params(state):
@@ -129,6 +199,61 @@ def _pads_zero(state, cfg, m) -> bool:
         if t.detach().movedim(d, 0)[~keep].abs().sum() != 0:
             return False
     return True
+
+
+def _gspmd_conv(m, inp):
+    """The GSPMD names on the conv config: JAX's runs continued from its
+    initial weights with its ε, the conv slices, pads on a conv config whose
+    dense widths the world does not divide, the loop and the refusals."""
+    out = {}
+    cfg = _conv_cfg(tcfg)
+    for case, fields in CONV_CASES.items():
+        run, tc = inp["conv"][case], tcfg.TrainConfig(batch_size=B, **fields)
+        state = tp.init_tp_train_state(cfg, tc, m,
+                                       params=convert.from_jax_numpy(run["init"], cfg, "cpu"))
+        if case == "plain":
+            out["conv_slices"] = _params(state)
+        step, ms = parallel.make_tp_train_step(cfg, tc, m), []
+        for xs, eps in run["calls"]:
+            state, mt = step(state, tp.replicate_batch(m, xs),
+                             eps=[torch.tensor(e) for e in eps])
+            ms.append({k: float(v) for k, v in mt.items()})
+        out[("conv", case)] = (ms, _params(tp.gather_tp_train_state(state, cfg, tc, m)))
+    # Pads: dense widths of 21 over 2 or 4 ranks, against the single-device step.
+    c21, tc = _conv_cfg(tcfg, hidden=21), tcfg.TrainConfig(batch_size=B)
+    state, step, ms = tp.init_tp_train_state(c21, tc, m), parallel.make_tp_train_step(
+        c21, tc, m), []
+    for _ in range(3):
+        state, mt = step(state, tp.replicate_batch(m, inp["conv_xs"]))
+        ms.append({k: float(v) for k, v in mt.items()})
+    out["conv_pads"] = (_single(c21, tc, inp["conv_xs"], 3),
+                        (ms, _params(tp.gather_tp_train_state(state, c21, tc, m))))
+    out["conv_pads_zero"] = _pads_zero(state, c21, m)
+    _, hist = parallel.tp_train_loop(cfg, tcfg.TrainConfig(batch_size=8, learning_rate=3e-3),
+                                     inp["conv_data"], m, epochs=3)
+    out["conv_loop"] = [h["total"] for h in hist]
+    pconv = tcfg.AssocConfig([tcfg.ModalityConfig("image", dict(_arch(2, 784)),
+                                                  recon="bernoulli", encoder="conv_pallas")])
+    tc = tcfg.TrainConfig(batch_size=B)
+    errs = {}
+    for name, fn in (
+            ("conv_pallas", lambda: parallel.make_tp_train_step(pconv, tc, m)),
+            ("conv_use_pallas", lambda: parallel.make_tp_train_step(
+                cfg, dataclasses.replace(tc, use_pallas=True), m)),
+            ("shard_conv", lambda: parallel.tp_shard.make_tp_train_step(cfg, tc, m)),
+            ("shard_loop_conv", lambda: parallel.tp_shard.tp_train_loop(
+                cfg, tc, inp["conv_data"], m)),
+            ("shard_remat", lambda: parallel.tp_shard.make_tp_train_step(
+                _cfg(tcfg), dataclasses.replace(tc, remat=True), m)),
+            ("shard_parity", lambda: parallel.tp_shard.make_tp_train_step(
+                _cfg(tcfg), dataclasses.replace(tc, parity_mode=True), m))):
+        try:
+            fn()
+            errs[name] = None
+        except ValueError as e:
+            errs[name] = str(e)
+    out["gspmd_errors"] = errs
+    return out
 
 
 def _operators(rank, inp, group, w):
@@ -255,6 +380,7 @@ def _tp_worker(rank, inp):
             errs[name] = str(e)
     out["errors"] = errs
     out["ops"] = _operators(rank, inp, m.get_group(tp.AXIS), w)
+    out.update(_gspmd_conv(m, inp))
     return out
 
 
@@ -385,6 +511,81 @@ def test_tp_rejections(worlds):
             assert re.search("conv", e["specs_conv_pallas"])
     for res in worlds.runs[4]:
         assert re.search("divisible", res["err_divisible"])
+
+
+def _close_to_jax(ms, params, run):
+    for mt, mj in zip(ms, run["metrics"]):
+        for k in mj:
+            np.testing.assert_allclose(mt[k], mj[k], rtol=1e-5, err_msg=k)
+    for k, want in run["final"].items():
+        np.testing.assert_allclose(params[k], want, rtol=2e-4, atol=2e-4 * np.abs(want).max(),
+                                   err_msg=k)
+
+
+@pytest.mark.parametrize("case", list(CONV_CASES))
+def test_gspmd_tp_conv_tower_matches_jax(world, case):
+    """The GSPMD names train config 4's shape, with remat and parity_mode,
+    as the JAX package's GSPMD TP does, from its weights with its ε."""
+    run = world.inp["conv"][case]
+    for res in world.ranks:
+        ms, params = res[("conv", case)]
+        _close_to_jax(ms, params, run)
+        assert params.keys() == world.ranks[0][("conv", case)][1].keys()
+
+
+def test_gspmd_tp_conv_slices_equal_jax_shards(world):
+    """The conv tower's leaves split as JAX's GSPMD conv pattern (conv1 and
+    convt1 on cout, conv2 and convt2 on cin, the dense layers column and
+    row): rank r's slice is JAX's shard r, tests/test_tp.py's shapes."""
+    from vae_assoc_tpu import configs as jcfg
+    from vae_assoc_tpu.parallel import mesh as jmesh
+    from vae_assoc_tpu.parallel import tp as jtp
+
+    cfg, w = _conv_cfg(jcfg), world.w
+    params = jtp.shard_params(jmesh.make_mesh(w, model_axis="model", model_parallel=w),
+                              world.inp["conv"]["plain"]["init"], cfg)
+    specs = jtp.tp_param_specs(cfg)["modalities"][0]
+    dims = tp.tp_param_specs(_conv_cfg(tcfg))
+    for net, layers in params["modalities"][0].items():
+        for name, leaf in layers.items():
+            for k, arr in leaf.items():
+                key = f"modalities.0.{net}.{name}.{k}"
+                spec = tuple(specs[net][name][k])
+                d = dims[key]
+                assert d == (spec.index("model") if "model" in spec else None), key
+                for r, res in enumerate(world.ranks):
+                    got = res["conv_slices"][key]
+                    if d is None:
+                        want = np.asarray(arr)
+                    else:
+                        c = arr.shape[d] // w
+                        (want,) = [np.asarray(s.data) for s in arr.addressable_shards
+                                   if (s.index[d].start or 0) == r * c]
+                    np.testing.assert_array_equal(got, want, err_msg=f"{r} {key}")
+    shapes = {k: v.shape for k, v in world.ranks[0]["conv_slices"].items()}
+    assert shapes["modalities.0.recog.conv1.w"] == (3, 3, 1, 32 // w)
+    assert shapes["modalities.0.recog.conv2.w"] == (3, 3, 32 // w, 64)
+
+
+def test_gspmd_tp_conv_pads_match_single_device(world):
+    """Dense widths of 21 carry pads on both world sizes; the padded conv
+    tower computes the unpadded function and its pads stay zero."""
+    for res in world.ranks:
+        _close_run(*res["conv_pads"])
+        assert res["conv_pads_zero"]
+        assert np.isfinite(res["conv_loop"]).all() and res["conv_loop"][-1] < res["conv_loop"][0]
+
+
+def test_gspmd_tp_rejections_and_tp_shard_refusals(world):
+    """The GSPMD names reject the conv kernels as JAX's GSPMD TP does; the
+    tp_shard names keep refusing conv towers, remat and parity_mode."""
+    for res in world.ranks:
+        e = res["gspmd_errors"]
+        assert re.search("conv", e["conv_pallas"])
+        assert re.search("use_pallas", e["conv_use_pallas"])
+        assert re.search("zero", e["shard_conv"]) and re.search("zero", e["shard_loop_conv"])
+        assert re.search("remat", e["shard_remat"])
+        assert re.search("parity", e["shard_parity"])
 
 
 def test_megatron_operators_give_single_process_grads(world):

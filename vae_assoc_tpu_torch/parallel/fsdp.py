@@ -21,7 +21,7 @@ from __future__ import annotations
 
 from vae_assoc_tpu_torch.configs import AssocConfig, TrainConfig
 from vae_assoc_tpu_torch.models.assoc import AssocVAE
-from vae_assoc_tpu_torch.parallel import zero
+from vae_assoc_tpu_torch.parallel import slices, zero
 from vae_assoc_tpu_torch.train.step import TrainState
 
 
@@ -29,7 +29,7 @@ def fsdp_param_specs(cfg: AssocConfig, n_shards: int) -> dict:
     """How each parameter lies in the layout: its state_dict key →
     (full shape, length of a rank's flat slice), the slice being
     ``ceil(numel / n_shards)`` (the flat tensor padded with zeros)."""
-    return {k: (tuple(p.shape), zero._pad_len(p.numel(), n_shards) // n_shards)
+    return {k: (tuple(p.shape), slices.pad_len(p.numel(), n_shards) // n_shards)
             for k, p in AssocVAE(cfg, device="meta").named_parameters()}
 
 

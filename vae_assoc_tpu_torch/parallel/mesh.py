@@ -178,6 +178,14 @@ def shard_batch(mesh: DeviceMesh, arrays, *, leading_scan_axis: bool = False,
     return tuple(out)
 
 
+def replicate_batch(mesh: DeviceMesh, arrays, *, leading_scan_axis: bool = False) -> tuple:
+    """Every batch array whole on this rank's device: the placement of a
+    layout whose ranks split the model, not the batch (pure TP, PP)."""
+    del leading_scan_axis
+    dev = mesh_device(mesh)
+    return tuple(torch.as_tensor(a).to(dev, torch.float32).contiguous() for a in arrays)
+
+
 def _tensors(tree) -> list:
     if isinstance(tree, torch.Tensor):
         return [tree]

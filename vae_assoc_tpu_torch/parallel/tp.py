@@ -1,5 +1,6 @@
 """Tensor parallelism that keeps the kernels (counterpart of
-vae_assoc_tpu/parallel/tp_shard.py, under the names of its tp.py too).
+vae_assoc_tpu/parallel/tp_shard.py and, under the package-level names, of
+its GSPMD tp.py).
 
 The Megatron column × row decomposition, written as explicit collectives
 around the width-agnostic MLP kernels. The unit is a **pair block**: two
@@ -17,31 +18,33 @@ onto it as in the JAX package (``_net_roles``):
   layer pairs with the output layer, at even depth the output layer runs
   split by columns.
 
+**Conv towers** (``encoder="conv"``) take the channel splits of the JAX
+package's GSPMD conv pattern (``_conv_roles``): conv1 and convt1 split
+their output channels, conv2 and convt2 their input channels with g's
+all-reduce after them, and the dense layers pair column × row (the
+recognition dense with the heads, the generator's two dense layers). They
+run as the port's ``models/conv.py`` runs ``encoder="conv"``: plain
+``F.conv2d`` on the channel slices and plain products.
+
 Widths the model group does not divide are zero-padded to its next
 multiple (500 over 8 ranks is 8 × 63 with 4 pad columns). A pad column's
-activation is softplus(0), but its only consumer is a pad row of the
-row-split partner, zero from the start and kept zero by masking its
-gradient every step (``_mask_pad_rows``), so the padded model computes the
-unpadded function. Column-split leftovers drop their pad columns after the
-gather, which zeroes those columns' gradients.
+activation is softplus(0), but its only consumer is a pad row (or pad
+input channel) of the contraction-split partner, zero from the start and
+kept zero by masking its gradient every step (``_pad_masks``), so the
+padded model computes the unpadded function. Column-split leftovers drop
+their pad columns after the gather, which zeroes those columns'
+gradients.
 
-**The collectives** are ``torch.autograd.Function``s with Megatron's
-gradients (``torch.distributed.nn.functional.all_reduce`` would all-reduce
-the cotangent too, and every rank computes the same loss after the sum, so
-the gradients would come back W times too large):
-
-- ``_reduce_from_model`` (g): all-reduce forward, identity backward, after
-  a row-split product;
-- ``_copy_to_model`` (f): identity forward, all-reduce backward, where a
-  replicated activation enters a column-split layer;
-- ``_gather_columns``: all-gather of the column slices forward, this
-  rank's slice of the cotangent backward.
-
+**The collectives** are ``ops.collectives``' autograd Functions with
+Megatron's gradients: ``reduce_from_model`` (g: all-reduce forward,
+identity backward) after a contraction-split product,
+``copy_to_model`` (f: identity forward, all-reduce backward) where a
+replicated activation enters a split layer, and ``gather_columns``.
 Replicated leaves get the whole gradient on every rank (the loss after
-each all-reduce is replicated), and split leaves their exact slice. Clipping
-compares the norm of the whole gradient: the split leaves' squares summed
-over the model group, the replicated leaves' counted once
-(``_tp_norm``).
+each all-reduce is replicated), and split leaves their exact slice.
+Clipping compares the norm of the whole gradient: the split leaves'
+squares summed over the model group, the replicated leaves' counted once
+(``slices.split_norm``).
 
 **DP × TP** runs on a 2-D ``("data", "model")`` mesh (``make_tp_mesh(n,
 data_parallel=D)``): batches shard over ``data``, the blocks split over
@@ -50,20 +53,29 @@ one all-reduce; ε folds the data rank, one stream per data shard, so the
 2-D step follows the DP step at the same global batch. In pure TP the
 batch is whole on every rank and the ε stream is the single-device one.
 
-Rejected, as in the JAX package: conv towers (``parallel/zero.py`` and
-``parallel/dp.py`` keep their kernels), ``parity_mode`` and ``remat``.
-Conditional models ride (the condition widens the unsplit input rows of
-the first column-split layer); a non-softplus modality, or
-``use_pallas`` off, runs its blocks on the plain ``networks.decode_mlp``.
-The heads are plain products, as the JAX layout's; ε and the loss terms
-are the single-device step's (the sampler and loss kernels where
-``use_pallas``).
+**Two sets of entry points, one machinery.** ``make_tp_train_step`` and
+``tp_train_loop`` here are the JAX package's ``tp_shard`` names and keep
+its refusals (``check_tp_shard``): conv towers, ``parity_mode`` and
+``remat``. ``make_gspmd_tp_train_step`` and ``gspmd_tp_train_loop`` are
+what ``vae_assoc_tpu_torch.parallel`` exports under the GSPMD names
+``make_tp_train_step`` and ``tp_train_loop``, and take what the JAX
+package's GSPMD TP takes (``check_tp``): conv towers, ``remat``
+(``torch.utils.checkpoint`` around each tower, whose collectives run again
+in the recompute) and ``parity_mode`` (the ordered plain losses; the
+partial sums still reassociate, so it holds within tolerance, not bit for
+bit, as GSPMD's does). Both reject ``encoder="conv_pallas"``, and the
+GSPMD names reject ``use_pallas`` on a conv tower, as the JAX package
+does; the MLP towers keep the kernels under both names, where JAX's GSPMD
+TP runs its jnp path (a deliberate difference). The state functions
+(``tp_param_specs``, ``shard_params``, ``init_tp_train_state``, …) serve
+both.
 
-The JAX package's GSPMD ``tp.py`` names (``tp_param_specs``,
-``shard_params``, ``shard_tp_batch``, ``init_tp_train_state``, …) are this
-layout in the port: GSPMD could not split a ``pallas_call``, explicit
-collectives can. DTensor is not used: its dispatch never reaches a
-``ctypes`` kernel.
+Conditional models ride (the condition widens the unsplit input rows of
+the first column-split layer); a non-softplus modality, or ``use_pallas``
+off, runs its blocks on the plain ``networks.decode_mlp``. The heads are
+plain products; ε and the loss terms are the single-device step's (the
+sampler and loss kernels where ``use_pallas``). DTensor is not used: its
+dispatch never reaches a ``ctypes`` kernel.
 """
 
 from __future__ import annotations
@@ -74,6 +86,7 @@ from types import SimpleNamespace
 import torch
 import torch.distributed as dist
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from vae_assoc_tpu_torch.configs import (
     TRANSFER_FNS,
@@ -83,23 +96,35 @@ from vae_assoc_tpu_torch.configs import (
     recog_widths,
 )
 from vae_assoc_tpu_torch.models import assoc as assoc_mod
+from vae_assoc_tpu_torch.models import conv as conv_mod
 from vae_assoc_tpu_torch.models import networks
 from vae_assoc_tpu_torch.models import vae as vae_mod
 from vae_assoc_tpu_torch.ops import sampling
-from vae_assoc_tpu_torch.ops.collectives import all_gather_rows
+from vae_assoc_tpu_torch.ops.collectives import (
+    all_gather_rows,
+    copy_to_model,
+    gather_columns,
+    reduce_from_model,
+)
 from vae_assoc_tpu_torch.parallel import mesh as mesh_mod
+from vae_assoc_tpu_torch.parallel import slices
 from vae_assoc_tpu_torch.parallel.dp import _epoch_loop
-from vae_assoc_tpu_torch.parallel.zero import _opt_lists, _with_lists
 from vae_assoc_tpu_torch.train import step as step_mod
 from vae_assoc_tpu_torch.train.step import TrainState, init_train_state, make_optimizer
 
 AXIS = mesh_mod.MODEL_AXIS
+replicate_batch = mesh_mod.replicate_batch  # pure TP's batch placement, as tp_shard names it
 
 # Leaf roles. COL/COLSPLIT: weight [in, out] split by columns, the bias with
 # it. ROW: weight split by rows, bias replicated (added after the sum).
 # REPL: replicated. COL and COLSPLIT differ only in how the forward reads
-# them (a pair block, or a gather of the columns).
-COL, ROW, COLSPLIT, REPL = "col", "row", "colsplit", "repl"
+# them (a pair block, or a gather of the columns). COUT/CIN: a conv kernel
+# [3, 3, cin, cout] split by output channels (the bias with it) or by input
+# channels (bias replicated, added after the sum).
+COL, ROW, COLSPLIT, REPL, COUT, CIN = "col", "row", "colsplit", "repl", "cout", "cin"
+# The roles whose weight is split along the contraction: their pad rows
+# (or pad input channels) are masked.
+CONTRACTED = {ROW: 0, CIN: 2}
 
 
 def make_tp_mesh(n_devices=None, *, data_parallel: int = 1, device_type: str = "cuda"):
@@ -133,35 +158,59 @@ def _mesh_info(mesh):
     )
 
 
-def _check_encoders(cfg: AssocConfig) -> None:
+def _check_spec_encoders(cfg: AssocConfig) -> None:
+    """The splits cover the plain towers, ``"mlp"`` and ``"conv"``, as the
+    JAX package's ``_check_gspmd_encoders``."""
     for m in cfg.modalities:
-        if m.encoder != "mlp":
+        if m.encoder not in ("mlp", "conv"):
             raise ValueError(
-                f"tensor parallelism splits MLP towers only; modality {m.name!r} has "
-                f"encoder={m.encoder!r}. Conv towers scale with their kernels under "
-                "parallel/zero.py (sharded state) or parallel/dp.py."
+                f"tensor parallelism splits 'mlp' and 'conv' towers; modality {m.name!r} has "
+                f"encoder={m.encoder!r}, whose conv kernels run whole layers. Use "
+                "encoder='conv' here, or keep the conv kernels under parallel/zero.py "
+                "(sharded state) or parallel/dp.py."
             )
 
 
 def check_tp_shard(cfg: AssocConfig, tc: TrainConfig) -> None:
-    """Reject what the layout does not cover, naming what does."""
+    """What the ``tp_shard`` names reject, as the JAX package's tp_shard:
+    ``parity_mode``, ``remat`` and every tower but an MLP."""
     if tc.parity_mode:
         raise ValueError(
             "tensor parallelism reorders every reduction (a sum of partial "
             "products), so the pinned-order bitwise parity cannot hold; run "
-            "parity_mode on the single-device step."
+            "parity_mode on the single-device step, or under the GSPMD names "
+            "(vae_assoc_tpu_torch.parallel.make_tp_train_step) within tolerance."
         )
     if tc.remat:
         raise ValueError(
-            "tensor parallelism does not implement remat (its activations are "
-            "block-local); use parallel/zero.py or the single-device step for "
-            "rematerialized towers."
+            "the tp_shard layout does not implement remat (its activations are "
+            "block-local); use parallel/zero.py, the single-device step, or the "
+            "GSPMD names (vae_assoc_tpu_torch.parallel.make_tp_train_step)."
         )
-    _check_encoders(cfg)
+    for m in cfg.modalities:
+        if m.encoder != "mlp":
+            raise ValueError(
+                f"the tp_shard layout splits MLP towers only; modality {m.name!r} has "
+                f"encoder={m.encoder!r}. Conv towers scale with their kernels under "
+                "parallel/zero.py (sharded state) or parallel/dp.py, and split their "
+                "channels under the GSPMD names (vae_assoc_tpu_torch.parallel."
+                "make_tp_train_step, encoder='conv')."
+            )
 
 
-def _pad_to(width: int, n: int) -> int:
-    return -(-width // n) * n
+def check_tp(cfg: AssocConfig, tc: TrainConfig) -> None:
+    """What the GSPMD names reject, as the JAX package's GSPMD TP: the conv
+    kernels (``encoder="conv_pallas"``, or ``use_pallas`` on a conv
+    tower). MLP towers keep their kernels."""
+    _check_spec_encoders(cfg)
+    conv = [m.name for m in cfg.modalities if m.encoder == "conv"]
+    if tc.use_pallas and conv:
+        raise ValueError(
+            f"the conv towers of {conv} split their channels on the plain convs (the JAX "
+            "package's GSPMD TP runs its jnp path); use_pallas keeps the kernels on MLP "
+            "towers only. Set TrainConfig(use_pallas=False), or keep the conv kernels "
+            "under parallel/zero.py (sharded state) or parallel/dp.py."
+        )
 
 
 def _net_roles(n_hidden: int, *, is_gener: bool) -> dict:
@@ -177,10 +226,20 @@ def _net_roles(n_hidden: int, *, is_gener: bool) -> dict:
     return roles
 
 
+def _conv_roles() -> dict:
+    """The conv tower's roles, JAX's GSPMD conv pattern: the output channels
+    of conv1 and convt1, the input channels of conv2 and convt2, and the
+    dense layers column × row."""
+    return {"recog": {"conv1": COUT, "conv2": CIN, "dense": COL, "out_mean": ROW,
+                      "out_logvar": ROW},
+            "gener": {"dense1": COL, "dense2": ROW, "convt1": COUT, "convt2": CIN}}
+
+
 @functools.lru_cache(maxsize=32)
 def tp_roles(cfg: AssocConfig) -> tuple:
     """Per modality {"recog": {layer: role}, "gener": {layer: role}}."""
-    return tuple({"recog": _net_roles(len(recog_widths(m.arch)), is_gener=False),
+    return tuple(_conv_roles() if m.encoder == "conv" else
+                 {"recog": _net_roles(len(recog_widths(m.arch)), is_gener=False),
                   "gener": _net_roles(len(gener_widths(m.arch)), is_gener=True)}
                  for m in cfg.modalities)
 
@@ -189,8 +248,10 @@ def _split_dim(role: str, leaf: str):
     """The dim a leaf is split along (None: replicated)."""
     if role in (COL, COLSPLIT):
         return 1 if leaf == "w" else 0
-    if role == ROW and leaf == "w":
-        return 0
+    if role == COUT:
+        return 3 if leaf == "w" else 0
+    if role in CONTRACTED and leaf == "w":
+        return CONTRACTED[role]
     return None
 
 
@@ -198,7 +259,7 @@ def tp_param_specs(cfg: AssocConfig) -> dict:
     """How each parameter lies in the layout: state_dict key → the dim it is
     split along over the model group (padded to a multiple of its size),
     or None where it is replicated."""
-    _check_encoders(cfg)
+    _check_spec_encoders(cfg)
     roles = tp_roles(cfg)
     out = {}
     for key, _ in assoc_mod.AssocVAE(cfg, device="meta").named_parameters():
@@ -207,13 +268,13 @@ def tp_param_specs(cfg: AssocConfig) -> dict:
     return out
 
 
-def _cut(t: torch.Tensor, dim, n: int, r: int) -> torch.Tensor:
+def cut_shard(t: torch.Tensor, dim, n: int, r: int) -> torch.Tensor:
     """Rank r's slice of ``t`` zero-padded along ``dim`` to a multiple of n
     (all of it where ``dim`` is None)."""
     t = t.detach()
     if dim is None:
         return t.clone()
-    pad = _pad_to(t.shape[dim], n) - t.shape[dim]
+    pad = slices.pad_len(t.shape[dim], n) - t.shape[dim]
     if pad:
         widths = [0, 0] * t.ndim
         widths[2 * (t.ndim - 1 - dim) + 1] = pad
@@ -240,7 +301,7 @@ def shard_params(mesh, params: assoc_mod.AssocVAE, cfg: AssocConfig) -> assoc_mo
     for key, dim in specs.items():
         mod, leaf = key.rsplit(".", 1)
         setattr(model.get_submodule(mod), leaf,
-                nn.Parameter(_cut(whole[key], dim, n, r).to(dev)))
+                nn.Parameter(cut_shard(whole[key], dim, n, r).to(dev)))
     return model
 
 
@@ -254,10 +315,10 @@ def shard_tp_train_state(mesh, state: TrainState, cfg: AssocConfig,
     dims = _check_tp_state(state, cfg)
 
     def cut(ts):
-        return None if ts is None else [_cut(t, d, n, r) for t, d in zip(ts, dims)]
+        return [cut_shard(t, d, n, r) for t, d in zip(ts, dims)]
 
-    opt = _with_lists(state.opt_state, [cut(l) for l in _opt_lists(state.opt_state)])
-    return TrainState(state.step, shard_params(mesh, state.params, cfg), opt, state.seed)
+    return TrainState(state.step, shard_params(mesh, state.params, cfg),
+                      state.opt_state.map_lists(cut), state.seed)
 
 
 def _uncut(t: torch.Tensor, dim, size: int, group) -> torch.Tensor:
@@ -282,14 +343,11 @@ def gather_tp_train_state(tstate: TrainState, cfg: AssocConfig, tc: TrainConfig,
     full = list(model.parameters())
 
     def uncut(ts):
-        if ts is None:
-            return None
         return [_uncut(t, d, f.shape[d] if d is not None else 0, group)
                 for t, d, f in zip(ts, dims, full)]
 
     torch._foreach_copy_(full, uncut(list(tstate.params.parameters())))
-    opt = _with_lists(tstate.opt_state, [uncut(l) for l in _opt_lists(tstate.opt_state)])
-    return TrainState(tstate.step, model, opt, tstate.seed)
+    return TrainState(tstate.step, model, tstate.opt_state.map_lists(uncut), tstate.seed)
 
 
 def init_tp_train_state(cfg: AssocConfig, tc: TrainConfig, mesh, *, params=None) -> TrainState:
@@ -299,71 +357,6 @@ def init_tp_train_state(cfg: AssocConfig, tc: TrainConfig, mesh, *, params=None)
     full = init_train_state(cfg, tc, device=mesh_mod.mesh_device(mesh, "init_tp_train_state"),
                              params=params)
     return shard_tp_train_state(mesh, full, cfg, tc)
-
-
-# ---------------------------------------------------------------------------
-# Megatron's operators
-# ---------------------------------------------------------------------------
-
-
-class _CopyToModel(torch.autograd.Function):
-    """f: identity forward (a view, no copy), all-reduce of the cotangent
-    backward."""
-
-    @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
-        return x.view_as(x)
-
-    @staticmethod
-    def backward(ctx, g):
-        g = g.clone()  # the cotangent may be shared; the all-reduce is in place
-        dist.all_reduce(g, group=ctx.group)
-        return g, None
-
-
-class _ReduceFromModel(torch.autograd.Function):
-    """g: all-reduce forward, in place on the block's fresh product (marked
-    dirty, so autograd refuses the step if anything saved it), identity
-    backward."""
-
-    @staticmethod
-    def forward(ctx, x, group):
-        dist.all_reduce(x, group=group)
-        ctx.mark_dirty(x)
-        return x
-
-    @staticmethod
-    def backward(ctx, g):
-        return g, None
-
-
-class _GatherColumns(torch.autograd.Function):
-    """[B, c] slices of the columns → [B, W·c] in rank order; the backward
-    keeps this rank's columns of the cotangent."""
-
-    @staticmethod
-    def forward(ctx, x, group, rank):
-        ctx.rank, ctx.cols = rank, x.shape[1]
-        w = dist.get_world_size(group)
-        got = all_gather_rows(x, group).view(w, x.shape[0], x.shape[1])
-        return got.permute(1, 0, 2).reshape(x.shape[0], w * x.shape[1])
-
-    @staticmethod
-    def backward(ctx, g):
-        return g[:, ctx.rank * ctx.cols:(ctx.rank + 1) * ctx.cols].contiguous(), None, None
-
-
-def copy_to_model(x, group):
-    return _CopyToModel.apply(x, group)
-
-
-def reduce_from_model(x, group):
-    return _ReduceFromModel.apply(x, group)
-
-
-def gather_columns(x, group, rank: int):
-    return _GatherColumns.apply(x, group, rank)
 
 
 # ---------------------------------------------------------------------------
@@ -435,10 +428,22 @@ def _colsplit_linear(h, w, b, width: int, sp: _Split):
     return gather_columns(local, sp.group, sp.rank)[:, :width]
 
 
+def _sample(mu, lv, x, m, sp: _Split, seed, eps):
+    """z from ε as the single-device step draws it: injected, the sampler
+    kernel's (``sp.fused``), or ``draw_eps(seed)``'s."""
+    if eps is not None:
+        return sampling.reparameterize(mu, lv, eps=eps)
+    if sp.fused:  # the sampler kernel draws draw_eps(seed)'s ε in place
+        from vae_assoc_tpu_torch.kernels.sampling import reparameterize_fused
+
+        return reparameterize_fused(mu, lv, seed)
+    return sampling.reparameterize(mu, lv, eps=vae_mod.draw_eps(seed, x.shape[0], m, x.device))
+
+
 def _tp_modality_forward(p, x, m, sp: _Split, *, seed=None, eps=None, cond=None):
-    """One modality's forward with split towers, the single-device step's otherwise:
-    the same ε (from ``seed``, or injected), head math and condition
-    concatenation as ``models.vae.vae_forward``."""
+    """One MLP modality's forward with split towers, the single-device
+    step's otherwise: the same ε (from ``seed``, or injected), head math and
+    condition concatenation as ``models.vae.vae_forward``."""
     transfer = TRANSFER_FNS[m.transfer]
     r, g = p.recog, p.gener
     rw, gw = recog_widths(m.arch), gener_widths(m.arch)
@@ -453,14 +458,7 @@ def _tp_modality_forward(p, x, m, sp: _Split, *, seed=None, eps=None, cond=None)
         h = transfer(_colsplit_linear(h, a.w, a.b, rw[i], sp))
     mu = networks.linear(r["out_mean"], h, sp.cd)
     lv = networks.linear(r["out_logvar"], h, sp.cd)
-    if eps is not None:
-        z = sampling.reparameterize(mu, lv, eps=eps)
-    elif sp.fused:  # the sampler kernel draws draw_eps(seed)'s ε in place
-        from vae_assoc_tpu_torch.kernels.sampling import reparameterize_fused
-
-        z = reparameterize_fused(mu, lv, seed)
-    else:
-        z = sampling.reparameterize(mu, lv, eps=vae_mod.draw_eps(seed, x.shape[0], m, x.device))
+    z = _sample(mu, lv, x, m, sp, seed, eps)
     h = z if cond is None else torch.cat([z, cond], dim=1)
     i = 0
     while i + 1 < len(gw):  # pairs of hidden layers, as _net_roles
@@ -475,56 +473,93 @@ def _tp_modality_forward(p, x, m, sp: _Split, *, seed=None, eps=None, cond=None)
     return vae_mod.VAEOutputs(mu, lv, z, recon)
 
 
+def _row_product(h, layers, sp: _Split):
+    """Σ over the model group of h @ W_r for each row-split layer, in one
+    all-reduce, then each layer's bias: [B, out] per layer."""
+    a = networks.round_operand(h, sp.cd)
+    parts = [a @ networks.round_operand(l.w, sp.cd) for l in layers]
+    whole = reduce_from_model(torch.cat(parts, dim=1), sp.group)
+    return [y + l.b for y, l in zip(whole.split([p.shape[1] for p in parts], dim=1), layers)]
+
+
+def _cin_conv(h, layer, stride, dilate, pads, out_hw, sp: _Split):
+    """An input-channel-split conv: this rank's partial sum over its input
+    channels, summed over the model group, then the bias."""
+    part = conv_mod.conv_general(h, layer.w, stride, dilate, pads, out_hw, sp.cd)
+    return reduce_from_model(part.contiguous(), sp.group) + layer.b
+
+
+def _tp_conv_forward(p, x, m, sp: _Split, *, seed=None, eps=None, cond=None):
+    """One conv modality's forward with channel splits (``_conv_roles``),
+    ``models.conv``'s layer ops and wiring otherwise."""
+    del cond  # conv towers take no condition (configs refuse one)
+    transfer = TRANSFER_FNS[m.transfer]
+    r, g = p.recog, p.gener
+    img = x.float().reshape(-1, conv_mod.IMG_SIZE, conv_mod.IMG_SIZE, 1)
+    h = transfer(conv_mod.conv3x3_s2(copy_to_model(img, sp.group), r["conv1"].w,
+                                     r["conv1"].b, compute_dtype=sp.cd))
+    h = transfer(_cin_conv(h, r["conv2"], 2, False, (0, 1), h.shape[1] // 2, sp))
+    h = copy_to_model(h.reshape(h.shape[0], conv_mod.FLAT), sp.group)
+    h = transfer(networks.linear(r["dense"], h, sp.cd))
+    mu, lv = _row_product(h, [r["out_mean"], r["out_logvar"]], sp)
+    z = _sample(mu, lv, x, m, sp, seed, eps)
+    h = transfer(networks.linear(g["dense1"], copy_to_model(z, sp.group), sp.cd))
+    (h,) = _row_product(h, [g["dense2"]], sp)
+    h = transfer(h).reshape(-1, conv_mod.SMALL, conv_mod.SMALL, conv_mod.C2)
+    h = transfer(conv_mod.convt3x3_s2(copy_to_model(h, sp.group), g["convt1"].w,
+                                      g["convt1"].b, compute_dtype=sp.cd))
+    h = _cin_conv(h, g["convt2"], 1, True, (2, 1), 2 * h.shape[1], sp)
+    return vae_mod.VAEOutputs(mu, lv, z, h.reshape(h.shape[0], -1))
+
+
 def _tp_loss_fn(params, xs, cfg: AssocConfig, sps, *, use_pallas, seed=None, eps=None,
-                data_group=None):
+                data_group=None, parity_mode: bool = False, remat: bool = False):
     """The joint objective with split towers; the loss terms are those of
     the single-device step (``assoc.joint_objective``: the fused loss
-    kernel where ``use_pallas``)."""
+    kernel where ``use_pallas``, the ordered plain losses in
+    ``parity_mode``). ``remat`` recomputes each tower in the backward, its
+    collectives included."""
     xs, cond = assoc_mod.split_cond(xs, cfg)
     k = len(cfg.modalities)
     seeds = assoc_mod.modality_seeds(seed, k) if eps is None else [None] * k
     eps = [None] * k if eps is None else eps
-    outs = [
-        _tp_modality_forward(p, x, m, sp, seed=s, eps=e,
-                             cond=vae_mod.prepare_cond(cond, m, x.shape[0], device=x.device))
-        for p, x, m, sp, s, e in zip(params.modalities, xs, cfg.modalities, sps, seeds, eps)
-    ]
+    outs = []
+    for p, x, m, sp, s, e in zip(params.modalities, xs, cfg.modalities, sps, seeds, eps):
+        fwd = functools.partial(
+            _tp_conv_forward if m.encoder == "conv" else _tp_modality_forward, p, m=m, sp=sp,
+            seed=s, cond=vae_mod.prepare_cond(cond, m, x.shape[0], device=x.device))
+
+        def f(x, e, fwd=fwd):
+            return fwd(x, eps=e)
+
+        outs.append(checkpoint(f, x, e, use_reentrant=False) if remat else f(x, e))
     return assoc_mod.joint_objective(outs, xs, cfg, use_pallas=use_pallas,
-                                     data_group=data_group)
+                                     parity_mode=parity_mode, data_group=data_group)
 
 
 # ---------------------------------------------------------------------------
-# Gradient hygiene: pad masks and the norm of the whole gradient
+# Gradient hygiene: pad masks
 # ---------------------------------------------------------------------------
 
 
-def _pad_row_masks(cfg: AssocConfig, n: int, r: int, device) -> dict:
-    """{parameter index: [rows, 1] keep mask} of the row-split weights: the
-    rows past the layer's true input width are pads, whose gradients (fed
-    by the softplus(0) of the partner's pad columns) are zeroed."""
+def _pad_masks(cfg: AssocConfig, n: int, r: int, device) -> dict:
+    """{parameter index: keep mask} of the contraction-split weights: the
+    rows (input channels) past the layer's true input width are pads,
+    whose gradients (fed by the softplus(0) of the partner's pad columns)
+    are zeroed. Each mask broadcasts along its weight's split dim."""
     roles = tp_roles(cfg)
     out = {}
     for i, (key, p) in enumerate(assoc_mod.AssocVAE(cfg, device="meta").named_parameters()):
         _, k, net, name, leaf = key.split(".")
-        if leaf == "w" and roles[int(k)][net][name] == ROW:
-            rows = _pad_to(p.shape[0], n) // n
-            keep = torch.arange(r * rows, (r + 1) * rows, device=device) < p.shape[0]
-            out[i] = keep[:, None]
+        role = roles[int(k)][net][name]
+        if leaf == "w" and role in CONTRACTED:
+            d = CONTRACTED[role]
+            rows = slices.pad_len(p.shape[d], n) // n
+            keep = torch.arange(r * rows, (r + 1) * rows, device=device) < p.shape[d]
+            shape = [1] * p.ndim
+            shape[d] = rows
+            out[i] = keep.view(shape)
     return out
-
-
-def _tp_norm(dims, group):
-    """The norm of the whole gradient: split leaves' squares summed over
-    the model group, replicated leaves' counted once."""
-    split = [i for i, d in enumerate(dims) if d is not None]
-    repl = [i for i, d in enumerate(dims) if d is None]
-
-    def norm(grads):
-        sq = step_mod.global_norm([grads[i] for i in split]).square()
-        dist.all_reduce(sq, group=group)
-        return torch.sqrt(sq + step_mod.global_norm([grads[i] for i in repl]).square())
-
-    return norm
 
 
 def _splits(cfg: AssocConfig, tc: TrainConfig, mesh) -> list:
@@ -536,48 +571,69 @@ def _splits(cfg: AssocConfig, tc: TrainConfig, mesh) -> list:
                    cd=tc.compute_dtype) for m in cfg.modalities]
 
 
-def make_tp_train_step(cfg: AssocConfig, tc: TrainConfig, mesh):
-    """The TP step: ``step_fn(tstate, xs, eps=None) -> (tstate', metrics)``
-    with the state in the TP layout. On a ``("model",)`` mesh ``xs`` are
-    whole batches (``replicate_batch``); on a ``("data", "model")`` mesh a
-    rank's rows of each global batch, over the data axis (``shard_tp_batch``)."""
-    check_tp_shard(cfg, tc)
+def tp_grads(cfg: AssocConfig, tc: TrainConfig, mesh):
+    """``grads(model, state, xs, eps) -> (grads, metrics)``: the gradient of
+    the step's objective with respect to this rank's TP shard ``model``
+    (pads masked), before any reduction over the data group, and the
+    detached metrics. ε folds the data rank (``step_seed_of_rank``) where
+    the mesh has a data axis. The core of the TP and TP × FSDP steps."""
     n, data_axis = _mesh_info(mesh)
-    group = mesh.get_group(AXIS)
-    rank = mesh.get_local_rank(AXIS)
     data_group = mesh.get_group(data_axis) if data_axis else None
-    dims = list(tp_param_specs(cfg).values())
-    opt = make_optimizer(tc, _tp_norm(dims, group))
     sps = _splits(cfg, tc, mesh)
-    masks = _pad_row_masks(cfg, n, rank, mesh_mod.mesh_device(mesh))
+    masks = _pad_masks(cfg, n, mesh.get_local_rank(AXIS), mesh_mod.mesh_device(mesh))
 
-    def one(state, xs, eps):
-        params = list(state.params.parameters())
+    def grads(model, state, xs, eps):
         total, metrics = _tp_loss_fn(
-            state.params, list(xs), cfg, sps, use_pallas=bool(tc.use_pallas), eps=eps,
-            data_group=data_group,
+            model, list(xs), cfg, sps, use_pallas=bool(tc.use_pallas), eps=eps,
+            data_group=data_group, parity_mode=tc.parity_mode, remat=tc.remat,
             seed=step_mod.step_seed_of_rank(state.seed, state.step, data_group),
         )
         total, metrics = step_mod.apply_objective_weights(total, metrics, cfg, tc, state.step)
-        grads = list(torch.autograd.grad(total, params))
-        metrics = {k: v.detach() for k, v in metrics.items()}
+        gs = list(torch.autograd.grad(total, list(model.parameters())))
+        for i, keep in masks.items():
+            gs[i] = gs[i] * keep
+        return gs, {k: v.detach() for k, v in metrics.items()}
+
+    return grads
+
+
+def _make_step(cfg: AssocConfig, tc: TrainConfig, mesh):
+    _, data_axis = _mesh_info(mesh)
+    group = mesh.get_group(AXIS)
+    data_group = mesh.get_group(data_axis) if data_axis else None
+    opt = make_optimizer(tc, slices.split_norm(
+        [d is not None for d in tp_param_specs(cfg).values()], group))
+    grads_of = tp_grads(cfg, tc, mesh)
+
+    def one(state, xs, eps):
+        grads, metrics = grads_of(state.params, state, xs, eps)
         if data_group is not None:
             grads = step_mod.all_reduce_mean(grads, data_group)
             metrics = step_mod.mean_metrics(metrics, data_group)
-        for i, keep in masks.items():
-            grads[i] = grads[i] * keep
         metrics["grad_norm"] = opt.norm_fn(grads)
-        opt.update(grads, state.opt_state, params)
+        opt.update(grads, state.opt_state, list(state.params.parameters()))
         return state._replace(step=state.step + 1), metrics
 
     return step_mod.stacked_steps(one, tc.steps_per_call)
 
 
-def replicate_batch(mesh, arrays, *, leading_scan_axis: bool = False) -> tuple:
-    """Every batch array whole on this rank's device (pure TP)."""
-    del leading_scan_axis
-    dev = mesh_mod.mesh_device(mesh)
-    return tuple(torch.as_tensor(a).to(dev, torch.float32).contiguous() for a in arrays)
+def make_tp_train_step(cfg: AssocConfig, tc: TrainConfig, mesh):
+    """The TP step under the ``tp_shard`` names: ``step_fn(tstate, xs,
+    eps=None) -> (tstate', metrics)`` with the state in the TP layout. On a
+    ``("model",)`` mesh ``xs`` are whole batches (``replicate_batch``); on a
+    ``("data", "model")`` mesh a rank's rows of each global batch, over the
+    data axis (``shard_tp_batch``). Rejects what ``check_tp_shard`` names."""
+    check_tp_shard(cfg, tc)
+    return _make_step(cfg, tc, mesh)
+
+
+def make_gspmd_tp_train_step(cfg: AssocConfig, tc: TrainConfig, mesh):
+    """The TP step under the GSPMD names (exported by the package as
+    ``make_tp_train_step``): :func:`make_tp_train_step`'s contract, for
+    what the JAX package's GSPMD TP takes (``check_tp``): conv towers,
+    ``remat`` and ``parity_mode`` too."""
+    check_tp(cfg, tc)
+    return _make_step(cfg, tc, mesh)
 
 
 def shard_tp_batch(mesh, arrays, *, leading_scan_axis: bool = False) -> tuple:
@@ -585,20 +641,38 @@ def shard_tp_batch(mesh, arrays, *, leading_scan_axis: bool = False) -> tuple:
     mesh, the whole batch on a ``("model",)`` mesh."""
     _, data_axis = _mesh_info(mesh)
     if data_axis is None:
-        return replicate_batch(mesh, arrays)
+        return mesh_mod.replicate_batch(mesh, arrays)
     return mesh_mod.shard_batch(mesh, arrays, leading_scan_axis=leading_scan_axis,
                                 batch_axes=data_axis)
+
+
+def tp_loop(tc: TrainConfig, data, mesh, step_fn, state: TrainState, **kw):
+    """``dp_train_loop``'s epochs over ``step_fn`` on this layout's batches:
+    whole on a ``("model",)`` mesh, sharded over ``data`` on a 2-D one."""
+    _, data_axis = _mesh_info(mesh)
+    shard = (0, 1) if data_axis is None else mesh_mod.shard_index(mesh, (data_axis,))
+    return _epoch_loop(tc, data, mesh, step_fn, state, shard=shard, **kw)
 
 
 def tp_train_loop(cfg: AssocConfig, tc: TrainConfig, data, mesh, *, epochs: int = 10,
                   state: TrainState | None = None, display_step: int = 1,
                   on_metrics=None, shuffle: bool = True):
-    """``dp_train_loop`` with the TP step: batches whole on a ``("model",)``
-    mesh, sharded over ``data`` on a 2-D one; ``state`` in the TP layout."""
-    _, data_axis = _mesh_info(mesh)
-    if state is None:
-        state = init_tp_train_state(cfg, tc, mesh)
-    shard = (0, 1) if data_axis is None else mesh_mod.shard_index(mesh, (data_axis,))
-    return _epoch_loop(tc, data, mesh, make_tp_train_step(cfg, tc, mesh), state,
-                       shard=shard, epochs=epochs, display_step=display_step,
-                       on_metrics=on_metrics, shuffle=shuffle)
+    """``dp_train_loop`` with the TP step of the ``tp_shard`` names;
+    ``state`` in the TP layout."""
+    step_fn = make_tp_train_step(cfg, tc, mesh)
+    return tp_loop(tc, data, mesh, step_fn,
+                   init_tp_train_state(cfg, tc, mesh) if state is None else state,
+                   epochs=epochs, display_step=display_step, on_metrics=on_metrics,
+                   shuffle=shuffle)
+
+
+def gspmd_tp_train_loop(cfg: AssocConfig, tc: TrainConfig, data, mesh, *, epochs: int = 10,
+                        state: TrainState | None = None, display_step: int = 1,
+                        on_metrics=None, shuffle: bool = True):
+    """``tp_train_loop`` under the GSPMD names (exported by the package as
+    ``tp_train_loop``): the step of :func:`make_gspmd_tp_train_step`."""
+    step_fn = make_gspmd_tp_train_step(cfg, tc, mesh)
+    return tp_loop(tc, data, mesh, step_fn,
+                   init_tp_train_state(cfg, tc, mesh) if state is None else state,
+                   epochs=epochs, display_step=display_step, on_metrics=on_metrics,
+                   shuffle=shuffle)

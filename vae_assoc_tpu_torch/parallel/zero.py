@@ -4,7 +4,8 @@ vae_assoc_tpu/parallel/zero.py).
 - **Storage.** Every parameter and Adam-moment leaf (and the EMA and the
   gradient accumulator, where the train config has them) is flattened,
   zero-padded to a multiple of the mesh size W and cut into W slices; rank
-  r stores slice r. That is the JAX layout (``_flatten_pad``), so rank r's
+  r stores slice r (``parallel/slices.py``). That is the JAX layout
+  (``_flatten_pad``), so rank r's
   slices equal the JAX state's shard r value for value. A rank's state
   memory drops by W.
 - **The step.** One ``all_gather`` of every rank's slices, in one bucket,
@@ -17,7 +18,7 @@ vae_assoc_tpu/parallel/zero.py).
   elementwise. Per step the wire carries the parameters once gathered and
   once scattered: plain DP's all-reduce, decomposed.
 - **Clipping** compares the norm of the whole gradient, summed over the
-  group (``_sharded_norm``), as the JAX package's
+  group (``slices.sharded_norm``), as the JAX package's
   ``_clip_by_global_norm_sharded``; ``accum_steps`` and ``ema_decay``
   compose, elementwise on the slices.
 
@@ -36,22 +37,14 @@ layout ``utils/checkpoint.save`` writes; it restores into any layout.
 from __future__ import annotations
 
 import torch
-import torch.distributed as dist
-import torch.nn.functional as F
 
 from vae_assoc_tpu_torch.configs import AssocConfig, TrainConfig
 from vae_assoc_tpu_torch.models import assoc as assoc_mod
-from vae_assoc_tpu_torch.ops.collectives import all_gather_rows, reduce_scatter_rows
 from vae_assoc_tpu_torch.parallel import mesh as mesh_mod
+from vae_assoc_tpu_torch.parallel import slices
 from vae_assoc_tpu_torch.parallel.dp import _epoch_loop
 from vae_assoc_tpu_torch.train import step as step_mod
-from vae_assoc_tpu_torch.train.step import (
-    AdamState,
-    OptState,
-    TrainState,
-    init_train_state,
-    make_optimizer,
-)
+from vae_assoc_tpu_torch.train.step import TrainState, init_train_state, make_optimizer
 
 
 def _n_shards(mesh) -> int:
@@ -69,44 +62,6 @@ def _n_shards(mesh) -> int:
     return mesh.size()
 
 
-def _pad_len(size: int, n: int) -> int:
-    return -(-size // n) * n
-
-
-def _flatten_pad(t: torch.Tensor, n: int) -> torch.Tensor:
-    """Any shape → flat with a zero tail so that ``n`` divides the length:
-    padding, not replication, frees the layout from divisibility (a
-    [500]-wide bias over 8 ranks is 8 × [63] with 4 zeros)."""
-    flat = t.reshape(-1)
-    return F.pad(flat, (0, _pad_len(flat.numel(), n) - flat.numel()))
-
-
-def _sharded_norm(group):
-    """The norm of a gradient whose tensors are disjoint slices of the whole:
-    each rank's sum of squares, summed over ``group`` (pads add zeros)."""
-
-    def norm(grads):
-        local = step_mod.global_norm(grads)
-        sq = local * local
-        dist.all_reduce(sq, group=group)
-        return torch.sqrt(sq)
-
-    return norm
-
-
-def _opt_lists(opt: OptState) -> list:
-    """The optimizer's parameter-shaped lists, in a fixed order (None where
-    the config has no such stage)."""
-    return [opt.adam.mu, opt.adam.nu, opt.ema, opt.acc]
-
-
-def _with_lists(opt: OptState, lists) -> OptState:
-    mu, nu, ema, acc = lists
-    out = OptState(AdamState(opt.adam.count, mu, nu), ema=ema, acc=acc)
-    out.ema_count, out.mini_step = opt.ema_count, opt.mini_step
-    return out
-
-
 def shard_zero_train_state(mesh, state: TrainState, cfg: AssocConfig,
                            tc: TrainConfig) -> TrainState:
     """A whole TrainState, the same on every rank, → the ZeRO layout: this
@@ -117,25 +72,10 @@ def shard_zero_train_state(mesh, state: TrainState, cfg: AssocConfig,
     r = mesh.get_local_rank(mesh_mod.DATA_AXIS)
 
     def cut(ts):
-        if ts is None:
-            return None
-        return [_flatten_pad(t.detach(), n).view(n, -1)[r].clone() for t in ts]
+        return [slices.cut(t, n, r) for t in ts]
 
-    params = cut(list(state.params.parameters()))
-    opt = _with_lists(state.opt_state, [cut(l) for l in _opt_lists(state.opt_state)])
-    return TrainState(state.step, params, opt, state.seed)
-
-
-def _gather_full(shards: list, shapes: list, n: int, group) -> list:
-    """Every rank's slices of each tensor → the whole tensors, one all-gather."""
-    lens = [s.numel() for s in shards]
-    got = all_gather_rows(torch.cat(shards), group).view(n, -1)
-    out, off = [], 0
-    for l, shape in zip(lens, shapes):
-        numel = torch.Size(shape).numel()
-        out.append(got[:, off:off + l].reshape(-1)[:numel].view(shape))
-        off += l
-    return out
+    return TrainState(state.step, cut(state.params.parameters()),
+                      state.opt_state.map_lists(cut), state.seed)
 
 
 @torch.no_grad()
@@ -149,13 +89,12 @@ def gather_zero_train_state(zstate: TrainState, cfg: AssocConfig, tc: TrainConfi
     dev = zstate.params[0].device
     model = assoc_mod.AssocVAE(cfg, device=dev)
     shapes = [tuple(p.shape) for p in model.parameters()]
-    lists = [zstate.params] + [l for l in _opt_lists(zstate.opt_state) if l is not None]
-    full = _gather_full([t for l in lists for t in l], shapes * len(lists), n, group)
+    lists = [zstate.params] + [l for l in zstate.opt_state.lists() if l is not None]
+    full = slices.gather_full([t for l in lists for t in l], shapes * len(lists), n, group)
     per = [full[i * len(shapes):(i + 1) * len(shapes)] for i in range(len(lists))]
     torch._foreach_copy_(list(model.parameters()), per[0])
     it = iter(per[1:])
-    opt = _with_lists(zstate.opt_state, [None if l is None else [t.clone() for t in next(it)]
-                                         for l in _opt_lists(zstate.opt_state)])
+    opt = zstate.opt_state.map_lists(lambda _: [t.clone() for t in next(it)])
     return TrainState(zstate.step, model, opt, zstate.seed)
 
 
@@ -176,14 +115,14 @@ def make_zero_train_step(cfg: AssocConfig, tc: TrainConfig, mesh):
     and the state in the ZeRO layout. Every kernel path runs."""
     n = _n_shards(mesh)
     group = mesh.get_group(mesh_mod.DATA_AXIS)
-    opt = make_optimizer(tc, _sharded_norm(group))
+    opt = make_optimizer(tc, slices.sharded_norm(group))
     work = assoc_mod.AssocVAE(cfg, device=mesh_mod.mesh_device(mesh))
     full = list(work.parameters())
     shapes = [tuple(p.shape) for p in full]
 
     def one(state, xs, eps):
         with torch.no_grad():  # the weights' one all-gather
-            torch._foreach_copy_(full, _gather_full(state.params, shapes, n, group))
+            torch._foreach_copy_(full, slices.gather_full(state.params, shapes, n, group))
         total, metrics = assoc_mod.assoc_loss_fn(
             work, list(xs), cfg,
             seed=step_mod.step_seed_of_rank(state.seed, state.step, group)
@@ -192,12 +131,8 @@ def make_zero_train_step(cfg: AssocConfig, tc: TrainConfig, mesh):
             use_pallas=tc.use_pallas, remat=tc.remat, data_group=group,
         )
         total, metrics = step_mod.apply_objective_weights(total, metrics, cfg, tc, state.step)
-        grads = torch.autograd.grad(total, full)
-        # The gradients' one reduce-scatter: each rank keeps the sum of its
-        # slices, then the mean.
-        send = torch.cat([_flatten_pad(g, n).view(n, -1) for g in grads], dim=1)
-        mine = reduce_scatter_rows(send.reshape(-1), group).div_(n)
-        gshards = list(mine.split([s.numel() for s in state.params]))
+        # The gradients' one reduce-scatter: each rank keeps the mean of its slices.
+        gshards = slices.scatter_mean(torch.autograd.grad(total, full), n, group)
         metrics = step_mod.mean_metrics({k: v.detach() for k, v in metrics.items()}, group)
         metrics["grad_norm"] = opt.norm_fn(gshards)
         opt.update(gshards, state.opt_state, state.params)

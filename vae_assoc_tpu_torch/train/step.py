@@ -46,6 +46,20 @@ class OptState:
         self.ema, self.ema_count = ema, 0
         self.acc, self.mini_step = acc, 0
 
+    def lists(self) -> list:
+        """The parameter-shaped lists in a fixed order: Adam's ``mu`` and
+        ``nu``, ``ema`` and ``acc`` (None where the config has no such stage)."""
+        return [self.adam.mu, self.adam.nu, self.ema, self.acc]
+
+    def map_lists(self, fn) -> "OptState":
+        """A new state holding ``fn(list)`` for each of :meth:`lists` (called
+        in that order; None stays None), the counts as they are: how the
+        parallel layouts re-lay the optimizer state with the weights."""
+        mu, nu, ema, acc = [None if l is None else fn(l) for l in self.lists()]
+        out = OptState(AdamState(self.adam.count, mu, nu), ema=ema, acc=acc)
+        out.ema_count, out.mini_step = self.ema_count, self.mini_step
+        return out
+
 
 class TrainState(NamedTuple):
     step: int  # micro-steps taken
