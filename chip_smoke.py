@@ -226,6 +226,31 @@ Phases, each of which raises on failure (nothing is caught):
    samples/s and host enqueue ms a step beside the single-device step's
    (or TP's), a TP × FSDP rank's share of the weights, and the phase's
    wall seconds.
+14. The training CLI (python -m vae_assoc_tpu_torch.train.driver), run in
+   this process unless said otherwise: config 3 at full width with
+   --use-pallas (the composable kernels; config 3 ships on the plain path,
+   and no flag of the CLI selects the megakernel) for 2 epochs on 4096
+   synthetic pairs with --metrics, --ckpt-dir and --val-frac 0.1: the
+   epoch totals finite and falling, the composable kernels launched, the
+   JSONL records with the JAX CLI's keys, the checkpoint's
+   Predictor.from_checkpoint giving the trained weights' cross_generate
+   within phase 4's tolerance, --resume --epochs 3 going on from the saved
+   step; the same command in a subprocess with --preempt-chunk 1 getting
+   SIGTERM after its first epoch, exiting 0 with a checkpoint, and --resume
+   finishing it; config 5 (composable, bf16, batch 1024) and config 4 as
+   they ship (config 4: plain convs on the image tower, the tower
+   megakernel on the trajectory tower) for 2 epochs each, their kernels
+   launched and their totals falling; --sweep-seeds 3 --sweep-lambdas
+   0.5 1 2 on config 3 (the plain path), every model's total falling, its
+   samples/s a model and in all printed beside 3 standalone train_loop
+   runs', and each member's first 5 step losses within rtol 1e-4 of its
+   standalone step on the same batches; --dry-compile --config 3 printing
+   2,049,064 parameters; two gloo ranks sharing the card running --mesh 2
+   --zero on config 5 for one epoch to the same weights; and
+   graft_entry.dryrun_multichip(4, backend="gloo"), every leg. Prints the
+   CLI's steps/s beside train_loop_fused's and the phase's wall seconds.
+   No CLI flag selects the conv kernels (encoder="conv_pallas"), so the
+   CLI launches none of them.
 
 Phases 3 and 6b also check a stack with no hidden layer (the config-3
 image decoder's output layer alone, TP's column-split layer), forward
@@ -244,7 +269,8 @@ the kernel's launches in phase 9's evaluation, "uji_launches" in phase
 10's training and in-process evaluation, "export_launches" by phase 11's
 kernel-path Predictors, "parallel_launches" by phases 12 and 13's layouts
 at world size 1 (their own runs, not the single-device steps they are
-held against; the gloo ranks' launches are their processes'); reparam also gives "floor_ms", an empty kernel's
+held against; the gloo ranks' launches are their processes'),
+"cli_launches" by phase 14's runs of the CLI in this process; reparam also gives "floor_ms", an empty kernel's
 launch timed as its row, and "queued_ms" and "floor_queued_ms", the two
 queued behind a spin kernel (the device's time a launch, without the
 host's pace); enc_bwd and dec_bwd
@@ -3527,6 +3553,265 @@ def layouts_check(card):
     return total
 
 
+CLI_ROWS = 4096  # phase 9's synthetic pairs
+CLI_C5_ROWS = 20480  # config 5: two calls of ten 1024-row steps an epoch
+SWEEP_LAMBDAS = (0.5, 1.0, 2.0)
+SWEEP_STEPS = 5
+
+
+def _cli_keys(cfg, val: bool) -> list:
+    """The JAX CLI's record keys for a run of ``cfg`` without a sweep, in
+    order: each epoch's training means and (with --val-frac) validation,
+    then the MSE grid and the recognition scores of the final weights
+    (tests/test_torch_driver.py holds the port's against the JAX CLI's)."""
+    names = [m.name for m in cfg.modalities]
+    terms = [f"{t}_{n}" for n in names for t in ("recon", "kl")] + ["assoc", "total"]
+    pairs = [f"{a}->{b}" for a in names for b in names]
+    epoch = sorted(["t", "epoch", "grad_norm", "samples_per_sec"] + terms)
+    valid = sorted(["t", "epoch"] + [f"val_{k}" for k in terms + pairs])
+    knn = sorted(["t"] + [f"knn_{a}" if a == b else f"knn_{a}->{b}"
+                          for a in names for b in names])
+    per_epoch = [epoch, valid] if val else [epoch]
+    return per_epoch * 2 + [sorted(["t"] + [f"mse_{p}" for p in pairs]), knn]
+
+
+def _cli(argv, what) -> float:
+    """The training CLI in this process (its exit code must be 0); its wall s."""
+    from vae_assoc_tpu_torch.train import driver
+
+    t0 = time.perf_counter()
+    rc = driver.main([str(a) for a in argv])
+    assert rc == 0, f"phase 14 {what}: the CLI exited {rc}"
+    return time.perf_counter() - t0
+
+
+def _cli_totals(recs, what):
+    """The epochs' training totals of a CLI run, finite and falling."""
+    totals = [r["total"] for r in recs if "samples_per_sec" in r]
+    assert len(totals) >= 2 and np.all(np.isfinite(totals)) and totals[-1] < totals[0], \
+        f"phase 14 {what}: epoch totals {totals}"
+    return totals
+
+
+def _cli_zero_worker(rank, root):
+    """One of two gloo ranks sharing the card (phase 14): the CLI under
+    --mesh 2 --zero on config 5 for one epoch, and the whole state it
+    gathers at the end."""
+    from vae_assoc_tpu_torch import parallel as par
+    from vae_assoc_tpu_torch.train import driver
+
+    gather, got = par.gather_zero_train_state, []
+
+    def keep(*a, **kw):
+        got.append(gather(*a, **kw))
+        return got[-1]
+
+    par.gather_zero_train_state = keep
+    rc = driver.main(["--config", "5", "--mesh", "2", "--zero", "--epochs", "1",
+                      "--n-samples", str(CLI_C5_ROWS), "--metrics",
+                      os.path.join(root, "zero.jsonl")])
+    return {"rc": rc, "backend": torch.distributed.get_backend(),
+            "weights": [p.detach().cpu().numpy() for p in got[-1].params.parameters()]}
+
+
+def cli_check(card):
+    """Phase 14; returns each kernel's launches by the in-process CLI runs."""
+    import contextlib
+    import copy
+    import dataclasses
+    import io
+    import shutil
+    import signal
+    import tempfile
+
+    from vae_assoc_tpu_torch import graft_entry
+    from vae_assoc_tpu_torch.configs import baseline_config
+    from vae_assoc_tpu_torch.data.pipeline import PairedDataset
+    from vae_assoc_tpu_torch.kernels import launch_counts, reset_launches
+    from vae_assoc_tpu_torch.models import assoc as assoc_mod
+    from vae_assoc_tpu_torch.parallel.mesh import spawn
+    from vae_assoc_tpu_torch.serve import Predictor
+    from vae_assoc_tpu_torch.train import sweep
+    from vae_assoc_tpu_torch.train.loop import train_loop, train_loop_fused
+    from vae_assoc_tpu_torch.train.step import init_train_state, make_train_step
+    from vae_assoc_tpu_torch.utils import checkpoint as ckpt
+    from vae_assoc_tpu_torch.utils.logging import read_jsonl
+
+    t_phase = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    launches = {}
+
+    def counted(argv, what):
+        reset_launches()
+        secs = _cli(argv, what)
+        counts = launch_counts()
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+        return secs, counts
+
+    tmp = tempfile.mkdtemp(prefix="phase14_")
+    try:
+        # Config 3 at full width on the composable kernels (it ships on the
+        # plain path, and no flag of the CLI selects the megakernel).
+        cfg3, tc3 = baseline_config(3, use_pallas=True)
+        c3 = ["--config", "3", "--use-pallas", "--n-samples", CLI_ROWS, "--val-frac", "0.1"]
+        ck, m3 = os.path.join(tmp, "c3"), os.path.join(tmp, "c3.jsonl")
+        saved, save = [], ckpt.save
+
+        def capture(path, state, **kw):  # the trained weights the CLI saves
+            saved.append(copy.deepcopy(state.params))
+            return save(path, state, **kw)
+
+        ckpt.save = capture
+        try:
+            secs, counts = counted(c3 + ["--epochs", 2, "--metrics", m3, "--ckpt-dir", ck],
+                                   "config 3")
+        finally:
+            ckpt.save = save
+        recs = read_jsonl(m3)
+        got_keys = [sorted(r) for r in recs]
+        assert got_keys == _cli_keys(cfg3, True), f"phase 14: record keys {got_keys}"
+        totals = _cli_totals(recs, "config 3")
+        for k in COMPOSABLE_PER_STEP:
+            assert counts[k] > 0, f"phase 14: the CLI on config 3 launched no {k}"
+        step3 = ckpt.latest_step(ck)
+        spe = (CLI_ROWS - int(np.ceil(CLI_ROWS * 0.1))) // tc3.batch_size
+        assert step3 == 2 * spe, (step3, spe)
+        pred = Predictor.from_checkpoint(ck, cfg3, train_config=tc3, use_pallas=True)
+        x = torch.rand(256, 784, generator=torch.Generator().manual_seed(14)).cuda()
+        want = assoc_mod.cross_generate(saved[-1], x, cfg3, 0, 1)
+        err, ok = _max_err(torch.as_tensor(pred.cross_generate(x.cpu().numpy(), 0, 1)).cuda(),
+                           want, TOL["float32"])
+        assert ok, f"phase 14: the checkpoint's Predictor is {err:.3g} off the trained weights"
+        print(f"phase 14: config 3 --use-pallas, 2 epochs x {spe} steps in {secs:.2f} s "
+              f"wall, epoch totals {totals}, launches {_nonzero(counts)}; the checkpoint's "
+              f"Predictor against the trained weights: max abs err {err:.3g}", flush=True)
+        cli_sps = recs[-4]["samples_per_sec"]  # epoch 2's training rate
+        ds = PairedDataset.from_synthetic(CLI_ROWS, seed=0, device="cuda")
+        _, fused = train_loop_fused(cfg3, tc3, list(ds.features()), epochs=2)
+        print(f"phase 14: config 3 composable at batch 64: the CLI's epoch 2 "
+              f"{cli_sps / tc3.batch_size:.1f} steps/s against train_loop_fused's "
+              f"{fused[-1]['samples_per_sec'] / tc3.batch_size:.1f} ({card})", flush=True)
+
+        secs, counts = counted(c3 + ["--epochs", 3, "--resume", "--ckpt-dir", ck],
+                               "config 3 --resume")
+        assert ckpt.latest_step(ck) == step3 + 3 * spe, (ckpt.latest_step(ck), step3)
+        print(f"phase 14: --resume --epochs 3 went on from step {step3} to "
+              f"{ckpt.latest_step(ck)} in {secs:.2f} s wall", flush=True)
+
+        # SIGTERM: a CLI process checkpoints at the next chunk and exits 0.
+        ck2 = os.path.join(tmp, "preempt")
+        argv = [sys.executable, "-m", "vae_assoc_tpu_torch.train.driver"] + [
+            str(a) for a in c3 + ["--epochs", 50, "--preempt-chunk", 1, "--ckpt-dir", ck2]]
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(argv, cwd=root, env=dict(os.environ, PYTHONPATH=root),
+                                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        try:
+            for line in proc.stdout:
+                if "total=" in line:
+                    break
+            proc.send_signal(signal.SIGTERM)
+            out, _ = proc.communicate(timeout=180)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+        assert proc.returncode == 0, f"phase 14: SIGTERM run exited {proc.returncode}:\n{out}"
+        assert "preempted (signal 15): checkpoint saved" in out, out[-2000:]
+        step = ckpt.latest_step(ck2)
+        assert 0 < step < 50 * spe, step
+        counted(c3 + ["--epochs", 1, "--resume", "--ckpt-dir", ck2], "resume after SIGTERM")
+        assert ckpt.latest_step(ck2) == step + spe, (ckpt.latest_step(ck2), step)
+        print(f"phase 14: SIGTERM after the first epoch: exit 0 with step {step} saved "
+              f"({time.perf_counter() - t0:.2f} s wall), --resume went on to step "
+              f"{ckpt.latest_step(ck2)}", flush=True)
+
+        # Config 5 (composable, bf16, batch 1024) and config 4 as it ships.
+        for name, argv, kernels in (
+                ("config 5", ["--config", 5, "--n-samples", CLI_C5_ROWS], COMPOSABLE_PER_STEP),
+                ("config 4", ["--config", 4, "--n-samples", CLI_ROWS], SHIPPED_PER_STEP)):
+            path = os.path.join(tmp, name.replace(" ", "") + ".jsonl")
+            secs, counts = counted(argv + ["--epochs", 2, "--metrics", path], name)
+            totals = _cli_totals(read_jsonl(path), name)
+            for k in kernels:
+                assert counts[k] > 0, f"phase 14: the CLI on {name} launched no {k}"
+            print(f"phase 14: {name} as it ships, 2 epochs in {secs:.2f} s wall, epoch "
+                  f"totals {totals}, launches {_nonzero(counts)}", flush=True)
+
+        # The sweep: three models, one λ each, on config 3's plain path.
+        data = list(ds.features())
+        tcs = baseline_config(3)[1]
+        ms = os.path.join(tmp, "sweep.jsonl")
+        secs = _cli(["--config", 3, "--n-samples", CLI_ROWS, "--epochs", 2, "--metrics", ms,
+                     "--sweep-seeds", 3, "--sweep-lambdas"] + list(SWEEP_LAMBDAS), "sweep")
+        last = [r for r in read_jsonl(ms) if r.get("epoch") == 1 and "model" in r]
+        first = [r for r in read_jsonl(ms) if r.get("epoch") == 0 and "model" in r]
+        assert len(last) == len(first) == 3 and all(
+            np.isfinite(b["total"]) and b["total"] < a["total"] for a, b in zip(first, last)), \
+            (first, last)
+        alone = []
+        for i, lam in enumerate(SWEEP_LAMBDAS):
+            cfg_i = dataclasses.replace(cfg3, assoc_lambda=lam)
+            _, h = train_loop(cfg_i, dataclasses.replace(tcs, seed=i), data, epochs=2)
+            alone.append(h[-1]["samples_per_sec"])
+        print(f"phase 14: --sweep-seeds 3 --sweep-lambdas 0.5 1 2, 2 epochs in {secs:.2f} s "
+              f"wall; epoch 2 samples/s a model {[r['samples_per_sec'] for r in last]}, "
+              f"in all {last[0]['sweep_model_samples_per_sec']:.1f}; the 3 standalone "
+              f"train_loop runs {alone} ({card})", flush=True)
+        # Each member's first steps against its standalone run on the same batches.
+        state = sweep.init_sweep_state(cfg3, tcs, [0, 1, 2])
+        step = sweep.make_sweep_step(cfg3, tcs, vary_assoc=True)
+        batches = [[d[s * 64:(s + 1) * 64] for d in data] for s in range(SWEEP_STEPS)]
+        lams = torch.tensor(SWEEP_LAMBDAS, device="cuda")
+        got = []
+        for xs in batches:
+            state, m = step(state, xs, lams)
+            got.append(m["total"].cpu().numpy())
+        worst = 0.0
+        for i, lam in enumerate(SWEEP_LAMBDAS):
+            cfg_i, tc_i = dataclasses.replace(cfg3, assoc_lambda=lam), dataclasses.replace(
+                tcs, seed=i)
+            ref, f = init_train_state(cfg_i, tc_i), make_train_step(cfg_i, tc_i)
+            for s, xs in enumerate(batches):
+                ref, rm = f(ref, xs)
+                rel = abs(float(got[s][i]) - float(rm["total"])) / abs(float(rm["total"]))
+                worst = max(worst, rel)
+        assert worst <= 1e-4, f"phase 14: a sweep member's loss is {worst:.3g} off its own run"
+        print(f"phase 14: each member's first {SWEEP_STEPS} step losses against its "
+              f"standalone run: largest relative error {worst:.3g}", flush=True)
+
+        # --dry-compile prints the JAX CLI's numbers.
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            _cli(["--dry-compile", "--config", 3], "--dry-compile")
+        assert "params: 2,049,064 (" in buf.getvalue(), buf.getvalue()
+        print("phase 14: --dry-compile --config 3: " + " | ".join(
+            buf.getvalue().strip().splitlines()), flush=True)
+
+        # Two gloo ranks sharing the card: --mesh 2 --zero on config 5.
+        t0 = time.perf_counter()
+        ranks = spawn(_cli_zero_worker, 2, (tmp,), backend="gloo", timeout_s=300)
+        assert [r["rc"] for r in ranks] == [0, 0] and ranks[0]["backend"] == "gloo", ranks
+        for a, b in zip(ranks[0]["weights"], ranks[1]["weights"]):
+            assert np.array_equal(a, b), "phase 14: the --zero ranks' weights differ"
+        zt = [r["total"] for r in read_jsonl(os.path.join(tmp, "zero.jsonl"))
+              if "samples_per_sec" in r]
+        assert len(zt) == 1 and np.isfinite(zt[0]), zt
+        print(f"phase 14: --mesh 2 --zero on config 5, two gloo ranks on the card: exit 0 on "
+              f"both, the same weights, epoch total {zt[0]:.3f} "
+              f"({time.perf_counter() - t0:.2f} s wall)", flush=True)
+        t0 = time.perf_counter()
+        legs = graft_entry.dryrun_multichip(4, backend="gloo", timeout_s=300)
+        assert legs == list(graft_entry.LEGS), legs
+        print(f"phase 14: graft_entry.dryrun_multichip(4, backend='gloo'): legs {legs} in "
+              f"{time.perf_counter() - t0:.2f} s wall", flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"phase 14: CLI launches {_nonzero(launches)}", flush=True)
+    print(f"phase 14 took {time.perf_counter() - t_phase:.2f} s wall", flush=True)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch finds no CUDA device", file=sys.stderr)
@@ -3601,6 +3886,9 @@ def main() -> int:
     # Phase 13
     for k, v in layouts_check(card).items():
         parallel_launches[k] = parallel_launches.get(k, 0) + v
+
+    # Phase 14
+    cli_launches = cli_check(card)
 
     cd = pred.compute_dtype
     big, small = TRAIN_TIMED[-1], TRAIN_TIMED[0]
@@ -3722,6 +4010,8 @@ def main() -> int:
             "export_launches": export_launches.get(name, 0),
             # launches by phases 12 and 13's parallel layouts at world size 1
             "parallel_launches": parallel_launches.get(name, 0),
+            # launches by phase 14's in-process runs of the training CLI
+            "cli_launches": cli_launches.get(name, 0),
         }
         if name == "reparam":  # an empty kernel's launch, timed as this row and queued
             row["floor_ms"] = ms(floor[small], "floor")

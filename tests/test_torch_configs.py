@@ -97,7 +97,7 @@ def test_port_never_imports_jax():
         "import vae_assoc_tpu_torch as p\n"
         "mods = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
         "for m in mods: importlib.import_module(m)\n"
-        "assert len(mods) >= 57, mods\n"
+        "assert len(mods) >= 61, mods\n"
         "for need in ('ops.losses', 'ops.sampling', 'ops.resample', 'ops.rasterize',\n"
         "             'kernels.megakernel', 'kernels.sampling', 'kernels.loss',\n"
         "             'train.step', 'train.loop', 'data.pipeline', 'data.synthetic',\n"
@@ -106,7 +106,8 @@ def test_port_never_imports_jax():
         "             'native', 'data.uji', 'data.stream', 'ops.rbf', 'ops.augment',\n"
         "             'utils.viz', 'export', 'utils.compile_cache', 'ops.collectives',\n"
         "             'parallel.mesh', 'parallel.dp', 'parallel.zero', 'parallel.fsdp',\n"
-        "             'parallel.tp', 'parallel.tp_fsdp', 'parallel.pp', 'parallel.slices'):\n"
+        "             'parallel.tp', 'parallel.tp_fsdp', 'parallel.pp', 'parallel.slices',\n"
+        "             'train.sweep', 'train.driver', 'kernels.conv_dense', 'graft_entry'):\n"
         "    assert 'vae_assoc_tpu_torch.' + need in mods, need\n"
         "bad = sorted(k for k in sys.modules if k in ('jax', 'vae_assoc_tpu') or k.startswith(('jax.', 'vae_assoc_tpu.')))\n"
         "assert not bad, bad\n"
@@ -117,6 +118,29 @@ def test_port_never_imports_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
+
+
+# JAX modules whose counterpart has another name: the port serves the
+# banded conv with its one conv kernel, tp_shard's names from parallel/tp.py,
+# and the graded entry points from a module of the package.
+RENAMED = {"kernels/conv_banded.py": "kernels/conv.py",
+           "parallel/tp_shard.py": "parallel/tp.py",
+           "../__graft_entry__.py": "graft_entry.py"}
+
+
+def test_every_jax_module_has_a_counterpart():
+    """Every module file of the JAX package (and its graded entry file) has
+    a file of the same path in the port, or the one RENAMED names."""
+    jax_root = os.path.join(REPO, "vae_assoc_tpu")
+    names = ["../__graft_entry__.py"]
+    for dirpath, dirnames, filenames in os.walk(jax_root):
+        dirnames[:] = [d for d in dirnames if d != "__pycache__"]
+        rel = os.path.relpath(dirpath, jax_root)
+        names += [os.path.normpath(os.path.join(rel, f)) for f in filenames if f.endswith(".py")]
+    assert len(names) >= 57 and "train/driver.py" in names
+    missing = [n for n in names if not os.path.exists(
+        os.path.join(REPO, "vae_assoc_tpu_torch", RENAMED.get(n, n)))]
+    assert not missing, missing
 
 
 def test_import_makes_cudnn_deterministic():

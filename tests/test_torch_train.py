@@ -446,10 +446,13 @@ def test_pipeline_features_match_jax():
 
 
 @pytest.mark.parametrize("entry", ["init_train_state", "train_loop", "train_loop_fused",
-                                   "PairedDataset", "load_params"])
+                                   "PairedDataset", "load_params", "init_sweep_state",
+                                   "sweep_loop", "driver.main", "entry", "dryrun_multichip"])
 def test_training_entry_points_default_to_cuda(entry, tmp_path, monkeypatch):
     # Without a GPU, an entry point that the caller did not point at the CPU
     # raises instead of quietly training there.
+    from vae_assoc_tpu_torch import graft_entry
+    from vae_assoc_tpu_torch.train import driver, sweep
     from vae_assoc_tpu_torch.utils import checkpoint as tckpt
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -464,8 +467,15 @@ def test_training_entry_points_default_to_cuda(entry, tmp_path, monkeypatch):
         "train_loop_fused": lambda: tloop.train_loop_fused(tc_, ttc, xs, epochs=1),
         "PairedDataset": lambda: tpipe.PairedDataset.from_synthetic(4),
         "load_params": lambda: tckpt.load_params(tmp_path),
+        "init_sweep_state": lambda: sweep.init_sweep_state(tc_, ttc, [0, 1]),
+        "sweep_loop": lambda: sweep.sweep_loop(tc_, ttc, xs, seeds=[0, 1], epochs=1),
+        "driver.main": lambda: driver.main(["--depth", "1", "--hidden", "8", "--epochs", "1"]),
+        "entry": lambda: graft_entry.entry(),
+        "dryrun_multichip": lambda: graft_entry.dryrun_multichip(4),
     }[entry]
-    with pytest.raises(RuntimeError, match=f"{entry}\\(device='cuda'\\).*no CUDA device"):
+    match = ("the training CLI runs on the card.*no CUDA device" if entry == "driver.main"
+             else f"{entry}\\(device='cuda'\\).*no CUDA device")
+    with pytest.raises(RuntimeError, match=match):
         call()
 
 

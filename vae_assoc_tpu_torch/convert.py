@@ -15,6 +15,12 @@ Adam state of an optax chain (``ScaleByAdamState``: ``count``, ``mu``,
 EMA stage's state (``EmaState``: ``count``, ``ema``) and the MultiSteps
 accumulator (``mini_step``, ``acc_grads``) carry over where the train
 config has them (``ema_decay > 0``, ``accum_steps > 1``).
+
+A sweep state (train/sweep.py) carries over with ``sweep_state_from_jax_numpy``
+and back with ``sweep_state_to_jax_numpy``: the same trees with a leading
+[E] model axis on every leaf, counts and steps included (the JAX package
+vmaps its ``TrainState``), which the port keeps as one count, shared by
+the members that advance in lockstep.
 """
 
 from __future__ import annotations
@@ -88,11 +94,17 @@ def train_state_from_jax_numpy(params, adam, step, cfg: AssocConfig, tc, device,
 
     model = from_jax_numpy(params, cfg, device)
     state = init_train_state(cfg, tc, device=device, params=model)
-    opt = state.opt_state
-    count, mu, nu = adam
+    _load_opt(state.opt_state, model, adam, ema, acc, int)
+    return state._replace(step=int(step))
+
+
+def _load_opt(opt, model, adam, ema, acc, count) -> None:
+    """Load the optimizer's numpy trees into ``opt`` (in place), each count
+    read by ``count``."""
+    n, mu, nu = adam
     _load_tree(opt.adam.mu, mu, model)
     _load_tree(opt.adam.nu, nu, model)
-    opt.adam.count = int(count)
+    opt.adam.count = count(n)
     for part, dst, what in ((ema, opt.ema, "EMA"), (acc, opt.acc, "MultiSteps")):
         if (part is None) != (dst is None):
             raise ValueError(
@@ -100,11 +112,39 @@ def train_state_from_jax_numpy(params, adam, step, cfg: AssocConfig, tc, device,
                 f"the JAX state {'has none' if part is None else 'has one'}")
     if ema is not None:
         _load_tree(opt.ema, ema[1], model)
-        opt.ema_count = int(ema[0])
+        opt.ema_count = count(ema[0])
     if acc is not None:
         _load_tree(opt.acc, acc[1], model)
-        opt.mini_step = int(acc[0])
-    return state._replace(step=int(step))
+        opt.mini_step = count(acc[0])
+
+
+def _lockstep(a) -> int:
+    """An [E] count of a JAX sweep state → the one count of the port's."""
+    a = np.asarray(a).reshape(-1)
+    if (a != a[0]).any():
+        raise ValueError(f"the sweep's members are not in lockstep: counts {a.tolist()}")
+    return int(a[0])
+
+
+def sweep_state_from_jax_numpy(params, adam, step, seeds, cfg: AssocConfig, tc, device, *,
+                               ema=None, acc=None):
+    """The port's sweep state continuing a JAX sweep: the arguments of
+    :func:`train_state_from_jax_numpy`, every leaf and count with a leading
+    [E] axis, and the members' ``seeds`` (their ε streams restart from them)."""
+    from vae_assoc_tpu_torch.train.sweep import init_sweep_state
+
+    state = init_sweep_state(cfg, tc, seeds, device=device)
+    _load_tree(list(state.params.parameters()), params, state.params)
+    _load_opt(state.opt_state, state.params, adam, ema, acc, _lockstep)
+    return state._replace(step=_lockstep(step))
+
+
+def sweep_state_to_jax_numpy(state):
+    """Inverse of :func:`sweep_state_from_jax_numpy`: (params tree, (count,
+    mu tree, nu tree), step), every leaf and count with the leading [E] axis."""
+    params, (count, mu, nu), step = train_state_to_jax_numpy(state)
+    e = len(state.seed)
+    return params, (np.full(e, count, np.int32), mu, nu), np.full(e, step, np.int32)
 
 
 def train_state_to_jax_numpy(state):

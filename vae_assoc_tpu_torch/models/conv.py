@@ -108,12 +108,15 @@ def pad_input(x, dilate: bool, pads, compute_dtype="float32"):
     """x̃: x [B, h, w, c] rounded under ``compute_dtype``, dilated ×2 with
     zeros when ``dilate``, padded ``pads`` = (lo, hi) on both spatial axes."""
     x = networks.round_operand(x.float(), networks.dtype_name(compute_dtype))
-    if dilate:
-        b, h, w, c = x.shape
-        xd = x.new_zeros(b, 2 * h - 1, 2 * w - 1, c)
-        xd[:, ::2, ::2] = x
-        x = xd
     lo, hi = pads
+    if dilate:
+        # A zero after every pixel, by padding a [B, h, 1, w, 1, c] view: out
+        # of place, so torch.func.vmap (the sweep, train/sweep.py) batches
+        # it. The zeros after the last row and column count toward ``hi``.
+        b, h, w, c = x.shape
+        x = F.pad(x.reshape(b, h, 1, w, 1, c), (0, 0, 0, 1, 0, 0, 0, 1))
+        x = x.reshape(b, 2 * h, 2 * w, c)
+        hi -= 1
     return F.pad(x, (0, 0, lo, hi, lo, hi))
 
 

@@ -85,7 +85,7 @@ def kl_divergence(z_mean, z_logvar, *, ordered: bool = False):
 
 def assoc_loss(z_means, *, z_logvars=None, zs=None, form: str = "mean_l2",
                temp: float = 0.1, ordered: bool = False,
-               negatives: str = "local", gather_group=None):
+               negatives: str = "local", gather_group=None, keys=None):
     """Cross-modal latent-association term, [batch], summed over pairs i<j.
 
     - ``"mean_l2"``: ‖μ_i − μ_j‖².
@@ -101,12 +101,17 @@ def assoc_loss(z_means, *, z_logvars=None, zs=None, form: str = "mean_l2",
       objective does not depend on the number of ranks; the gather's
       backward sums the ranks' cotangents, as JAX's ``all_gather``
       transposes. Without a group (one device) global and local are the
-      same set.
+      same set. ``keys`` (global negatives only): each modality's means
+      of the global batch, gathered by the caller, in place of the gather
+      (the sweep's data-parallel step gathers its stacked means outside
+      ``vmap``, where a collective can run, and carries their cotangent
+      back itself).
     """
     if form not in ASSOC_FORMS:
         raise ValueError(f"unknown assoc_form {form!r}; one of {ASSOC_FORMS}")
     if form == "infonce":
-        return _infonce(z_means, temp, negatives=negatives, gather_group=gather_group)
+        return _infonce(z_means, temp, negatives=negatives, gather_group=gather_group,
+                        keys=keys)
     if form == "sample_l2":
         if zs is None:
             raise ValueError("assoc_form='sample_l2' needs zs (sampled latents)")
@@ -174,7 +179,12 @@ def _lse_rows(a, bmat, inv_t):
     return torch.logsumexp((a @ bmat.T) * inv_t, dim=1)
 
 
-def _infonce(z_means, temp: float, *, negatives: str = "local", gather_group=None):
+def _normalize(z):
+    return z * torch.rsqrt(torch.sum(z * z, dim=-1, keepdim=True) + 1e-12)
+
+
+def _infonce(z_means, temp: float, *, negatives: str = "local", gather_group=None,
+             keys=None):
     """Per-sample symmetric InfoNCE over all modality pairs, [batch]."""
     if temp <= 0:
         raise ValueError(f"infonce temperature must be > 0, got {temp}")
@@ -188,9 +198,11 @@ def _infonce(z_means, temp: float, *, negatives: str = "local", gather_group=Non
     if len(zs) < 2:
         return total
     inv_t = 1.0 / temp
-    normed = [z * torch.rsqrt(torch.sum(z * z, dim=-1, keepdim=True) + 1e-12) for z in zs]
+    normed = [_normalize(z) for z in zs]
     gathered = normed
-    if negatives == "global" and gather_group is not None:
+    if negatives == "global" and keys is not None:
+        gathered = [_normalize(_f32(k)) for k in keys]
+    elif negatives == "global" and gather_group is not None:
         gathered = [gather_rows_summed_grad(z, gather_group) for z in normed]
     for i in range(len(zs)):
         for j in range(i + 1, len(zs)):

@@ -37,10 +37,11 @@ reads ``train_loop_fused``'s samples/s on 65,536 synthetic pairs
 featurized on the card (after one warm-up run each): config 3 on the mega
 path at batch 16384 bf16 (steps_per_call=4, 4 epochs) and config 5's
 settings (batch 1024 bf16) on the composable, mega and plain paths (2
-epochs each), and config 4's on the plain path (``use_pallas=False``,
-plain ``F.conv2d`` on the image tower) at batch 64 fp32 on 4096 pairs and
-batch 2048 bf16 on 16384 (1 epoch each); and whether config 4's step
-repeats its bits (:func:`conv_plain_bits`: 1 if it does, else 0). It
+epochs each), config 4 as it ships at batch 64 fp32 on 4096 pairs, and
+config 4's on the plain path (``use_pallas=False``, plain ``F.conv2d`` on
+the image tower) at batch 64 fp32 on 4096 pairs and batch 2048 bf16 on
+16384 (1 epoch each); and whether config 4's steps repeat their bits
+(:func:`conv_plain_bits`: 1 if they do, else 0). It
 prints one line per (root, round, case) and, as its last line, a JSON
 object of the means per root with the card's name and power limit. Exits
 non-zero without a CUDA card.
@@ -144,8 +145,8 @@ def conv_plain_bits(steps: int = 5) -> dict:
 
 def _train_rates() -> dict:
     """train_loop_fused samples/s: config 3 mega at batch 16384 bf16,
-    config 5's settings on its three paths and config 4 plain; and whether
-    config 4's plain step repeats its bits."""
+    config 5's settings on its three paths, config 4 as shipped and plain;
+    and whether config 4's steps repeat their bits."""
     import dataclasses
 
     from vae_assoc_tpu_torch.configs import baseline_config
@@ -162,6 +163,8 @@ def _train_rates() -> dict:
             steps_per_call=4), 4, 65536),
         **{f"config 5 {name}": (cfg5, dataclasses.replace(tc5, use_pallas=up), 2, 65536)
            for name, up in (("composable", True), ("mega", "mega"), ("plain", False))},
+        "config 4 shipped batch 64 fp32": (cfg4, dataclasses.replace(
+            tc4, batch_size=64, compute_dtype="float32"), 1, 4096),
         "config 4 plain batch 64 fp32": (cfg4, dataclasses.replace(
             tc4, use_pallas=False, batch_size=64, compute_dtype="float32"), 1, 4096),
         "config 4 plain batch 2048 bf16": (cfg4, dataclasses.replace(

@@ -114,7 +114,9 @@ class Optimizer:
     ``grad_clip_norm`` (``global_norm`` by default); a layout whose
     gradients are shards passes the norm of the whole gradient, as the JAX
     package's layouts pass their ``clip_transform``. Every other stage is
-    elementwise, so it runs as well on shards as on whole tensors."""
+    elementwise, so it runs as well on shards as on whole tensors, and on
+    the [E, ...] stacks of a sweep state (train/sweep.py), whose
+    ``norm_fn`` returns one norm per model."""
 
     def __init__(self, tc: TrainConfig, norm_fn=global_norm):
         if tc.ema_decay > 0 and not 0.0 < tc.ema_decay < 1.0:
@@ -139,11 +141,14 @@ class Optimizer:
         )
 
     @torch.no_grad()
-    def update(self, grads, state: OptState, params) -> None:
+    def update(self, grads, state: OptState, params, *, lr_scale=None) -> None:
+        """``lr_scale``: an [E] tensor scaling each model's update of a sweep
+        state, the JAX package's per-model learning rate (``_one_step``'s
+        ``lr_scale``), with the optimizer built at learning_rate 1."""
         grads, params = list(grads), list(params)
         k = self.tc.accum_steps
         if k == 1:
-            self._inner(grads, state, params)
+            self._inner(grads, state, params, lr_scale)
             return
         # MultiSteps: a running mean of k micro-batch grads (Welford), one
         # inner update when the k-th arrives; the weights hold still between.
@@ -151,18 +156,22 @@ class Optimizer:
         torch._foreach_div_(diff, float(state.mini_step + 1))
         torch._foreach_add_(state.acc, diff)
         if state.mini_step == k - 1:
-            self._inner(state.acc, state, params)
+            self._inner(state.acc, state, params, lr_scale)
             torch._foreach_zero_(state.acc)
         state.mini_step = (state.mini_step + 1) % k
 
-    def _inner(self, grads, state: OptState, params) -> None:
+    def _inner(self, grads, state: OptState, params, lr_scale=None) -> None:
         tc = self.tc
         if tc.grad_clip_norm > 0:
-            norm = self.norm_fn(grads)
-            keep = norm < tc.grad_clip_norm
-            scaled = torch._foreach_div(grads, norm)
-            torch._foreach_mul_(scaled, tc.grad_clip_norm)
-            grads = [torch.where(keep, g, s) for g, s in zip(grads, scaled)]
+            norm, clip = self.norm_fn(grads), tc.grad_clip_norm
+            if norm.dim() == 0:
+                keep = norm < clip
+                scaled = torch._foreach_div(grads, norm)
+                torch._foreach_mul_(scaled, clip)
+                grads = [torch.where(keep, g, s) for g, s in zip(grads, scaled)]
+            else:  # one norm per model of a sweep state's [E, ...] stacks
+                views = [norm.view((-1,) + (1,) * (g.dim() - 1)) for g in grads]
+                grads = [torch.where(n < clip, g, g / n * clip) for g, n in zip(grads, views)]
         a = state.adam
         b1, b2 = tc.adam_b1, tc.adam_b2
         # mu = (1 - b1) g + b1 mu;  nu = (1 - b2) g² + b2 nu
@@ -184,6 +193,9 @@ class Optimizer:
         upd = torch._foreach_div(a.mu, float(bc1))
         torch._foreach_div_(upd, den)
         torch._foreach_mul_(upd, float(-lr))
+        if lr_scale is not None:
+            for u in upd:
+                u.mul_(lr_scale.view((-1,) + (1,) * (u.dim() - 1)))
         if state.ema is not None:
             # EMA of the post-update weights, last in the chain.
             new_p = torch._foreach_add(params, upd)
@@ -237,11 +249,14 @@ def init_train_state(cfg: AssocConfig, tc: TrainConfig, *, device="cuda",
 
 def _total_with_lambda(metrics: dict, cfg: AssocConfig, lam, kl_w):
     """Σ_k (recon_k + kl_w·kl_k) + lam·assoc from the logged terms; the
-    gradient is exact, as the total is linear in them."""
-    total = torch.zeros((), dtype=torch.float32, device=metrics["total"].device)
+    gradient is exact, as the total is linear in them. ``lam`` is a number,
+    or a tensor (a sweep member's own λ under ``vmap``)."""
+    total = torch.zeros((), dtype=torch.float32, device=metrics["assoc"].device)
     for m in cfg.modalities:
         total = total + metrics[f"recon_{m.name}"] + float(kl_w) * metrics[f"kl_{m.name}"]
-    return total + float(np.float32(lam)) * metrics["assoc"]
+    if not isinstance(lam, torch.Tensor):
+        lam = float(np.float32(lam))
+    return total + lam * metrics["assoc"]
 
 
 def objective_weights(tc: TrainConfig, step: int):
@@ -272,14 +287,23 @@ def objective_weights(tc: TrainConfig, step: int):
 
 
 def apply_objective_weights(total, metrics, cfg: AssocConfig, tc: TrainConfig,
-                            step: int):
+                            step: int, assoc_lambda=None):
     """Rebuild (total, metrics) with the β-VAE and annealing knobs' runtime
-    weights. Returns the inputs untouched when none is active."""
+    weights and ``assoc_lambda``, a per-model λ in place of the config's
+    (an [E] entry of a sweep, a tensor under ``vmap``). Returns the inputs
+    untouched when none is active."""
     w = objective_weights(tc, step)
-    if w is None:
+    if w is None and assoc_lambda is None:
         return total, metrics
+    if w is None:
+        total = _total_with_lambda(metrics, cfg, assoc_lambda, np.float32(1))
+        return total, {**metrics, "total": total}
     kl_w, scale = w
-    total = _total_with_lambda(metrics, cfg, scale * np.float32(cfg.assoc_lambda), kl_w)
+    if assoc_lambda is None:
+        lam = scale * np.float32(cfg.assoc_lambda)
+    else:
+        lam = assoc_lambda * float(scale)
+    total = _total_with_lambda(metrics, cfg, lam, kl_w)
     dev = total.device
     return total, {**metrics, "total": total,
                    "kl_beta_eff": torch.tensor(float(kl_w), device=dev),
