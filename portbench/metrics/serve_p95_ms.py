@@ -1,0 +1,8 @@
+"""95th percentile of the latencies ``serve_p50_ms`` takes the median of."""
+
+from portbench.traffic.loadgen import percentile
+
+
+def read(obs):
+    lat = obs.get("latencies_s")
+    return None if not lat else percentile(lat, 95) * 1e3
