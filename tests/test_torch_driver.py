@@ -230,7 +230,13 @@ def test_augment_conditional_profile_plots_and_mll_run(tmp_path):
     assert tdrv.main(TINY + ["--epochs", "2", "--augment", "--conditional", "--metrics", str(m),
                              "--profile-epochs", "1", "--profile-dir", str(prof),
                              "--plots-dir", str(plots), "--mll-samples", "4"]) == 0
-    assert (prof / "trace_rank0.json").exists()
+    events = json.loads((prof / "trace_rank0.json").read_text())["traceEvents"]
+    program = [e for e in events if e.get("cat") == "program_span"]
+    assert {"train.call", "train.shuffle", "train.step", "step.forward", "step.backward",
+            "step.optimizer", "train.sync"} <= {e["name"] for e in program}
+    forward = [(e["ts"], e["ts"] + e["dur"]) for e in program if e["name"] == "step.forward"]
+    ops = [e["ts"] for e in events if e.get("cat") == "cpu_op"]
+    assert ops and any(a <= t <= b for t in ops for a, b in forward)  # one clock
     assert sorted(os.listdir(plots)) == [
         "class_generation.png", "image_to_trajectory.png", "latent_manifold.png",
         "latent_scatter.png", "reconstructions.png"]

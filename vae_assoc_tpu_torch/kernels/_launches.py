@@ -10,34 +10,34 @@ megakernel (kernels/megakernel.py), the stack backwards and the weight grads
 (kernels/mlp.py), the sampler (kernels/sampling.py), the joint loss
 (kernels/loss.py), the conv weight gradient (kernels/conv.py) and the
 conv-tower megakernel (kernels/conv_mega.py).
+
+Both tables are counter groups of ``utils/spans.py``, the port's one
+counter system. A count is a host call: a launch replayed inside a CUDA
+graph adds nothing.
 """
 
 from __future__ import annotations
 
-import threading
+from vae_assoc_tpu_torch.utils.spans import Counters
 
-SERVING = {"enc_fwd": 0, "dec_fwd": 0, "conv_fwd": 0}
-TRAINING = {"mega_fwd": 0, "mega_dec_loss_bwd": 0, "enc_bwd": 0, "dec_bwd": 0,
-            "wgrad": 0, "reparam": 0, "loss_fwd": 0, "loss_bwd": 0,
-            "conv_dw": 0, "conv_enc": 0, "conv_dec": 0}
-
-_lock = threading.Lock()
+SERVING = Counters(("enc_fwd", "dec_fwd", "conv_fwd"))
+TRAINING = Counters(("mega_fwd", "mega_dec_loss_bwd", "enc_bwd", "dec_bwd",
+                     "wgrad", "reparam", "loss_fwd", "loss_bwd",
+                     "conv_dw", "conv_enc", "conv_dec"))
 
 
-def count(table: dict, name: str) -> None:
-    with _lock:
-        table[name] += 1
+def count(table: Counters, name: str) -> None:
+    if name not in table:
+        raise KeyError(f"no launch counter {name!r}")
+    table.add(name, shared=True)  # kernels launch from any thread
 
 
 def reset() -> None:
     """Set every count to zero."""
-    with _lock:
-        for table in (SERVING, TRAINING):
-            for k in table:
-                table[k] = 0
+    SERVING.reset()
+    TRAINING.reset()
 
 
 def snapshot() -> dict:
     """Every kernel's count, by name."""
-    with _lock:
-        return {**SERVING, **TRAINING}
+    return {**SERVING.snapshot(), **TRAINING.snapshot()}

@@ -32,6 +32,7 @@ from vae_assoc_tpu_torch import bucketing
 from vae_assoc_tpu_torch.configs import AssocConfig, TrainConfig
 from vae_assoc_tpu_torch.models import assoc as assoc_mod
 from vae_assoc_tpu_torch.models.networks import cuda_or_raise, dtype_name
+from vae_assoc_tpu_torch.utils import spans
 
 
 class Predictor:
@@ -106,24 +107,35 @@ class Predictor:
     def _t(self, a) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(self.device)
 
+    # Spans: predictor.h2d (the copies in), predictor.run (the model's
+    # enqueue), predictor.d2h (the copy out, which waits for the card).
     @torch.inference_mode()
     def _transform(self, xs):
-        outs = assoc_mod.transform(self.params, [self._t(x) for x in xs], **self._kw)
-        return tuple(o.cpu().numpy() for o in outs)
+        with spans.span("predictor.h2d"):
+            ts = [self._t(x) for x in xs]
+        with spans.span("predictor.run"):
+            outs = assoc_mod.transform(self.params, ts, **self._kw)
+        with spans.span("predictor.d2h"):
+            return tuple(o.cpu().numpy() for o in outs)
 
     @torch.inference_mode()
     def _generate(self, z, modality, cond=None):
-        c = None if cond is None else self._t(cond)
-        out = assoc_mod.generate(self.params, self._t(z), modality=modality,
-                                 cond=c, **self._kw)
-        return out.cpu().numpy()
+        with spans.span("predictor.h2d"):
+            zt, c = self._t(z), None if cond is None else self._t(cond)
+        with spans.span("predictor.run"):
+            out = assoc_mod.generate(self.params, zt, modality=modality, cond=c, **self._kw)
+        with spans.span("predictor.d2h"):
+            return out.cpu().numpy()
 
     @torch.inference_mode()
     def _cross(self, x, src, dst, cond=None):
-        c = None if cond is None else self._t(cond)
-        out = assoc_mod.cross_generate(self.params, self._t(x), src=src, dst=dst,
-                                       cond=c, **self._kw)
-        return out.cpu().numpy()
+        with spans.span("predictor.h2d"):
+            xt, c = self._t(x), None if cond is None else self._t(cond)
+        with spans.span("predictor.run"):
+            out = assoc_mod.cross_generate(self.params, xt, src=src, dst=dst, cond=c,
+                                           **self._kw)
+        with spans.span("predictor.d2h"):
+            return out.cpu().numpy()
 
     # -- endpoints --------------------------------------------------------------
     def _cond(self, cond, batch):
@@ -179,6 +191,13 @@ class Predictor:
         )
 
 
+def _device_rows(n: int) -> int:
+    """Rows the bucketed endpoints compute for an ``n``-row call: whole
+    ``MAX_BUCKET`` chunks, and the rest padded to its bucket."""
+    full, rest = divmod(n, bucketing.MAX_BUCKET)
+    return full * bucketing.MAX_BUCKET + (bucketing._bucket(rest) if rest else 0)
+
+
 def _join_futures(futs):
     """Future resolving to the row-concatenation of `futs` results.
 
@@ -224,6 +243,15 @@ class MicroBatcher:
     is kept per request. A request waits at most ~max_wait_ms for
     co-travelers; max_batch bounds the rows per device call; every
     dispatch is padded to at least min_batch rows.
+
+    ``counters`` (utils/spans.Counters): ``requests`` and ``rows``
+    submitted, ``dispatches`` (device calls made), ``padded_rows`` (rows
+    the dispatches computed beyond their requests': the min_batch floor and
+    the power-of-two bucket) and ``errors`` (requests whose dispatch
+    raised). Spans: ``batcher.queue``, one a request from ``submit`` to the
+    start of the dispatch that carries it, naming that dispatch, and
+    ``batcher.dispatch`` (concatenation, padding, the predictor call and
+    the scatter).
     """
 
     _STOP = object()
@@ -240,7 +268,8 @@ class MicroBatcher:
             )
         self.max_wait = max_wait_ms / 1e3
         self._q: queue.Queue = queue.Queue()
-        self.dispatches = 0  # device calls made (observability + tests)
+        self.counters = spans.Counters(("requests", "rows", "dispatches", "padded_rows",
+                                        "errors"))
         self._closed = False
         # Serializes the closed-check+enqueue against close(), so no request
         # lands behind the STOP sentinel.
@@ -248,14 +277,23 @@ class MicroBatcher:
         self._thread = threading.Thread(target=self._worker, daemon=True)
         self._thread.start()
 
+    @property
+    def dispatches(self) -> int:
+        """Device calls made."""
+        return self.counters["dispatches"]
+
     def _enqueue(self, route, chunks):
-        """Atomically (w.r.t. close) enqueue one future per chunk."""
+        """Atomically (w.r.t. close) enqueue one future per chunk. While
+        spans are recorded each item carries its submit time and request."""
         futs = [Future() for _ in chunks]
+        tag = (time.perf_counter_ns(), spans.current_request()) if spans.recording() else None
         with self._lock:
             if self._closed:
                 raise RuntimeError("MicroBatcher is closed")
             for x, fut in zip(chunks, futs):
-                self._q.put((route, x, fut))
+                self._q.put((route, x, fut, tag))
+            self.counters.add("requests")
+            self.counters.add("rows", sum(x.shape[0] for x in chunks))
         return futs
 
     def submit(self, x, src: Union[int, str], dst: Union[int, str], *,
@@ -316,22 +354,33 @@ class MicroBatcher:
 
     def _flush(self, batch):
         routes: dict = {}
-        for route, x, fut in batch:
-            routes.setdefault(route, []).append((x, fut))
+        for route, x, fut, tag in batch:
+            routes.setdefault(route, []).append((x, fut, tag))
         for (src, dst), items in routes.items():
             chunk, rows = [], 0
-            for x, fut in items:
+            for item in items:
+                x = item[0]
                 if chunk and rows + x.shape[0] > self.max_batch:
                     self._dispatch(src, dst, chunk)
                     chunk, rows = [], 0
-                chunk.append((x, fut))
+                chunk.append(item)
                 rows += x.shape[0]
             if chunk:
                 self._dispatch(src, dst, chunk)
 
     def _dispatch(self, src, dst, items):
+        with spans.span("batcher.dispatch") as d:
+            if d.id is not None:
+                for _, _, tag in items:
+                    if tag is not None:
+                        spans.record("batcher.queue", tag[0], d.start, request=tag[1],
+                                     dispatch=d.id)
+            self._dispatch_rows(src, dst, items)
+
+    def _dispatch_rows(self, src, dst, items):
         try:
-            big = np.concatenate([x for x, _ in items], axis=0)
+            big = np.concatenate([x for x, _, _ in items], axis=0)
+            rows = big.shape[0]
             if big.shape[0] < self.min_batch:
                 big = np.concatenate(
                     [big, np.zeros((self.min_batch - big.shape[0],)
@@ -343,14 +392,16 @@ class MicroBatcher:
                 out = self.predictor.cross_generate(big, src, dst, cond=cond)
             else:
                 out = self.predictor.cross_generate(big, src, dst)
-            self.dispatches += 1
+            self.counters.add("dispatches")
+            self.counters.add("padded_rows", _device_rows(big.shape[0]) - rows)
         except Exception as e:  # the worker must survive; callers get the error
-            for _, fut in items:
+            self.counters.add("errors", len(items))
+            for _, fut, _ in items:
                 if not fut.done():
                     fut.set_exception(e)
             return
         lo = 0
-        for x, fut in items:
+        for x, fut, _ in items:
             # A caller may have cancelled its future; that must not poison
             # the other requests of this chunk.
             if not fut.done():

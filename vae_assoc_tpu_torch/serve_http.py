@@ -13,7 +13,9 @@ batched device calls.
 Endpoints (JSON in / JSON out):
 
   GET  /healthz                  → {"status": "ok", "modalities": [...]}
-  GET  /statz                    → {"dispatches": N, "min_batch": ..., "max_batch": ..., "n_cond": ...}
+  GET  /statz                    → {"dispatches": N, "requests": ..., "rows": ...,
+                                    "padded_rows": ..., "errors": ...,
+                                    "min_batch": ..., "max_batch": ..., "n_cond": ...}
   POST /v1/transform             {"inputs": [[...], ...] per modality}
                                  → {"latents": [[...], ...] per modality}
   POST /v1/generate              {"latents": [[...]], "modality": "image"}
@@ -26,12 +28,19 @@ Endpoints (JSON in / JSON out):
 
 Errors return 400 with {"error": "..."} for malformed requests (unknown
 modality, wrong feature width, bad JSON); 404 for unknown routes.
+
+Spans (utils/spans.py), each request's under its own request id:
+``http.request`` from the moment the server hands the accepted connection
+over (thread start-up counted) to the last byte written; under it
+``http.read`` (the body and ``json.loads``), ``http.wait`` (blocked on the
+micro-batcher) and ``http.write`` (``json.dumps`` and the send).
 """
 
 from __future__ import annotations
 
 import json
 import threading
+import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional
 
@@ -40,6 +49,7 @@ import numpy as np
 from vae_assoc_tpu_torch import bucketing
 from vae_assoc_tpu_torch.bucketing import MAX_BUCKET
 from vae_assoc_tpu_torch.serve import MicroBatcher, Predictor
+from vae_assoc_tpu_torch.utils import spans
 
 
 def _pad_rows(x: np.ndarray, n: int) -> np.ndarray:
@@ -151,14 +161,16 @@ class ModelServer:
                 x = _as_2d(payload["inputs"], "inputs")
                 m = payload["modality"]
                 cond = self._payload_cond(payload, x.shape[0])
-                out = self.batcher.cross_generate(x, m, m, cond=cond)
+                with spans.span("http.wait"):
+                    out = self.batcher.cross_generate(x, m, m, cond=cond)
                 return 200, {"outputs": out.tolist()}
             if path == "/v1/cross_generate":
                 x = _as_2d(payload["inputs"], "inputs")
                 cond = self._payload_cond(payload, x.shape[0])
-                out = self.batcher.cross_generate(
-                    x, payload["src"], payload["dst"], cond=cond
-                )
+                with spans.span("http.wait"):
+                    out = self.batcher.cross_generate(
+                        x, payload["src"], payload["dst"], cond=cond
+                    )
                 return 200, {"outputs": out.tolist()}
         except (KeyError, ValueError, TypeError, IndexError) as e:
             return 400, {"error": str(e)}
@@ -211,13 +223,20 @@ class ModelServer:
             def log_message(self, *a):  # quiet by default
                 pass
 
+            def handle(self):
+                start = accepted.pop(self.request, None)
+                with spans.span("http.request", request=spans.new_request(),
+                                start_ns=start):
+                    super().handle()
+
             def _send(self, status: int, obj: dict):
-                body = json.dumps(obj).encode()
-                self.send_response(status)
-                self.send_header("Content-Type", "application/json")
-                self.send_header("Content-Length", str(len(body)))
-                self.end_headers()
-                self.wfile.write(body)
+                with spans.span("http.write"):
+                    body = json.dumps(obj).encode()
+                    self.send_response(status)
+                    self.send_header("Content-Type", "application/json")
+                    self.send_header("Content-Length", str(len(body)))
+                    self.end_headers()
+                    self.wfile.write(body)
 
             def do_GET(self):
                 if self.path == "/healthz":
@@ -228,7 +247,7 @@ class ModelServer:
                     })
                 elif self.path == "/statz":
                     self._send(200, {
-                        "dispatches": server.batcher.dispatches,
+                        **server.batcher.counters.snapshot(),
                         "min_batch": server.batcher.min_batch,
                         "max_batch": server.batcher.max_batch,
                         "n_cond": server.predictor.cfg.n_cond,
@@ -238,8 +257,9 @@ class ModelServer:
 
             def do_POST(self):
                 try:
-                    n = int(self.headers.get("Content-Length", 0))
-                    payload = json.loads(self.rfile.read(n) or b"{}")
+                    with spans.span("http.read"):
+                        n = int(self.headers.get("Content-Length", 0))
+                        payload = json.loads(self.rfile.read(n) or b"{}")
                 except (ValueError, json.JSONDecodeError) as e:
                     self._send(400, {"error": f"bad JSON: {e}"})
                     return
@@ -250,7 +270,15 @@ class ModelServer:
                     status, obj = 500, {"error": f"internal: {e!r}"}
                 self._send(status, obj)
 
-        self._httpd = ThreadingHTTPServer((host, port), Handler)
+        accepted = {}  # connection -> perf_counter_ns when handed over, while recording
+
+        class Server(ThreadingHTTPServer):
+            def process_request(self, request, client_address):
+                if spans.recording():
+                    accepted[request] = time.perf_counter_ns()
+                super().process_request(request, client_address)
+
+        self._httpd = Server((host, port), Handler)
         return self._httpd
 
     def close(self):

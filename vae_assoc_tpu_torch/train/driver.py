@@ -46,6 +46,23 @@ def _state_bytes(state) -> int:
     return sum(t.numel() * t.element_size() for t in tensors) + 4 * 4 + 8
 
 
+def _add_spans_to_chrome_trace(path: str, recorded) -> None:
+    """Append the program's spans to the Chrome trace at ``path`` as
+    complete events on its clock (``ts`` in µs after the trace's
+    ``baseTimeNanoseconds``), on the threads the profiler names."""
+    with open(path) as f:
+        trace = json.load(f)
+    base = trace.get("baseTimeNanoseconds", 0)
+    pid = os.getpid()
+    trace["traceEvents"].extend(
+        {"ph": "X", "cat": "program_span", "name": s.name, "pid": pid, "tid": s.thread,
+         "ts": (s.start_ns - base) / 1e3, "dur": (s.end_ns - s.start_ns) / 1e3,
+         "args": {"id": s.id, "parent": s.parent, "request": s.request, **(s.attrs or {})}}
+        for s in recorded)
+    with open(path, "w") as f:
+        json.dump(trace, f)
+
+
 def _dry_compile(cfg, tc) -> int:
     """--dry-compile: the pre-flight sizes of the single-device step from
     shapes alone, on the ``meta`` device (no device memory is touched):
@@ -250,7 +267,9 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--plots-dir", default=None,
                    help="write post-train eval plots here")
     p.add_argument("--profile-epochs", type=int, default=0,
-                   help="wrap the first N epochs in a torch.profiler trace")
+                   help="wrap the first N epochs in a torch.profiler trace, "
+                        "with the program's spans above the host and device "
+                        "events")
     p.add_argument("--profile-dir", default="/tmp/vae_assoc_tpu_profile",
                    help="where --profile-epochs writes its Chrome trace")
     p.add_argument("--cpu", action="store_true",
@@ -916,17 +935,22 @@ def main(argv=None) -> int:
         epochs_done = args.epochs  # no single-model training loop
     if args.profile_epochs > 0:
         # The first N epochs in a torch.profiler trace (Chrome trace JSON,
-        # one file a rank; view with Perfetto or chrome://tracing).
+        # one file a rank; view with Perfetto or chrome://tracing), with the
+        # program's spans, which a running profiler records, above them.
         from torch.profiler import ProfilerActivity, profile
+
+        from vae_assoc_tpu_torch.utils import spans
 
         acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA]
                                          if device.type == "cuda" else [])
+        spans.drain()
         with profile(activities=acts) as prof:
             state, history = run(state, args.profile_epochs)
         os.makedirs(args.profile_dir, exist_ok=True)
         rank = dist.get_rank() if dist.is_initialized() else 0
         trace = os.path.join(args.profile_dir, f"trace_rank{rank}.json")
         prof.export_chrome_trace(trace)
+        _add_spans_to_chrome_trace(trace, spans.drain())
         for h in history:
             log.write(epoch=epochs_done, **h)
             epochs_done += 1

@@ -27,6 +27,7 @@ from vae_assoc_tpu_torch.configs import AssocConfig, TrainConfig
 from vae_assoc_tpu_torch.models import assoc as assoc_mod
 from vae_assoc_tpu_torch.models.networks import cuda_or_raise
 from vae_assoc_tpu_torch.ops.sampling import fold_in
+from vae_assoc_tpu_torch.utils import spans
 
 
 class AdamState:
@@ -354,22 +355,30 @@ def _one_step(state: TrainState, xs, cfg: AssocConfig, tc: TrainConfig,
     folds into the ε seed, global InfoNCE negatives are gathered over it,
     the gradients are averaged over it in one all-reduce, and so are the
     metrics; ``grad_norm`` is that of the averaged gradient. The step then
-    follows the gradient of the global batch's mean loss."""
-    params = list(state.params.parameters())
-    total, metrics = assoc_mod.assoc_loss_fn(
-        state.params, list(xs), cfg,
-        seed=step_seed_of_rank(state.seed, state.step, group) if eps is None else None,
-        eps=eps, compute_dtype=tc.compute_dtype, parity_mode=tc.parity_mode,
-        use_pallas=tc.use_pallas, remat=tc.remat, data_group=group,
-    )
-    total, metrics = apply_objective_weights(total, metrics, cfg, tc, state.step)
-    grads = torch.autograd.grad(total, params)
-    metrics = {k: v.detach() for k, v in metrics.items()}
-    if group is not None:
-        grads = all_reduce_mean(grads, group)
-        metrics = mean_metrics(metrics, group)
-    metrics["grad_norm"] = global_norm(grads)
-    opt.update(grads, state.opt_state, params)
+    follows the gradient of the global batch's mean loss.
+
+    Spans ``train.step`` and, under it, ``step.forward`` (the objective),
+    ``step.backward`` (the gradients and their all-reduce) and
+    ``step.optimizer`` (the norm and the update)."""
+    with spans.span("train.step"):
+        params = list(state.params.parameters())
+        with spans.span("step.forward"):
+            total, metrics = assoc_mod.assoc_loss_fn(
+                state.params, list(xs), cfg,
+                seed=step_seed_of_rank(state.seed, state.step, group) if eps is None else None,
+                eps=eps, compute_dtype=tc.compute_dtype, parity_mode=tc.parity_mode,
+                use_pallas=tc.use_pallas, remat=tc.remat, data_group=group,
+            )
+            total, metrics = apply_objective_weights(total, metrics, cfg, tc, state.step)
+        with spans.span("step.backward"):
+            grads = torch.autograd.grad(total, params)
+            metrics = {k: v.detach() for k, v in metrics.items()}
+            if group is not None:
+                grads = all_reduce_mean(grads, group)
+                metrics = mean_metrics(metrics, group)
+        with spans.span("step.optimizer"):
+            metrics["grad_norm"] = global_norm(grads)
+            opt.update(grads, state.opt_state, params)
     return state._replace(step=state.step + 1), metrics
 
 
