@@ -31,3 +31,7 @@ def rng():
     # Function-scoped: every test sees the same stream regardless of
     # execution order (a shared generator makes tolerances order-dependent).
     return np.random.default_rng(42)
+
+
+def pytest_configure(config):
+    config.addinivalue_line("markers", "card: needs a CUDA card; skips on a host without one")

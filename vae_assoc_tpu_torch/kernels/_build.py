@@ -149,7 +149,7 @@ def load() -> ctypes.CDLL:
             lib.vae_mlp_stack_fwd.restype = i32
             u64 = ctypes.c_ulonglong
             lib.vae_mega_fwd.argtypes = [
-                ptr, i32, ptr, ptr, i32, ptr, u64, ptr, ptr, ptr, ptr, ptr,
+                ptr, i32, ptr, ptr, i32, ptr, ptr, u64, ptr, ptr, ptr, ptr, ptr,
                 ptr, i32, ptr, i32, i32, i32, i32, ptr,
             ]
             lib.vae_mega_dec_loss_bwd.argtypes = [
@@ -167,7 +167,7 @@ def load() -> ctypes.CDLL:
                 ptr, i32, ptr, i32, i32, i32, i32, i32, i32, ptr, ptr, ptr,
                 i32, ptr,
             ]
-            lib.vae_reparam.argtypes = [ptr, ptr, i32, i32, u64, ptr, ptr, ptr]
+            lib.vae_reparam.argtypes = [ptr, ptr, i32, i32, ptr, u64, ptr, ptr, ptr]
             lib.vae_empty.argtypes = [ptr]
             lib.vae_loss_fwd.argtypes = [ptr, i32, i32, i32, i32, ptr, ptr]
             lib.vae_loss_bwd.argtypes = [ptr, i32, i32, i32, i32, ptr, ptr]

@@ -54,7 +54,9 @@
 //
 // eps: seeded draws come from a counter-based Philox keyed by the seed and
 // indexed by (row, column), so a draw does not depend on TM (the TPU kernel
-// hashes its tile index into the seed instead); or eps is injected.
+// hashes its tile index into the seed instead); or eps is injected. The
+// seed comes by value or through a device pointer read when the kernel
+// runs (a step captured in a CUDA graph writes it before each replay).
 
 #include "common.cuh"
 #include "dense_tile.cuh"
@@ -93,8 +95,8 @@ __host__ __device__ constexpr int fwd_smem(int tm, bool bf16) {
 template <int TM, bool BF16>
 __global__ void __launch_bounds__(kThreads, TM == 64 ? 2 : 1)
     mega_fwd(const float* __restrict__ x, int batch, FwdWeights wt, FwdDims d, int bernoulli,
-             const float* __restrict__ eps_in, unsigned long long seed,
-             float* __restrict__ mu_out, float* __restrict__ lv_out,
+             const float* __restrict__ eps_in, const unsigned long long* __restrict__ seed_at,
+             unsigned long long seed, float* __restrict__ mu_out, float* __restrict__ lv_out,
              float* __restrict__ eps_out, float* __restrict__ rec_out,
              float* __restrict__ kl_out, float* ws, int ldh, float* rec_parts, int parts) {
   extern __shared__ __align__(16) float ring[];
@@ -141,7 +143,9 @@ __global__ void __launch_bounds__(kThreads, TM == 64 ? 2 : 1)
       const float l = y + __ldg(wt.p[7] + j);
       lv[at] = l;
       const size_t g = (size_t)row0 * nz + at;
-      const float e = eps_in != nullptr ? eps_in[g] : vae::philox_normal(seed, row0 + r, j);
+      const float e = eps_in != nullptr
+                          ? eps_in[g]
+                          : vae::philox_normal(seed_at != nullptr ? *seed_at : seed, row0 + r, j);
       eps_out[g] = e;
       buf0[(size_t)r * ldh + j] = mu[at] + expf(0.5f * l) * e;
     }
@@ -332,7 +336,8 @@ const void* bwd_kernel(int tm) {
 // Forward of one tower over x [batch, n_in] (fp32, the cond columns last).
 // `weights` holds the 14 device pointers in the order of FwdWeights, `dims`
 // the eight widths of FwdDims. eps_in [batch, n_z] injects eps; when it is
-// null, eps is drawn from `seed`. Outputs: mu, lv, eps_out [batch, n_z],
+// null, eps is drawn from the seed: *seed_at where seed_at (device memory)
+// is not null, else `seed`. Outputs: mu, lv, eps_out [batch, n_z],
 // rec, kl [batch]. ws: the workspace, two buffers [batch, ldh], ldh a
 // multiple of 4 and at least every hidden width and n_z + n_cond;
 // rec_parts: (parts - 1) * batch floats (null for one part). `tile_rows`
@@ -341,7 +346,7 @@ const void* bwd_kernel(int tm) {
 // without synchronising and returns the launch's CUDA error.
 extern "C" int vae_mega_fwd(const void* x, int batch, const void* const* weights,
                             const int* dims, int bernoulli, const void* eps_in,
-                            unsigned long long seed, void* mu, void* lv,
+                            const void* seed_at, unsigned long long seed, void* mu, void* lv,
                             void* eps_out, void* rec, void* kl, void* ws, int ldh,
                             void* rec_parts, int tile_rows, int smem, int parts, int bf16,
                             void* stream) {
@@ -363,6 +368,7 @@ extern "C" int vae_mega_fwd(const void* x, int batch, const void* const* weights
   if (e != cudaSuccess) return (int)e;
   const auto* xs = static_cast<const float*>(x);
   const auto* ein = static_cast<const float*>(eps_in);
+  const auto* sat = static_cast<const unsigned long long*>(seed_at);
   auto* o_mu = static_cast<float*>(mu);
   auto* o_lv = static_cast<float*>(lv);
   auto* o_eps = static_cast<float*>(eps_out);
@@ -370,7 +376,7 @@ extern "C" int vae_mega_fwd(const void* x, int batch, const void* const* weights
   auto* o_kl = static_cast<float*>(kl);
   auto* w = static_cast<float*>(ws);
   auto* rp = static_cast<float*>(rec_parts);
-  void* args[] = {&xs, &batch, &wt, &d, &bernoulli, &ein, &seed, &o_mu,
+  void* args[] = {&xs, &batch, &wt, &d, &bernoulli, &ein, &sat, &seed, &o_mu,
                   &o_lv, &o_eps, &o_rec, &o_kl, &w, &ldh, &rp, &parts};
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((batch + tile_rows - 1) / tile_rows * parts);

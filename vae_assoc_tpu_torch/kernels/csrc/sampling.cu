@@ -8,7 +8,10 @@
 // common.cuh::philox_normal(seed, row, col), the counter-based Philox
 // stream the tower megakernel (mega.cu) and the torch twin
 // (ops/sampling.py::philox_normal) draw, so for one seed the plain, mega
-// and composable paths see the same noise, whatever the launch shape.
+// and composable paths see the same noise, whatever the launch shape. The
+// seed comes by value, or through a device pointer that the kernel reads
+// when it runs, so that a step captured in a CUDA graph draws a new eps on
+// each replay from the seed the host wrote there before it.
 //
 // What bounds it on this card. Per element it reads 8 bytes and writes 8
 // (320 bytes per row at n_z = 20), about 0.1 us of memory time at batch
@@ -27,8 +30,9 @@ using vae::kThreads;
 
 __global__ void __launch_bounds__(kThreads)
     reparam(const float* __restrict__ mu, const float* __restrict__ lv,
-            int batch, int n_z, unsigned long long seed, float* __restrict__ z,
-            float* __restrict__ eps) {
+            int batch, int n_z, const unsigned long long* __restrict__ seed_at,
+            unsigned long long seed, float* __restrict__ z, float* __restrict__ eps) {
+  if (seed_at != nullptr) seed = *seed_at;
   const long long total = (long long)batch * n_z;
   for (long long i = (long long)blockIdx.x * kThreads + threadIdx.x; i < total;
        i += (long long)gridDim.x * kThreads) {
@@ -44,17 +48,19 @@ __global__ void empty_kernel() {}
 
 }  // namespace
 
-// z, eps [batch, n_z] from mu, logvar [batch, n_z] and the 64-bit seed.
+// z, eps [batch, n_z] from mu, logvar [batch, n_z] and the 64-bit seed:
+// *seed_at where seed_at (device memory) is not null, else seed.
 extern "C" int vae_reparam(const void* mu, const void* lv, int batch, int n_z,
-                           unsigned long long seed, void* z, void* eps,
-                           void* stream) {
+                           const void* seed_at, unsigned long long seed, void* z,
+                           void* eps, void* stream) {
   if (batch <= 0 || n_z <= 0) return (int)cudaErrorInvalidValue;
   const long long total = (long long)batch * n_z;
   long long blocks = (total + kThreads - 1) / kThreads;
   if (blocks > 8192) blocks = 8192;
   reparam<<<(int)blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(mu), static_cast<const float*>(lv), batch, n_z,
-      seed, static_cast<float*>(z), static_cast<float*>(eps));
+      static_cast<const unsigned long long*>(seed_at), seed, static_cast<float*>(z),
+      static_cast<float*>(eps));
   return (int)cudaGetLastError();
 }
 

@@ -50,6 +50,7 @@ import torch
 
 from vae_assoc_tpu_torch.kernels import _build, _launches
 from vae_assoc_tpu_torch.kernels import mlp as kmlp
+from vae_assoc_tpu_torch.kernels.sampling import seed_arg
 from vae_assoc_tpu_torch.models import networks
 from vae_assoc_tpu_torch.ops.sampling import philox_normal
 
@@ -58,7 +59,6 @@ LAUNCHES = _launches.TRAINING
 ``enc_bwd``, ``wgrad``) since the last ``kernels.reset_launches()``."""
 
 KINDS = ("bernoulli", "gaussian")
-_MASK64 = (1 << 64) - 1
 
 
 def flatten(params) -> list:
@@ -243,7 +243,8 @@ def _launch_fwd(flat, x, eps, seed, kind, cd):
         err = lib.vae_mega_fwd(
             x.data_ptr(), batch, _ptrs(flat), (ctypes.c_int * 8)(*dims),
             int(kind == "bernoulli"), eps.data_ptr() if eps is not None else None,
-            (seed or 0) & _MASK64, *(o.data_ptr() for o in outs), ws.data_ptr(), ldh,
+            *seed_arg(0 if seed is None else seed, dev), *(o.data_ptr() for o in outs),
+            ws.data_ptr(), ldh,
             rec_parts.data_ptr() if rec_parts is not None else None, rows, smem, parts,
             int(cd == "bfloat16"), kmlp._stream(x),
         )
@@ -373,7 +374,8 @@ def vae_tower_fused(params, x, *, kind, seed=None, eps=None,
     """Whole VAE tower and its per-sample loss terms in one forward launch.
 
     Returns dict(mu [B, n_z], lv [B, n_z], eps [B, n_z], recon_term [B],
-    kl_term [B]). ε is drawn from ``seed`` (an int) or injected as ``eps``;
+    kl_term [B]). ε is drawn from ``seed`` (an int, or a 0-dim int64 tensor
+    on the device that the kernel reads when it runs) or injected as ``eps``;
     the returned ε is exactly the draw the decoder consumed, so
     ``mu + exp(0.5·lv)·eps`` is the decoder's z. ``cond`` [B, n_cond]
     (already encoded, models/vae.prepare_cond) widens the encoder input;

@@ -94,6 +94,13 @@ def _layer_table(layers, device) -> torch.Tensor:
     return table
 
 
+def device_tables() -> list:
+    """Every weight table built so far (``_layer_table``): a CUDA graph
+    whose launches read them holds them, so that they outlive a clear of
+    the cache."""
+    return list(_tables.values())
+
+
 def _check_stack(x, hidden, heads):
     """Validate device, dtype, contiguity and the width chain of a stack."""
     n_in = x.shape[1]  # the heads chain from the last hidden width, or from x's

@@ -78,8 +78,15 @@ def split_cond(xs: Sequence, cfg: AssocConfig, cond=None):
     return list(xs), None
 
 
-def modality_seeds(seed: int, k: int) -> list:
-    """One ε seed per modality from the step's ``seed``."""
+def modality_seeds(seed, k: int) -> list:
+    """One ε seed per modality: folded from the step's ``seed``, an int; or,
+    where ``seed`` is an int64 tensor [k] of seeds folded already (the
+    step's values in device memory, train/step.py::StepScalars), its
+    entries as 0-dim tensors."""
+    if isinstance(seed, torch.Tensor):
+        if seed.shape != (k,):
+            raise ValueError(f"expected {k} modality seeds, got shape {tuple(seed.shape)}")
+        return list(seed.unbind())
     return [fold_in(seed, i) for i in range(k)]
 
 

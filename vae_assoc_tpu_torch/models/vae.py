@@ -130,8 +130,9 @@ def transform(params, x, cfg: ModalityConfig, *, compute_dtype="float32",
     return z_mean
 
 
-def draw_eps(seed: int, batch: int, cfg: ModalityConfig, device) -> torch.Tensor:
-    """The modality's ε [batch, n_z] for ``seed``: the counter-based stream
+def draw_eps(seed, batch: int, cfg: ModalityConfig, device) -> torch.Tensor:
+    """The modality's ε [batch, n_z] for ``seed`` (an int or a 0-dim int64
+    tensor, ops/sampling.philox_normal): the counter-based stream
     that the tower kernel draws in place (ops/sampling.philox_normal), so the
     plain and the kernel path see the same noise for the same seed."""
     return sampling.philox_normal(seed, batch, cfg.arch["n_z"], device)

@@ -4,7 +4,9 @@ Counterpart of vae_assoc_tpu/ops/sampling.py. ``sample_eps`` draws from a
 ``torch.Generator``; ``philox_normal`` is the counter-based stream the
 training step uses: ε at (row, column) is a pure function of a 64-bit seed
 and that position, computed with the same integers by the tower kernel
-(kernels/csrc/common.cuh::philox_normal) and here in torch. The JAX
+(kernels/csrc/common.cuh::philox_normal) and here in torch. A seed is a
+Python int, or its 64 bits held as a 0-dim int64 tensor (``seed_bits``),
+which a captured training step reads from device memory. The JAX
 package's draws (jax.random, the TPU's on-core PRNG) are other streams, so
 parity tests inject ε on both sides.
 """
@@ -45,6 +47,13 @@ def fold_in(seed: int, data: int) -> int:
     return z ^ (z >> 31)
 
 
+def seed_bits(seed: int) -> int:
+    """The 64 bits of ``seed`` as a signed int64 value, as an int64 tensor
+    holds them: a seed of 2**63 or more reads negative, with the same bits."""
+    seed &= _MASK64
+    return seed - (1 << 64) if seed >> 63 else seed
+
+
 def _mulhilo(a: int, b: torch.Tensor):
     """(hi, lo) 32-bit words of a·b for a 32-bit constant and int64 words b,
     in 16-bit halves so that no product leaves int64."""
@@ -57,15 +66,19 @@ def _mulhilo(a: int, b: torch.Tensor):
     return hi, lo
 
 
-def philox_normal(seed: int, rows: int, cols: int, device, row0: int = 0) -> torch.Tensor:
-    """ε [rows, cols] fp32 for rows row0.. of the stream keyed by ``seed``.
+def philox_normal(seed, rows: int, cols: int, device, row0: int = 0) -> torch.Tensor:
+    """ε [rows, cols] fp32 for rows row0.. of the stream keyed by ``seed``,
+    an int or a 0-dim int64 tensor of its bits (the same draw).
 
     Philox4x32-10 with key (seed low word, seed high word) and counter
     (row, column, 0, 0), then the reference's Box–Muller on the first two
     output words (vae_assoc_tpu/kernels/sampling.py::_normal_bits): 24 high
     bits each, u1 kept off zero by 1e-7."""
-    seed &= _MASK64
-    k0, k1 = seed & _MASK32, seed >> 32
+    if isinstance(seed, torch.Tensor):
+        k0, k1 = seed & _MASK32, (seed >> 32) & _MASK32
+    else:
+        seed &= _MASK64
+        k0, k1 = seed & _MASK32, seed >> 32
     r = torch.arange(row0, row0 + rows, dtype=torch.int64, device=device)
     c = torch.arange(cols, dtype=torch.int64, device=device)
     c0, c1 = torch.broadcast_tensors(r[:, None], c[None, :])

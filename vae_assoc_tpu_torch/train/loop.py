@@ -3,28 +3,42 @@
 The data is staged on the device once and every epoch's shuffle is a
 gather on the device. ``train_loop`` shuffles with the JAX package's numpy
 permutation stream (so both packages see the same batch order) and syncs
-with the host once per epoch; ``train_loop_fused`` shuffles on the device
-and syncs once at the end. CUDA-graph capture of the step is later work.
+with the host once per epoch; ``train_loop_fused`` shuffles on the device,
+syncs once at the end and, on CUDA, replays each step from one CUDA graph.
 """
 
 from __future__ import annotations
 
 import time
+import weakref
 
 import numpy as np
 import torch
 
 from vae_assoc_tpu_torch.configs import AssocConfig, TrainConfig
+from vae_assoc_tpu_torch.kernels import _launches
+from vae_assoc_tpu_torch.kernels import mlp as kmlp
 from vae_assoc_tpu_torch.models.networks import cuda_or_raise
 from vae_assoc_tpu_torch.ops.sampling import fold_in
 from vae_assoc_tpu_torch.train.step import (
+    StepScalars,
     TrainState,
     _one_step,
     init_train_state,
     make_optimizer,
     make_train_step,
+    objective_weights,
+    step_scalar_rows,
 )
 from vae_assoc_tpu_torch.utils import spans
+
+GRAPH = spans.Counters(("captures", "replays", "eager_steps"))
+"""The ``train.graph`` counters of ``train_loop_fused``: steps captured in
+a CUDA graph, replays of a captured step (the step that a capture ends in
+is its first), and steps run eagerly (the first for each key, and every
+step where the graph does not engage)."""
+
+_graphs = weakref.WeakKeyDictionary()  # a state's module -> its _StepGraph
 
 
 def _stage(data, device) -> list:
@@ -135,6 +149,83 @@ def epoch_loop(tc: TrainConfig, dev_data: list, step_fn, state: TrainState, *,
         return state, history
 
 
+class _StepGraph:
+    """One training step captured in a CUDA graph, for one key: the device,
+    the batch's shapes and dtypes, ``cfg``, ``tc`` and the addresses of the
+    weights and of the optimizer state.
+
+    The step reads static buffers: ``xs``, each modality's batch, and
+    ``slot``, its :class:`StepScalars` row. The first step for the key runs
+    eagerly on them (it warms cuBLAS, the allocator and the kernels' host
+    tables), the second is captured and then replayed as that step, and
+    every later one is a replay. ``row`` holds the captured step's metrics
+    in ``keys`` order. ``keep`` holds what the graph reads that it did not
+    allocate, so that its memory outlives the graph."""
+
+    def __init__(self, key, cfg: AssocConfig, tc: TrainConfig, dev_data, keep):
+        dev = dev_data[0].device
+        self.key, self.keep = key, keep
+        self.xs = [torch.empty((tc.batch_size,) + tuple(d.shape[1:]), dtype=d.dtype, device=dev)
+                   for d in dev_data]
+        obj = objective_weights(tc, 0) is not None
+        k = len(cfg.modalities)
+        self.slot = torch.empty(StepScalars.width(k, obj), dtype=torch.int64, device=dev)
+        self.scalars = StepScalars.of_row(self.slot, k, obj)
+        self.graph = self.row = self.keys = None
+        self.launches = []
+
+    def step(self, state: TrainState, scalar_row, cfg, tc, opt):
+        """One step on ``xs`` with the scalars ``scalar_row`` (a row of
+        ``step_scalar_rows`` on the device). Returns (state', metrics row)."""
+        if self.graph is not None:
+            with spans.span("train.step"):
+                self.slot.copy_(scalar_row)
+                with spans.span("step.replay"):
+                    self.graph.replay()
+            opt.count_update(state.opt_state)
+            for table, counts in self.launches:
+                for name, n in counts.items():
+                    table.add(name, n, shared=True)
+            GRAPH.add("replays")
+            return state._replace(step=state.step + 1), self.row
+        self.slot.copy_(scalar_row)
+        if self.keys is None:
+            state, m = _one_step(state, self.xs, cfg, tc, opt, scalars=self.scalars)
+            self.keys = list(m)
+            GRAPH.add("eager_steps")
+            return state, torch.stack([m[k] for k in self.keys])
+        tables = (_launches.SERVING, _launches.TRAINING)
+        before = [dict(t) for t in tables]
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            state, m = _one_step(state, self.xs, cfg, tc, opt, scalars=self.scalars)
+            self.row = torch.stack([m[k] for k in self.keys])
+        # A replay counts the launches the captured step counted.
+        self.launches = [(t, {n: v - b[n] for n, v in t.items() if v != b[n]})
+                         for t, b in zip(tables, before)]
+        self.keep += tuple(kmlp.device_tables())
+        self.graph = graph
+        GRAPH.add("captures")
+        graph.replay()
+        GRAPH.add("replays")
+        return state, self.row
+
+
+def _step_graph(state: TrainState, cfg: AssocConfig, tc: TrainConfig, dev_data):
+    """The state's captured step for this call's key (kept across calls,
+    weakly by the state's module), or None where the graph does not engage."""
+    if dev_data[0].device.type != "cuda" or tc.accum_steps != 1:
+        return None
+    tensors = tuple(state.params.parameters()) + tuple(
+        t for l in state.opt_state.lists() if l is not None for t in l)
+    key = (dev_data[0].device, tuple((tuple(d.shape[1:]), d.dtype) for d in dev_data),
+           cfg, tc, tuple(t.data_ptr() for t in tensors))
+    g = _graphs.get(state.params)
+    if g is None or g.key != key:
+        g = _graphs[state.params] = _StepGraph(key, cfg, tc, dev_data, tensors)
+    return g
+
+
 def train_loop_fused(cfg: AssocConfig, tc: TrainConfig, data, *, epochs: int = 10,
                      state: TrainState | None = None, shuffle: bool = True,
                      device=None):
@@ -145,14 +236,28 @@ def train_loop_fused(cfg: AssocConfig, tc: TrainConfig, data, *, epochs: int = 1
     Each epoch is shuffled on the device by ``torch.randperm`` from a
     generator seeded with (tc.seed ^ 0x5EED, start_step), so a run is
     deterministic in ``tc.seed`` and a resumed run does not replay its
-    permutations. Steps per epoch are whole ``steps_per_call`` groups.
-    Returns (state, history); ``samples_per_sec`` is the whole run's rate,
+    permutations; each step gathers its rows into the step's batch
+    buffers. Steps per epoch are whole ``steps_per_call`` groups. Returns
+    (state, history); ``samples_per_sec`` is the whole run's rate,
     repeated in every epoch's entry, and includes the first step's build
     of the kernels unless they were built before.
 
-    Spans ``train.call`` (the whole call), ``train.shuffle`` (each epoch's
-    permutation and gathers) and ``train.sync`` (the closing host copy of
-    the metric means), with the steps' ``train.step`` spans between them."""
+    On CUDA the step runs from one CUDA graph: the step's per-step values
+    (its ε seeds, Adam's scalars, the annealing weights) are computed on
+    the host for all of the call's steps, sent over in one copy, and
+    written into the graph's scalar slot before each replay. The first
+    step for a key (the device, the batch's shapes, ``cfg``, ``tc``, the
+    weights' and the optimizer state's addresses) runs eagerly, the next
+    is captured; the capture is kept across calls, weakly by
+    ``state.params``. The step runs eagerly instead, with the same bits,
+    off CUDA and with ``accum_steps > 1`` (MultiSteps' update is host
+    control flow). ``GRAPH`` counts the captures, replays and eager steps.
+
+    Spans ``train.call`` (the whole call, each step's gather of its rows
+    included), ``train.shuffle`` (each epoch's permutation) and
+    ``train.sync`` (the closing host copy of the metric means), with the
+    steps' ``train.step`` spans between them: a replayed step's holds the
+    copy of its scalars and ``step.replay``."""
     with spans.span("train.call"):
         dev = _device(state, data, device, "train_loop_fused")
         dev_data = _stage(data, dev)
@@ -167,22 +272,38 @@ def train_loop_fused(cfg: AssocConfig, tc: TrainConfig, data, *, epochs: int = 1
         opt = make_optimizer(tc)
         gen = torch.Generator(device=dev)
         gen.manual_seed(fold_in(tc.seed ^ 0x5EED, state.step) >> 1)
+        graph = _step_graph(state, cfg, tc, dev_data)
+        if graph is None:
+            xs = [torch.empty((bs,) + tuple(d.shape[1:]), dtype=d.dtype, device=dev)
+                  for d in dev_data]
+        else:
+            xs = graph.xs
+            rows = torch.from_numpy(step_scalar_rows(state, cfg, tc, epochs * steps))
+            rows = rows.pin_memory().to(dev, non_blocking=True)
 
         t0 = time.perf_counter()
-        means, keys = [], None
-        for _ in range(epochs):
+        means, keys, buf = [], None, None
+        for e in range(epochs):
             with spans.span("train.shuffle"):
                 if shuffle:
                     perm = torch.randperm(n, generator=gen, device=dev)[:used]
                 else:
                     perm = torch.arange(used, device=dev)
-                stacks = [a[perm].reshape(steps, bs, a.shape[-1]) for a in dev_data]
-            per_step = []
             for s in range(steps):
-                state, m = _one_step(state, [x[s] for x in stacks], cfg, tc, opt)
-                per_step.append(m)
-            keys = list(per_step[0])
-            means.append(torch.stack([torch.stack([m[k] for m in per_step]).mean() for k in keys]))
+                for a, x in zip(dev_data, xs):
+                    torch.index_select(a, 0, perm[s * bs:(s + 1) * bs], out=x)
+                if graph is None:
+                    state, m = _one_step(state, xs, cfg, tc, opt)
+                    GRAPH.add("eager_steps")
+                    keys = list(m)
+                    row = torch.stack([m[k] for k in keys])
+                else:
+                    state, row = graph.step(state, rows[e * steps + s], cfg, tc, opt)
+                    keys = graph.keys
+                if buf is None:
+                    buf = torch.empty((steps, len(keys)), dtype=row.dtype, device=dev)
+                buf[s].copy_(row)
+            means.append(buf.mean(0))
         with spans.span("train.sync"):
             em = torch.stack(means).cpu().numpy()
         dt = time.perf_counter() - t0

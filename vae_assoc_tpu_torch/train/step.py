@@ -2,10 +2,17 @@
 
 One step computes the joint objective, its gradients with respect to the
 weights, and the optimizer update, all enqueued on the params' device with
-no host synchronisation: the step counter, the ε seed and Adam's bias
-corrections are host integers and floats, and everything else stays on the
-device. The weights and the optimizer state are updated in place (the JAX
-package donates its buffers to the same end).
+no host synchronisation. The weights and the optimizer state are updated in
+place (the JAX package donates its buffers to the same end).
+
+The step's per-step values (each modality's ε seed, Adam's learning rate and
+bias corrections, the annealing weights) are computed on the host, in the
+same fp32 arithmetic either way, and reach the step as host integers and
+floats, or as device tensors (:class:`StepScalars`, rows from
+:func:`step_scalar_rows`): then the step reads nothing from the host, and
+``train_loop_fused`` captures it in a CUDA graph and replays it. The
+counters (``TrainState.step``, Adam's ``count``, ``ema_count``) stay host
+integers either way.
 
 ``make_optimizer`` is the one optimizer source and follows optax's chain of
 vae_assoc_tpu/train/step.py::make_optimizer operation for operation —
@@ -26,7 +33,7 @@ import torch.distributed as dist
 from vae_assoc_tpu_torch.configs import AssocConfig, TrainConfig
 from vae_assoc_tpu_torch.models import assoc as assoc_mod
 from vae_assoc_tpu_torch.models.networks import cuda_or_raise
-from vae_assoc_tpu_torch.ops.sampling import fold_in
+from vae_assoc_tpu_torch.ops.sampling import fold_in, seed_bits
 from vae_assoc_tpu_torch.utils import spans
 
 
@@ -101,6 +108,18 @@ def lr_at(tc: TrainConfig, count: int) -> np.float32:
     return main(count - w)
 
 
+def adam_scalars(tc: TrainConfig, count: int) -> tuple:
+    """(−lr, 1/bc1, 1/bc2) in fp32 of the update that follows ``count``
+    updates: the learning rate ``lr_at(tc, count)`` and the reciprocals of
+    Adam's bias corrections bc = 1 − b^(count + 1). The update multiplies
+    by the reciprocals, which is what CUDA's division by a host scalar
+    does; by a device scalar it would divide."""
+    f32 = np.float32
+    n = f32(count + 1)
+    return (-lr_at(tc, count), f32(1) / (f32(1) - f32(tc.adam_b1) ** n),
+            f32(1) / (f32(1) - f32(tc.adam_b2) ** n))
+
+
 def global_norm(tensors) -> torch.Tensor:
     """sqrt(Σ ‖t‖²) over a list of tensors, on their device."""
     return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(list(tensors))))
@@ -142,15 +161,21 @@ class Optimizer:
         )
 
     @torch.no_grad()
-    def update(self, grads, state: OptState, params, *, lr_scale=None) -> None:
+    def update(self, grads, state: OptState, params, *, lr_scale=None,
+               scalars=None) -> None:
         """``lr_scale``: an [E] tensor scaling each model's update of a sweep
         state, the JAX package's per-model learning rate (``_one_step``'s
-        ``lr_scale``), with the optimizer built at learning_rate 1."""
+        ``lr_scale``), with the optimizer built at learning_rate 1.
+        ``scalars``: this update's (−lr, 1/bc1, 1/bc2), ``adam_scalars`` of
+        ``state.adam.count``, as an fp32 tensor [3] on the device, which the
+        update then reads in place of host floats (accum_steps 1 only)."""
         grads, params = list(grads), list(params)
         k = self.tc.accum_steps
         if k == 1:
-            self._inner(grads, state, params, lr_scale)
+            self._inner(grads, state, params, lr_scale, scalars)
             return
+        if scalars is not None:
+            raise ValueError("device step scalars need accum_steps == 1")
         # MultiSteps: a running mean of k micro-batch grads (Welford), one
         # inner update when the k-th arrives; the weights hold still between.
         diff = torch._foreach_sub(grads, state.acc)
@@ -161,7 +186,15 @@ class Optimizer:
             torch._foreach_zero_(state.acc)
         state.mini_step = (state.mini_step + 1) % k
 
-    def _inner(self, grads, state: OptState, params, lr_scale=None) -> None:
+    def count_update(self, state: OptState) -> None:
+        """The host side of one inner update: Adam's ``count`` and, with an
+        EMA, ``ema_count`` advance by one. ``_inner`` calls it; so does a
+        replay of a captured update, whose device work the graph does."""
+        state.adam.count += 1
+        if state.ema is not None:
+            state.ema_count += 1
+
+    def _inner(self, grads, state: OptState, params, lr_scale=None, scalars=None) -> None:
         tc = self.tc
         if tc.grad_clip_norm > 0:
             norm, clip = self.norm_fn(grads), tc.grad_clip_norm
@@ -183,17 +216,18 @@ class Optimizer:
         torch._foreach_mul_(t, 1 - b2)
         torch._foreach_mul_(a.nu, b2)
         torch._foreach_add_(a.nu, t)
-        lr = lr_at(tc, a.count)
-        a.count += 1
-        bc1 = np.float32(1) - np.float32(b1) ** np.float32(a.count)
-        bc2 = np.float32(1) - np.float32(b2) ** np.float32(a.count)
+        if scalars is None:
+            neg_lr, inv_bc1, inv_bc2 = (float(v) for v in adam_scalars(tc, a.count))
+        else:
+            neg_lr, inv_bc1, inv_bc2 = scalars.unbind()
+        self.count_update(state)
         # u = -lr · m̂ / (√v̂ + eps), m̂ = mu / bc1, v̂ = nu / bc2
-        den = torch._foreach_div(a.nu, float(bc2))
+        den = torch._foreach_mul(a.nu, inv_bc2)
         torch._foreach_sqrt_(den)
         torch._foreach_add_(den, tc.adam_eps)
-        upd = torch._foreach_div(a.mu, float(bc1))
+        upd = torch._foreach_mul(a.mu, inv_bc1)
         torch._foreach_div_(upd, den)
-        torch._foreach_mul_(upd, float(-lr))
+        torch._foreach_mul_(upd, neg_lr)
         if lr_scale is not None:
             for u in upd:
                 u.mul_(lr_scale.view((-1,) + (1,) * (u.dim() - 1)))
@@ -203,7 +237,6 @@ class Optimizer:
             torch._foreach_mul_(state.ema, tc.ema_decay)
             torch._foreach_mul_(new_p, 1.0 - tc.ema_decay)
             torch._foreach_add_(state.ema, new_p)
-            state.ema_count += 1
         torch._foreach_add_(params, upd)
 
 
@@ -250,11 +283,14 @@ def init_train_state(cfg: AssocConfig, tc: TrainConfig, *, device="cuda",
 
 def _total_with_lambda(metrics: dict, cfg: AssocConfig, lam, kl_w):
     """Σ_k (recon_k + kl_w·kl_k) + lam·assoc from the logged terms; the
-    gradient is exact, as the total is linear in them. ``lam`` is a number,
-    or a tensor (a sweep member's own λ under ``vmap``)."""
+    gradient is exact, as the total is linear in them. ``lam`` and ``kl_w``
+    are numbers, or tensors (a sweep member's own λ under ``vmap``; a
+    step's weights in device memory)."""
     total = torch.zeros((), dtype=torch.float32, device=metrics["assoc"].device)
+    if not isinstance(kl_w, torch.Tensor):
+        kl_w = float(kl_w)
     for m in cfg.modalities:
-        total = total + metrics[f"recon_{m.name}"] + float(kl_w) * metrics[f"kl_{m.name}"]
+        total = total + metrics[f"recon_{m.name}"] + kl_w * metrics[f"kl_{m.name}"]
     if not isinstance(lam, torch.Tensor):
         lam = float(np.float32(lam))
     return total + lam * metrics["assoc"]
@@ -287,28 +323,87 @@ def objective_weights(tc: TrainConfig, step: int):
     return kl_w, scale
 
 
+def objective_scalars(cfg: AssocConfig, tc: TrainConfig, step: int):
+    """(kl_weight, λ·assoc_scale, assoc_scale) in fp32 at micro-step
+    ``step``, the weights ``apply_objective_weights`` puts in the objective,
+    or None where ``objective_weights`` is None."""
+    w = objective_weights(tc, step)
+    if w is None:
+        return None
+    kl_w, scale = w
+    return kl_w, scale * np.float32(cfg.assoc_lambda), scale
+
+
 def apply_objective_weights(total, metrics, cfg: AssocConfig, tc: TrainConfig,
-                            step: int, assoc_lambda=None):
+                            step: int, assoc_lambda=None, weights=None):
     """Rebuild (total, metrics) with the β-VAE and annealing knobs' runtime
     weights and ``assoc_lambda``, a per-model λ in place of the config's
-    (an [E] entry of a sweep, a tensor under ``vmap``). Returns the inputs
-    untouched when none is active."""
-    w = objective_weights(tc, step)
+    (an [E] entry of a sweep, a tensor under ``vmap``). ``weights``: the
+    step's ``objective_scalars`` as an fp32 tensor [3] on the device, read
+    in place of host floats. Returns the inputs untouched when none is
+    active."""
+    w = objective_scalars(cfg, tc, step)
     if w is None and assoc_lambda is None:
         return total, metrics
     if w is None:
         total = _total_with_lambda(metrics, cfg, assoc_lambda, np.float32(1))
         return total, {**metrics, "total": total}
-    kl_w, scale = w
-    if assoc_lambda is None:
-        lam = scale * np.float32(cfg.assoc_lambda)
+    if weights is not None:
+        if assoc_lambda is not None:
+            raise ValueError("device objective weights take the config's assoc_lambda")
+        kl_w, lam, scale = weights.unbind()
     else:
-        lam = assoc_lambda * float(scale)
+        kl_w, lam, scale = w
+        if assoc_lambda is not None:
+            lam = assoc_lambda * float(scale)
+        kl_w, scale = (torch.tensor(float(v), device=total.device) for v in (kl_w, scale))
     total = _total_with_lambda(metrics, cfg, lam, kl_w)
-    dev = total.device
-    return total, {**metrics, "total": total,
-                   "kl_beta_eff": torch.tensor(float(kl_w), device=dev),
-                   "assoc_scale_eff": torch.tensor(float(scale), device=dev)}
+    return total, {**metrics, "total": total, "kl_beta_eff": kl_w, "assoc_scale_eff": scale}
+
+
+class StepScalars(NamedTuple):
+    """A step's per-step values in device memory, views of one int64 row of
+    :func:`step_scalar_rows`: ``seeds`` [k] int64, each modality's ε seed
+    (its 64 bits, ``ops.sampling.seed_bits``); ``adam`` [3] fp32,
+    ``adam_scalars``; ``objective`` [3] fp32, ``objective_scalars``, or None
+    where the config anneals nothing."""
+
+    seeds: torch.Tensor
+    adam: torch.Tensor
+    objective: torch.Tensor | None
+
+    @staticmethod
+    def width(k: int, objective: bool) -> int:
+        """Words of a row: k seeds, then 4 or 6 fp32 values two to a word."""
+        return k + (3 if objective else 2)
+
+    @classmethod
+    def of_row(cls, row: torch.Tensor, k: int, objective: bool) -> "StepScalars":
+        f = row[k:].view(torch.float32)
+        return cls(row[:k], f[:3], f[3:6] if objective else None)
+
+
+def step_scalar_rows(state: TrainState, cfg: AssocConfig, tc: TrainConfig,
+                     steps: int) -> np.ndarray:
+    """[steps, width] int64 rows of :class:`StepScalars` (``of_row(row, k,
+    objective_weights(tc, 0) is not None)``): row s holds those of
+    micro-step ``state.step + s``, whose update follows
+    ``state.opt_state.adam.count + s`` updates (accum_steps 1), computed as
+    the step computes them from host values; the fp32 values sit as their
+    bits, two to a word."""
+    k = len(cfg.modalities)
+    obj = objective_weights(tc, state.step) is not None
+    rows = np.empty((steps, StepScalars.width(k, obj)), np.int64)
+    floats = np.zeros((steps, 2 * (rows.shape[1] - k)), np.float32)
+    for s in range(steps):
+        step = state.step + s
+        seeds = assoc_mod.modality_seeds(step_seed(state.seed, step), k)
+        rows[s, :k] = [seed_bits(x) for x in seeds]
+        floats[s, :3] = adam_scalars(tc, state.opt_state.adam.count + s)
+        if obj:
+            floats[s, 3:] = objective_scalars(cfg, tc, step)
+    rows[:, k:] = floats.view(np.int64)
+    return rows
 
 
 def step_seed(seed: int, step: int) -> int:
@@ -345,10 +440,15 @@ def mean_metrics(metrics: dict, group) -> dict:
 
 
 def _one_step(state: TrainState, xs, cfg: AssocConfig, tc: TrainConfig,
-              opt: Optimizer, *, eps=None, group=None):
+              opt: Optimizer, *, eps=None, group=None, scalars: StepScalars | None = None):
     """One optimizer micro-step on the batch list ``xs``. ε comes from the
     state's stream unless ``eps`` (one tensor per modality) is given.
     Returns (state', metrics) with the metrics as device scalars.
+
+    ``scalars``: the step's values in device memory (its ε seeds, Adam's
+    scalars, the annealing weights), read in place of the host's, so the
+    step reads nothing from the host (with no ``eps``, no ``group`` and
+    accum_steps 1): what ``train_loop_fused`` captures.
 
     ``group``: the data-parallel process group when ``xs`` are this rank's
     rows of a global batch (the JAX package's ``axis_name``). The rank
@@ -360,16 +460,23 @@ def _one_step(state: TrainState, xs, cfg: AssocConfig, tc: TrainConfig,
     Spans ``train.step`` and, under it, ``step.forward`` (the objective),
     ``step.backward`` (the gradients and their all-reduce) and
     ``step.optimizer`` (the norm and the update)."""
+    if scalars is not None and (eps is not None or group is not None):
+        raise ValueError("device step scalars take neither eps nor a group")
     with spans.span("train.step"):
         params = list(state.params.parameters())
         with spans.span("step.forward"):
+            if scalars is not None:
+                seed = scalars.seeds
+            else:
+                seed = step_seed_of_rank(state.seed, state.step, group) if eps is None else None
             total, metrics = assoc_mod.assoc_loss_fn(
-                state.params, list(xs), cfg,
-                seed=step_seed_of_rank(state.seed, state.step, group) if eps is None else None,
+                state.params, list(xs), cfg, seed=seed,
                 eps=eps, compute_dtype=tc.compute_dtype, parity_mode=tc.parity_mode,
                 use_pallas=tc.use_pallas, remat=tc.remat, data_group=group,
             )
-            total, metrics = apply_objective_weights(total, metrics, cfg, tc, state.step)
+            total, metrics = apply_objective_weights(
+                total, metrics, cfg, tc, state.step,
+                weights=None if scalars is None else scalars.objective)
         with spans.span("step.backward"):
             grads = torch.autograd.grad(total, params)
             metrics = {k: v.detach() for k, v in metrics.items()}
@@ -378,7 +485,8 @@ def _one_step(state: TrainState, xs, cfg: AssocConfig, tc: TrainConfig,
                 metrics = mean_metrics(metrics, group)
         with spans.span("step.optimizer"):
             metrics["grad_norm"] = global_norm(grads)
-            opt.update(grads, state.opt_state, params)
+            opt.update(grads, state.opt_state, params,
+                       scalars=None if scalars is None else scalars.adam)
     return state._replace(step=state.step + 1), metrics
 
 
