@@ -8,18 +8,20 @@ compares it with the reference, as a run does; these are the lower
 readings. For each of ``--control-seeds`` it puts the reference in the
 program's place, computed in the precision just below the cell's
 (``CONTROL``), and, for a training cell, the reference with half of each
-batch left out of its means; these give the upper readings. A training
-state left unchanged reads 1 on ``grad1`` and ``change3`` by their
-definition and needs no run. A serving cell runs its traffic for
+batch left out of its means, and for a data-parallel cell rank 0 left to
+its own gradient (the all-reduce left out); these give the upper
+readings. A data-parallel cell starts its ranks once for all the seeds.
+A training state left unchanged reads 1 on ``grad1`` and ``change3`` by
+their definition and needs no run. A serving cell runs its traffic for
 ``--seconds`` at the cell's rate for each seed. Prints one JSON object.
 
 The look behind a training cell's limits: for each seed, the program's
 numbers against the fp32 reference too, where the worst leaf's change gap
 comes from there (``compare.element_look``), and the cell's reference (its
 products in the cell's precision) against the fp32 one: a witness of what
-that precision alone gives. ``--train key=value`` sets a field of the
-cell's ``train`` mix on the program's side: ``use_pallas=false`` runs the
-program's plain path, another witness.
+that precision alone gives. ``--train key=value`` sets a field of a
+one-card training cell's ``train`` mix on the program's side:
+``use_pallas=false`` runs the program's plain path, another witness.
 """
 
 from __future__ import annotations
@@ -41,7 +43,7 @@ if str(ROOT) not in sys.path:
     sys.path.insert(0, str(ROOT))
 
 from portbench import compare, run  # noqa: E402
-from portbench.traffic import serve_http, train  # noqa: E402
+from portbench.traffic import serve_http, train, train_dp  # noqa: E402
 
 CONTROL = {"float32": "tf32", "bfloat16": "fp8"}  # the nearest precision below
 
@@ -55,7 +57,8 @@ def context(workload: str, seed: int, seconds: float = 3.0, device: str = "cuda"
     return run.Context(model=c["config"]["model"],
                        conv_channels=tuple(c["config"].get("assumed", {}).get("conv_channels", (32, 64))),
                        mix=mix, limits=c["limits"], seed=int(seed), seconds=float(seconds),
-                       trace=False, device=device, t_start=T_START)
+                       trace=False, device=device, t_start=T_START,
+                       chips=int(c["cell"]["chips"]))
 
 
 def _free():
@@ -134,22 +137,32 @@ def main(argv=None) -> int:
     from vae_assoc_tpu_torch.utils.compile_cache import enable_compile_cache
 
     enable_compile_cache(run._cache_env(ROOT) / "build")
-    out = {"workload": args.workload, "card": torch.cuda.get_device_name(), "train": overrides,
-           "program": {}, "control": {}, "half_batch": {}, "look": {}}
-    for seed in args.seeds:
-        r = readings(args.workload, seed, False, args.seconds, train_overrides=overrides)
-        out["program"][seed] = r["program"]
-        out["look"][seed] = r.get("look")
-        print(f"program {seed} {r}", file=sys.stderr, flush=True)
-    for seed in args.control_seeds:
-        r = readings(args.workload, seed, True, args.seconds)
-        out["control"][seed] = r["control"]
-        if "half_batch" in r:
-            out["half_batch"][seed] = r["half_batch"]
-            out["look"][f"control {seed}"] = r["look"]
-        print(f"control {seed} {r}", file=sys.stderr, flush=True)
+    out = {"workload": args.workload, "train": overrides,
+           "program": {}, "control": {}, "half_batch": {}, "no_allreduce": {}, "look": {}}
+    ctx = context(args.workload, (args.seeds + args.control_seeds)[0], args.seconds)
+    if ctx.mix["kind"] == "train_dp":
+        if overrides:
+            print("calibrate: --train sets the program's side of a one-card training cell only",
+                  file=sys.stderr)
+            return 2
+        out.update(train_dp.calibrate(ctx, args.seeds, args.control_seeds,
+                                      CONTROL[ctx.mix["train"]["compute_dtype"]]))
+    else:
+        out["card"] = torch.cuda.get_device_name()
+        for seed in args.seeds:
+            r = readings(args.workload, seed, False, args.seconds, train_overrides=overrides)
+            out["program"][seed] = r["program"]
+            out["look"][seed] = r.get("look")
+            print(f"program {seed} {r}", file=sys.stderr, flush=True)
+        for seed in args.control_seeds:
+            r = readings(args.workload, seed, True, args.seconds)
+            out["control"][seed] = r["control"]
+            if "half_batch" in r:
+                out["half_batch"][seed] = r["half_batch"]
+                out["look"][f"control {seed}"] = r["look"]
+            print(f"control {seed} {r}", file=sys.stderr, flush=True)
     summary = {}
-    for key in ("program", "control", "half_batch"):
+    for key in ("program", "control", "half_batch", "no_allreduce"):
         rows = list(out[key].values())
         if rows:
             agg = max if key == "program" else min

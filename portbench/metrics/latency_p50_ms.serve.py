@@ -1,6 +1,7 @@
 """Median latency of the requests due in the window, from when each was due
 to the last byte of its answer; a request that failed counts as never
-answered."""
+answered. Per-layer: on a shared host its runs spread by more than any
+bound holds, so ``serve_within_100ms`` is the cell's end-to-end metric."""
 
 from portbench.traffic.loadgen import percentile
 

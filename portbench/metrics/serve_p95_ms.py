@@ -1,4 +1,4 @@
-"""95th percentile of the latencies ``serve_p50_ms`` takes the median of."""
+"""95th percentile of the latencies ``latency_p50_ms.serve`` takes the median of."""
 
 from portbench.traffic.loadgen import percentile
 

@@ -342,11 +342,10 @@ def cross_generate(p, model: dict, x, src: int, dst: int, precision="fp32"):
 # -- training -------------------------------------------------------------------
 
 
-def train_steps(params: dict, model: dict, opt: dict, batches: list, seed: int,
-                precision="fp32", half_batch=False):
-    """Adam (b1, b2, eps, lr from ``opt``, no clipping) over ``batches``,
-    one list of per-modality rows per step, in the order the program takes
-    them; ε drawn at steps 0, 1, ... of the stream ``seed``.
+def adam_steps(params: dict, opt: dict, objective, n_steps: int):
+    """Adam (b1, b2, eps, lr from ``opt``, no clipping) over ``n_steps``
+    steps, step k descending ``objective(p, k)``, a scalar loss of the
+    weights ``p`` (a dict of leaves that require grad).
 
     Returns (losses, first gradient, change after the last step), the
     latter two dicts by parameter name."""
@@ -356,13 +355,9 @@ def train_steps(params: dict, model: dict, opt: dict, batches: list, seed: int,
     nu = {n: torch.zeros_like(p[n]) for n in names}
     b1, b2, eps_adam, lr = opt["adam_b1"], opt["adam_b2"], opt["adam_eps"], opt["learning_rate"]
     losses, grad1 = [], None
-    n_z = int(model["modalities"][0]["arch"]["n_z"])
     with exact_fp32():
-        for step, xs in enumerate(batches):
-            b = xs[0].shape[0]
-            eps = step_eps(seed, step, b, n_z, len(xs), xs[0].device)
-            rows = slice(0, b // 2) if half_batch else None
-            total = loss(p, model, xs, eps, precision, rows=rows)
+        for step in range(n_steps):
+            total = objective(p, step)
             grads = torch.autograd.grad(total, [p[n] for n in names])
             losses.append(float(total.detach()))
             if grad1 is None:
@@ -376,3 +371,24 @@ def train_steps(params: dict, model: dict, opt: dict, batches: list, seed: int,
                     p[n].sub_(lr * (mu[n] / bc1) / ((nu[n] / bc2).sqrt() + eps_adam))
     change = {n: (p[n].detach() - params[n]) for n in names}
     return losses, grad1, change
+
+
+def train_steps(params: dict, model: dict, opt: dict, batches: list, seed: int,
+                precision="fp32", half_batch=False, eps_of=None):
+    """``adam_steps`` over ``batches``, one list of per-modality rows per
+    step, in the order the program takes them; ε drawn at steps 0, 1, ...
+    of the stream ``seed``, or ``eps_of(step, rows)`` where given.
+
+    Returns (losses, first gradient, change after the last step), the
+    latter two dicts by parameter name."""
+    n_z = int(model["modalities"][0]["arch"]["n_z"])
+
+    def objective(p, step):
+        xs = batches[step]
+        b = xs[0].shape[0]
+        eps = (eps_of(step, b) if eps_of is not None
+               else step_eps(seed, step, b, n_z, len(xs), xs[0].device))
+        rows = slice(0, b // 2) if half_batch else None
+        return loss(p, model, xs, eps, precision, rows=rows)
+
+    return adam_steps(params, opt, objective, len(batches))

@@ -15,9 +15,10 @@ weights from the seed, checks three steps or a sample of answers against
 the plain reference, warms up), measures for ``--seconds``, and prints
 ``{"correct", "attempted", "failed", "metrics", "device", "check"}``: the
 cell's end-to-end metrics with ``--trace 0``, its per-layer metrics and a
-``breakdown`` with ``--trace 1``. Without as many CUDA cards as the cell
-asks for it prints no result and exits 2; if JAX or the JAX package was
-loaded it exits 3.
+``breakdown`` with ``--trace 1``; ``device.count`` is the cell's ``chips``.
+Without as many CUDA cards as the cell asks for it prints no result and
+exits 2; if JAX or the JAX package was loaded, in this process or in a
+rank that the driver started, it exits 3.
 """
 
 from __future__ import annotations
@@ -56,6 +57,7 @@ class Context:
     trace: bool
     device: str
     t_start: float
+    chips: int = 1  # the cell's cards: a driver starts one rank a card
 
 
 def _json(path: Path) -> dict:
@@ -99,16 +101,26 @@ def loaded_forbidden() -> list:
     return sorted({m for m in sys.modules if m.split(".")[0] in FORBIDDEN})
 
 
+class Forbidden(RuntimeError):
+    """A process that a driver started loaded JAX or the JAX package;
+    ``args[0]``: the modules."""
+
+
 def run_cell(root: Path, workload: str, seed: int, seconds: float, trace: bool,
              device: str = "cuda", t_start: float = T_START) -> dict:
-    """Set up, measure and check one run; returns the result object."""
+    """Set up, measure and check one run; returns the result object.
+    Raises ``Forbidden`` where the driver's ranks loaded JAX
+    (``obs["forbidden"]``)."""
     c = load_cell(root, workload)
     ctx = Context(model=c["config"]["model"],
                   conv_channels=tuple(c["config"].get("assumed", {}).get("conv_channels", (32, 64))),
                   mix=c["mix"], limits=c["limits"], seed=int(seed), seconds=float(seconds),
-                  trace=bool(trace), device=device, t_start=t_start)
+                  trace=bool(trace), device=device, t_start=t_start,
+                  chips=int(c["cell"]["chips"]))
     driver = importlib.import_module(f"portbench.traffic.{c['mix']['kind']}")
     obs = driver.run(ctx)
+    if obs.get("forbidden"):
+        raise Forbidden(list(obs["forbidden"]))
     metrics = {}
     for m in c["per_layer"] if trace else c["end_to_end"]:
         value = read_metric(root, m["name"], obs)
@@ -117,7 +129,7 @@ def run_cell(root: Path, workload: str, seed: int, seconds: float, trace: bool,
     from portbench import compare
 
     dev = {"platform": "gpu" if device == "cuda" else device,
-           "kind": obs.get("device_name", device), "count": 1,
+           "kind": obs.get("device_name", device), "count": ctx.chips,
            "memory_peak_bytes": int(obs.get("memory_peak_bytes", 0))}
     out = {"correct": bool(obs["complete"]) and compare.verdict(obs["readings"], ctx.limits),
            "attempted": int(obs["attempted"]), "failed": int(obs["failed"]),
@@ -160,8 +172,11 @@ def main(argv=None) -> int:
     from vae_assoc_tpu_torch.utils.compile_cache import enable_compile_cache
 
     enable_compile_cache(cache / "build")
-    out = run_cell(ROOT, args.workload, args.seed, args.seconds, bool(args.trace))
-    bad = loaded_forbidden()
+    try:
+        out = run_cell(ROOT, args.workload, args.seed, args.seconds, bool(args.trace))
+        bad = loaded_forbidden()
+    except Forbidden as e:
+        bad = e.args[0]
     if bad:
         print(f"portbench: the run loaded {bad}", file=sys.stderr)
         return 3

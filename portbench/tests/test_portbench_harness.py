@@ -31,12 +31,14 @@ def test_benchmark_names_its_files():
     for c in b["configs"]:
         assert NAME.match(c["name"]) and (tiny.REPO / c["file"]).is_file()
     for w in b["workloads"]:
-        assert NAME.match(w["name"]) and w["chips"] == 1
+        assert NAME.match(w["name"]) and w["chips"] in (1, 4)
         assert (pb / "mixes" / f"{w['traffic']}.json").is_file()
         assert json.loads((pb / "cells" / f"{w['name']}.json").read_text())["limits"]
     for m in b["end_to_end"] + b["per_layer"]:
         assert NAME.match(m["name"]) and UNIT.match(m["unit"])
         assert (pb / "metrics" / f"{m['name']}.py").is_file()
+    four = [w["name"] for w in b["workloads"] if w["chips"] == 4]
+    assert len(four) <= max(1, len(b["workloads"]) // 4), four
     for w in b["workloads"]:
         c = run.load_cell(tiny.REPO, w["name"])
         assert any(m["name"] == "setup_s" for m in c["end_to_end"]) and len(c["end_to_end"]) >= 2
@@ -72,6 +74,7 @@ def test_new_cell_config_and_metric_are_new_files(tmp_path):
     assert set(out["metrics"]) == {"small_batch_samples_per_s", "setup_s"}
     assert all(v["value"] > 0 for v in out["metrics"].values())
     assert set(out["device"]) == {"platform", "kind", "count", "memory_peak_bytes"}
+    assert out["device"]["count"] == 1
     assert set(out["check"]) == {"loss", "grad1", "change3"}
 
     traced = run.run_cell(root, cell, SEED + 1, 0.3, True, device="cpu")
@@ -95,10 +98,14 @@ def test_tiny_serving_cell_runs(tmp_path):
     cell = tiny.add_tiny_cell(root, "serve", like="c3-serve-http-poisson", rate=100)
     out = run.run_cell(root, cell, SEED, 1.0, False, device="cpu")
     assert out["correct"] is True and out["failed"] == 0 and out["attempted"] == 100
-    assert set(out["metrics"]) == {"serve_p50_ms", "setup_s"}
+    assert out["device"]["count"] == 1
+    assert set(out["metrics"]) == {"serve_within_100ms", "setup_s"}
+    assert 0 < out["metrics"]["serve_within_100ms"]["value"] <= 100
     traced = run.run_cell(root, cell, SEED + 1, 1.0, True, device="cpu")
-    assert set(traced["metrics"]) >= {"serve_p95_ms", "rows_per_dispatch.serve", "dispatch_ms.serve"}
-    assert traced["metrics"]["serve_p95_ms"]["value"] > 0
+    assert set(traced["metrics"]) >= {"latency_p50_ms.serve", "serve_p95_ms",
+                                      "rows_per_dispatch.serve", "dispatch_ms.serve"}
+    p50, p95 = (traced["metrics"][k]["value"] for k in ("latency_p50_ms.serve", "serve_p95_ms"))
+    assert 0 < p50 <= p95
 
 
 def test_without_a_card_no_result():
@@ -108,3 +115,10 @@ def test_without_a_card_no_result():
                        cwd=tiny.REPO, env=env, capture_output=True, text=True, timeout=300)
     assert p.returncode != 0 and p.stdout == ""
     assert "CUDA card" in p.stderr
+
+
+def test_serving_readers_count_a_failed_request_as_late():
+    lat = [0.004, 0.1, 0.1001, None]
+    assert run.read_metric(tiny.REPO, "serve_within_100ms", {"latencies_s": lat}) == 50.0
+    assert run.read_metric(tiny.REPO, "latency_p50_ms.serve", {"latencies_s": lat}) == 100.0
+    assert run.read_metric(tiny.REPO, "serve_within_100ms", {"latencies_s": []}) is None

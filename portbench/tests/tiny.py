@@ -30,12 +30,15 @@ def _write(path: Path, obj) -> None:
 
 
 def add_tiny_cell(root: Path, cell: str, *, like: str, pairs: int = 64, batch: int = 16,
-                  limits=None, rate=None, extra_per_layer=()) -> str:
+                  limits=None, rate=None, extra_per_layer=(), chips: int = 1,
+                  kind=None) -> str:
     """Add ``tiny-<cell>``: the configuration and the traffic of the cell
     ``like`` with every hidden width cut to ``TINY_WIDTH``, ``pairs`` rows
-    and ``batch``-row batches (or ``rate`` requests a second), and the
-    limits of ``like`` unless ``limits`` are given. Only new files and new
-    entries of BENCHMARK.json. Returns the new cell's name."""
+    and ``batch``-row (global) batches (or ``rate`` requests a second),
+    ``chips`` ranks, the mix's driver ``kind`` where given (``train_dp``
+    for a training cell run data-parallel), and the limits of ``like``
+    unless ``limits`` are given. Only new files and new entries of
+    BENCHMARK.json. Returns the new cell's name."""
     bench = json.loads((root / "BENCHMARK.json").read_text())
     src = next(w for w in bench["workloads"] if w["name"] == like)
     pb = root / "portbench"
@@ -52,12 +55,13 @@ def add_tiny_cell(root: Path, cell: str, *, like: str, pairs: int = 64, batch: i
         mix["pairs"], mix["train"]["batch_size"] = pairs, batch
     elif rate is not None:
         mix["rate_per_s"] = rate
+    mix["kind"] = kind or mix["kind"]
     _write(pb / "mixes" / f"{name}.json", mix)
     own = json.loads((pb / "cells" / f"{like}.json").read_text())["limits"]
     _write(pb / "cells" / f"{name}.json", {"limits": limits or own})
     bench["configs"].append({"name": name, "source": "a test's cut of " + src["config"],
                              "file": f"portbench/configs/{name}.json", "reduced": [], "why": "test"})
-    bench["workloads"].append({"name": name, "config": name, "traffic": name, "chips": 1,
+    bench["workloads"].append({"name": name, "config": name, "traffic": name, "chips": chips,
                                "why": "test"})
     for m in bench["end_to_end"] + bench["per_layer"]:
         if like in m.get("workloads", ()):

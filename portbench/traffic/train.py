@@ -57,16 +57,22 @@ def build(ctx):
     return cfg, tc, data, w0, init_train_state(cfg, tc, device=dev, params=model)
 
 
-def program_steps(cfg, tc, state, blocks):
+def program_steps(cfg, tc, state, blocks, call=None):
     """Drive ``state`` through one one-step epoch per block of rows, by the
-    window's call. Returns (state, (losses, first gradient, change))."""
-    from vae_assoc_tpu_torch.train import train_loop_fused
+    window's call: ``call(state, rows) -> (state, history)``, by default
+    ``train_loop_fused(cfg, tc, rows, epochs=1, state=state)``. Returns
+    (state, (losses, first gradient, change))."""
+    if call is None:
+        from vae_assoc_tpu_torch.train import train_loop_fused
+
+        def call(state, xs):
+            return train_loop_fused(cfg, tc, xs, epochs=1, state=state)
 
     params = dict(state.params.named_parameters())
     w0 = {n: p.detach().clone() for n, p in params.items()}
     losses, grad1 = [], None
     for xs in blocks:
-        state, hist = train_loop_fused(cfg, tc, xs, epochs=1, state=state)
+        state, hist = call(state, xs)
         losses.append(hist[0]["total"])
         if grad1 is None:
             grad1 = {n: m.detach().clone() / (1.0 - tc.adam_b1)
