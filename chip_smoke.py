@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch port (vae_assoc_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --only sketch    # phases 1, 2 and 15 alone
 
 Phases, each of which raises on failure (nothing is caught):
 
@@ -251,6 +252,23 @@ Phases, each of which raises on failure (nothing is caught):
    CLI's steps/s beside train_loop_fused's and the phase's wall seconds.
    No CLI flag selects the conv kernels (encoder="conv_pallas"), so the
    CLI launches none of them.
+15. The sketch tower's kernels at the shapes of the cell
+   sk-train-rnn-bf16-b100 (Sketch-RNN's get_default_hparams, batch 100,
+   N_max 250): lstm_fwd and lstm_bwd over every step of the encoder's two
+   directions (256 units each, lengths uniform on 64..250) and of the
+   decoder (512 units, with its per-row addend z·W + b), fp32 and bf16,
+   against their plain twins run step by step on the same card from the
+   same inputs: the states, the gate pre-activations, the gate gradients
+   and the initial state's gradients, each within TOL of its largest value
+   (rtol = atol = 1e-4 fp32, 2e-2 bf16). The twin with W_h's input and
+   forget gates swapped (a kernel that read the gates in the wrong order)
+   must miss that tolerance. mixture_loss against its twin on 25,000 × 123
+   head rows (the loss at rtol = atol = 1e-5, the gradient at rtol 1e-4,
+   atol 1e-5); the twin with μx and μy swapped must miss it. Each of the
+   three timed against its twin, beside its bound. Then the cell's model
+   trained through train_loop_fused (composable kernels, bf16) for 4 steps
+   at batch 100: the launch counts, reset just before, are 500 lstm_fwd,
+   501 lstm_bwd and 1 mixture_loss a step, and the losses finite.
 
 Phases 3 and 6b also check a stack with no hidden layer (the config-3
 image decoder's output layer alone, TP's column-split layer), forward
@@ -270,7 +288,10 @@ the kernel's launches in phase 9's evaluation, "uji_launches" in phase
 kernel-path Predictors, "parallel_launches" by phases 12 and 13's layouts
 at world size 1 (their own runs, not the single-device steps they are
 held against; the gloo ranks' launches are their processes'),
-"cli_launches" by phase 14's runs of the CLI in this process; reparam also gives "floor_ms", an empty kernel's
+"cli_launches" by phase 14's runs of the CLI in this process; the rows of
+phase 15's lstm_fwd, lstm_bwd and mixture_loss give the "shape" they were
+timed at, their "launches" in its 4-step sketch training run, and for the
+LSTM kernels a "bf16" object; reparam also gives "floor_ms", an empty kernel's
 launch timed as its row, and "queued_ms" and "floor_queued_ms", the two
 queued behind a spin kernel (the device's time a launch, without the
 host's pace); enc_bwd and dec_bwd
@@ -3812,6 +3833,255 @@ def cli_check(card):
     return launches
 
 
+# Sketch-RNN's sizes in the cell sk-train-rnn-bf16-b100 (get_default_hparams).
+SKETCH_BATCH, SKETCH_STEPS, SKETCH_ENC, SKETCH_DEC, SKETCH_MIX = 100, 250, 256, 512, 20
+SKETCH_PER_STEP = {"lstm_fwd": 2 * SKETCH_STEPS, "lstm_bwd": 2 * SKETCH_STEPS + 1,
+                   "mixture_loss": 1}
+"""Sketch launches per training step: a launch a step forward for the
+encoder (both directions in one) and the decoder; backward the same, and
+one more for the decoder's initial state, which z gives; one mixture loss."""
+MIX_TOL = {"loss": (1e-5, 1e-5), "dy": (1e-4, 1e-5)}  # (rtol, atol): exp/log ulps, sum order
+
+
+def _sketch_points(n, g):
+    """Stroke-5 targets of n sketches as the cell draws them: lengths
+    uniform on 64..250, offsets N(0, 1), the pen lifted at 1 point in 10,
+    padding (0, 0, 0, 0, 1); [n, 250, 5] on the card."""
+    t = SKETCH_STEPS
+    length = torch.randint(64, t + 1, (n, 1), generator=g, device="cuda")
+    lift = (torch.rand(n, t, 1, generator=g, device="cuda") < 0.1).float()
+    pts = torch.cat([torch.randn(n, t, 2, generator=g, device="cuda"), 1 - lift, lift,
+                     torch.zeros_like(lift)], dim=2)
+    pad = torch.tensor([0.0, 0.0, 0.0, 0.0, 1.0], device="cuda")
+    return torch.where((torch.arange(t, device="cuda") >= length)[..., None], pad, pts)
+
+
+def _lstm_layer(n_dirs, hidden, g, swap=False):
+    """The directions of one LSTM layer at the cell's batch and steps, from
+    the generator's draws (the same draws give the same inputs): hoisted
+    products, W_h (its i and f gate blocks swapped with ``swap``), initial
+    states, the cotangent of every state, and zeroed backward buffers."""
+    from vae_assoc_tpu_torch.kernels import lstm as klstm
+
+    t, b = SKETCH_STEPS, SKETCH_BATCH
+    dirs = []
+    for _ in range(n_dirs):
+        xp = torch.randn(t, b, 4 * hidden, generator=g, device="cuda") * 0.5
+        w = torch.randn(hidden, 4 * hidden, generator=g, device="cuda") / hidden ** 0.5
+        if swap:
+            w = torch.cat([w[:, 2 * hidden:3 * hidden], w[:, hidden:2 * hidden],
+                           w[:, :hidden], w[:, 3 * hidden:]], dim=1)
+        hs = torch.empty(t + 1, b, hidden, device="cuda")
+        cs = torch.empty_like(hs)
+        hs[0] = torch.randn(b, hidden, generator=g, device="cuda") * 0.5
+        cs[0] = torch.randn(b, hidden, generator=g, device="cuda") * 0.5
+        d = klstm.Direction(xp, w.contiguous(), hs, cs, torch.empty(t, b, 4 * hidden,
+                                                                      device="cuda"))
+        d.dh_seq = torch.randn(t + 1, b, hidden, generator=g, device="cuda")
+        d.dgates = torch.zeros(t + 1, b, 4 * hidden, device="cuda")
+        d.dh_acc, d.dc_acc, d.dh0 = (torch.zeros(b, hidden, device="cuda") for _ in range(3))
+        dirs.append(d)
+    return dirs
+
+
+def _lstm_forward(dirs, xrow, lengths, cd, plain):
+    """Every step forward: lstm_fwd, or its twin a step at a time."""
+    from vae_assoc_tpu_torch.kernels import lstm as klstm
+
+    if not plain:
+        return klstm.run_forward(dirs, xrow, lengths, cd)
+    for t in range(SKETCH_STEPS):
+        klstm.lstm_fwd_plain(dirs, xrow, lengths, t, cd)
+
+
+def _lstm_backward(dirs, lengths, cd, plain):
+    """Every step backward and the initial state's launch, from zeroed
+    carries: lstm_bwd, or its twin a step at a time."""
+    from vae_assoc_tpu_torch.kernels import lstm as klstm
+
+    for d in dirs:
+        d.dh_acc.zero_()
+        d.dc_acc.zero_()
+    if not plain:
+        return klstm.run_backward(dirs, lengths, cd, initial=True)
+    for t in range(SKETCH_STEPS - 1, -2, -1):
+        klstm.lstm_bwd_plain(dirs, lengths, t, SKETCH_STEPS, cd)
+
+
+def _lstm_work(n_dirs, hidden, fwd):
+    """(bytes, operations) of one layer's launches over every step: per
+    direction, the recurrent product (the input product is hoisted out) and
+    W_h read once; forward the hoisted products read and the gate
+    pre-activations, h and c written; backward the pre-activations, c and
+    the states' cotangents read and the gate gradients written (the same
+    bytes)."""
+    t, b = SKETCH_STEPS, SKETCH_BATCH
+    flops = n_dirs * 2 * b * (t if fwd else t + 1) * hidden * 4 * hidden
+    moved = 2 * t * b * 4 * hidden + 2 * t * b * hidden
+    return n_dirs * 4 * (hidden * 4 * hidden + moved), flops
+
+
+def _mixture_work(rows, m=SKETCH_MIX):
+    """(bytes, operations) of mixture_loss: the head output and targets read
+    once, the gradient and the loss written once; its ≈ 50 operations a
+    component and row (exp, log, tanh among them) stay far under the
+    bytes' time, so they are left out."""
+    width = 3 + 6 * m
+    return 4 * rows * (2 * width + 5 + 1), 0
+
+
+def _rel_err(got, want):
+    return float((got - want).abs().max() / want.abs().max().clamp_min(1e-30))
+
+
+def sketch_kernels_and_check(card):
+    """Phase 15; returns the three kernels' rows of the kernel record."""
+    from vae_assoc_tpu_torch.configs import AssocConfig, ModalityConfig, TrainConfig
+    from vae_assoc_tpu_torch.kernels import launch_counts, reset_launches
+    from vae_assoc_tpu_torch.kernels import mixture as kmix
+    from vae_assoc_tpu_torch.train import init_train_state, train_loop_fused
+    from vae_assoc_tpu_torch.train.loop import GRAPH
+
+    rows = {k: {"name": k, "route": "cuda", "replaces": "none: the JAX package has no "
+                "recurrent tower"} for k in SKETCH_PER_STEP}
+    rows["lstm_fwd"]["source"] = rows["lstm_bwd"]["source"] = CSRC + "lstm.cu"
+    rows["mixture_loss"]["source"] = CSRC + "mixture.cu"
+    layers = {"encoder": (2, SKETCH_ENC), "decoder": (1, SKETCH_DEC)}
+    failed = []
+    for cd in ("float32", "bfloat16"):
+        tol = TOL[cd]
+        errs = {"lstm_fwd": 0.0, "lstm_bwd": 0.0}
+        times = {}
+        for name, (n_dirs, hidden) in layers.items():
+            g = torch.Generator(device="cuda")
+            g.manual_seed(15)
+            lengths = (torch.randint(64, SKETCH_STEPS + 1, (SKETCH_BATCH,), generator=g,
+                                     device="cuda").int() if n_dirs == 2 else None)
+            xrow = (torch.randn(SKETCH_BATCH, 4 * hidden, generator=g, device="cuda") * 0.3
+                    if n_dirs == 1 else None)
+            state = g.get_state()
+            runs = {}
+            for which, plain, swap in (("kernel", False, False), ("plain", True, False),
+                                       ("swapped", True, True)):
+                g.set_state(state)
+                dirs = _lstm_layer(n_dirs, hidden, g, swap)
+                _lstm_forward(dirs, xrow, lengths, cd, plain)
+                _lstm_backward(dirs, lengths, cd, plain)
+                runs[which] = dirs
+            torch.cuda.synchronize()
+            fwd = {"hs": lambda d: d.hs, "cs": lambda d: d.cs, "gates": lambda d: d.gates}
+            bwd = {"dgates": lambda d: d.dgates[:SKETCH_STEPS], "dh0": lambda d: d.dh0,
+                   "dc0": lambda d: d.dc_acc}
+            for kernel, parts in (("lstm_fwd", fwd), ("lstm_bwd", bwd)):
+                got = {p: max(_rel_err(f(k), f(w)) for k, w in zip(runs["kernel"],
+                                                                    runs["plain"]))
+                       for p, f in parts.items()}
+                errs[kernel] = max(errs[kernel], *got.values())
+                print(f"{kernel} {name} ({n_dirs} x {hidden} units) {cd}, kernel vs twin, "
+                      f"max err over max|want|: " + ", ".join(f"{p} {e:.3e}" for p, e in
+                                                               got.items())
+                      + f" (tol {tol})", flush=True)
+                if max(got.values()) > tol:
+                    failed.append(f"{kernel} {name} {cd}: {got}")
+            swapped = _rel_err(runs["swapped"][0].hs, runs["plain"][0].hs)
+            print(f"lstm twin with the i and f gates swapped, {name} {cd}: hs err {swapped:.3e} "
+                  f"(must exceed {tol})", flush=True)
+            if swapped <= tol:
+                failed.append(f"a wrong gate order passes the {name} {cd} tolerance")
+            dirs = runs["kernel"]
+            for kernel, fns, work in (
+                    ("lstm_fwd", {"kernel": lambda: _lstm_forward(dirs, xrow, lengths, cd, False),
+                                  "plain": lambda: _lstm_forward(dirs, xrow, lengths, cd, True)},
+                     _lstm_work(n_dirs, hidden, True)),
+                    ("lstm_bwd", {"kernel": lambda: _lstm_backward(dirs, lengths, cd, False),
+                                  "plain": lambda: _lstm_backward(dirs, lengths, cd, True)},
+                     _lstm_work(n_dirs, hidden, False))):
+                bound = _bound(*work, cd)
+                timed = _time_case(f"{kernel} {name} {cd}, all {SKETCH_STEPS} steps", fns, card,
+                                   bound=bound, n=3)
+                times[(kernel, name)] = (timed, bound)
+        for kernel in ("lstm_fwd", "lstm_bwd"):
+            ms = {w: sum(times[(kernel, n)][0]["call"][w] for n in layers)
+                  for w in ("kernel", "plain")}
+            bound_ms = sum(times[(kernel, n)][1][0] for n in layers)
+            out = {"max_abs_err": errs[kernel], "ms": ms["kernel"], "plain_ms": ms["plain"],
+                   "bound_ms": bound_ms, "bound_by": times[(kernel, "encoder")][1][1],
+                   "shape": "a training step's encoder and decoder layers, CUDA events"}
+            if cd == "float32":
+                rows[kernel].update(out)
+            else:
+                rows[kernel]["bf16"] = out
+
+    # mixture_loss on a training step's 25,000 head rows (fp32 in every dtype).
+    g = torch.Generator(device="cuda")
+    g.manual_seed(16)
+    n = SKETCH_BATCH * SKETCH_STEPS
+    y = torch.randn(n, 3 + 6 * SKETCH_MIX, generator=g, device="cuda") * 0.5
+    tgt = _sketch_points(SKETCH_BATCH, g).reshape(n, 5)
+    loss, dy = kmix.mixture_loss_kernel(y, tgt)
+    want, dwant = kmix.mixture_loss_plain(y, tgt)
+    m = SKETCH_MIX
+    ys = torch.cat([y[:, :3 + m], y[:, 3 + 2 * m:3 + 3 * m], y[:, 3 + m:3 + 2 * m],
+                    y[:, 3 + 3 * m:]], dim=1)
+    swapped = kmix.mixture_loss_plain(ys, tgt)[0]
+    worst = {}
+    for part, got, ref in (("loss", loss, want), ("dy", dy, dwant), ("swapped", swapped, want)):
+        rtol, atol = MIX_TOL["loss" if part == "swapped" else part]
+        worst[part] = float(((got - ref).abs() - rtol * ref.abs()).max())
+        print(f"mixture_loss {part} vs twin: max(|err| - rtol|want|) {worst[part]:.3e} "
+              f"(atol {atol}{', must exceed' if part == 'swapped' else ''})", flush=True)
+    if worst["loss"] > MIX_TOL["loss"][1] or worst["dy"] > MIX_TOL["dy"][1]:
+        failed.append(f"mixture_loss vs twin: {worst}")
+    if worst["swapped"] <= MIX_TOL["loss"][1]:
+        failed.append("swapped means pass the mixture tolerance")
+    bound = _bound(*_mixture_work(n))
+    timed = _time_case(f"mixture_loss {n} rows", {
+        "kernel": lambda: kmix.mixture_loss_kernel(y, tgt),
+        "plain": lambda: kmix.mixture_loss_plain(y, tgt)}, card, bound=bound)
+    rows["mixture_loss"].update(
+        max_abs_err=float((loss - want).abs().max()), ms=timed["call"]["kernel"],
+        plain_ms=timed["call"]["plain"], bound_ms=bound[0], bound_by=bound[1],
+        shape=f"{n} x {3 + 6 * m} head rows, CUDA events")
+
+    # The cell's model through train_loop_fused: launches a step from the run itself.
+    image = ModalityConfig("image", dict(n_input=784, n_z=128, n_hidden_recog_1=500,
+                                         n_hidden_recog_2=500, n_hidden_gener_1=500,
+                                         n_hidden_gener_2=500), recon="bernoulli")
+    sketch = ModalityConfig("sketch", dict(n_input=5, n_z=128, max_seq_len=SKETCH_STEPS,
+                                           enc_rnn_size=SKETCH_ENC, dec_rnn_size=SKETCH_DEC,
+                                           num_mixture=SKETCH_MIX),
+                            recon="mixture", encoder="sketch_rnn", kl_tolerance=0.2,
+                            kl_weight=0.5, kl_weight_start=0.01, kl_decay_rate=0.99995)
+    cfg = AssocConfig([image, sketch], assoc_lambda=1.0)
+    tc = TrainConfig(batch_size=SKETCH_BATCH, compute_dtype="bfloat16", use_pallas=True,
+                     steps_per_call=1, lr_schedule="exponential", lr_decay_rate=0.9999,
+                     min_learning_rate=1e-5, grad_clip_value=1.0, seed=15)
+    steps = 4
+    g.manual_seed(17)
+    start = torch.tensor([0.0, 0.0, 1.0, 0.0, 0.0], device="cuda").expand(
+        steps * SKETCH_BATCH, 1, 5)
+    data = [torch.rand(steps * SKETCH_BATCH, 784, generator=g, device="cuda"),
+            torch.cat([start, _sketch_points(steps * SKETCH_BATCH, g)], dim=1)]
+    state = init_train_state(cfg, tc, device="cuda")
+    g0 = dict(GRAPH)
+    reset_launches()
+    state, hist = train_loop_fused(cfg, tc, data, epochs=1, state=state)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in launch_counts().items() if k in SKETCH_PER_STEP}
+    g1 = dict(GRAPH)
+    graph = {k: g1[k] - g0[k] for k in g0}
+    print(f"sketch training, {state.step} steps of batch {SKETCH_BATCH}: launches {launches}, "
+          f"graph {graph}, total {hist[0]['total']:.4f}", flush=True)
+    if launches != {k: v * steps for k, v in SKETCH_PER_STEP.items()}:
+        failed.append(f"sketch training launches {launches}")
+    if state.step != steps or not np.isfinite(hist[0]["total"]) or graph["captures"] != 1:
+        failed.append(f"sketch training: {state.step} steps, {hist}, graph {graph}")
+    for k in rows:
+        rows[k]["launches"] = launches[k]
+    assert not failed, "; ".join(failed)
+    return list(rows.values())
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch finds no CUDA device", file=sys.stderr)
@@ -3833,6 +4103,14 @@ def main() -> int:
     build_s = time.perf_counter() - t0
     print(f"built {lib_path.name} in {build_s:.2f} s", flush=True)
     print((lib_path.parent / "build.log").read_text().strip(), flush=True)
+    if sys.argv[1:] == ["--only", "sketch"]:
+        # Phase 15 alone
+        print(json.dumps({"kernels": sketch_kernels_and_check(card)}), flush=True)
+        return _ok()
+    if sys.argv[1:]:
+        print(f"chip_smoke: unknown arguments {sys.argv[1:]}; takes none or --only sketch",
+              file=sys.stderr)
+        return 2
 
     # Phase 3
     rng = np.random.default_rng(0)
@@ -3889,6 +4167,9 @@ def main() -> int:
 
     # Phase 14
     cli_launches = cli_check(card)
+
+    # Phase 15
+    sketch_rows = sketch_kernels_and_check(card)
 
     cd = pred.compute_dtype
     big, small = TRAIN_TIMED[-1], TRAIN_TIMED[0]
@@ -4034,7 +4315,11 @@ def main() -> int:
             if name in nodx_work:
                 row["bf16"]["nodx_bound_ms"] = _bound(*nodx_work[name], "bfloat16")[0]
         kernels.append(row)
-    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"kernels": kernels + sketch_rows}), flush=True)
+    return _ok()
+
+
+def _ok() -> int:
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

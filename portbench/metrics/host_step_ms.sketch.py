@@ -1,0 +1,8 @@
+"""Median of the program's ``train.step`` spans in the Sketch-RNN training
+cell: the host time of one step (a replay of the captured step)."""
+
+from portbench.spantrace import median_span_ms
+
+
+def read(obs):
+    return median_span_ms(obs, "train.step")

@@ -81,10 +81,10 @@ def test_step_scalar_rows_hold_seeds_past_2_63_as_int64():
     cfg, tc = _tiny(**SCHEDULE)
     state = _big_seed_state(cfg, tc)
     rows = torch.from_numpy(tstep.step_scalar_rows(state, cfg, tc, 6))
-    assert rows.dtype == torch.int64 and rows.shape == (6, tstep.StepScalars.width(2, True))
+    assert rows.dtype == torch.int64 and rows.shape == (6, tstep.StepScalars.width(2, 3))
     wants = []
     for s in range(6):
-        sc = tstep.StepScalars.of_row(rows[s], 2, True)
+        sc = tstep.StepScalars.of_row(rows[s], 2, 3)
         want = tassoc.modality_seeds(tstep.step_seed(state.seed, 7 + s), 2)
         wants += want
         assert [int(v) & MASK64 for v in sc.seeds] == want
@@ -101,8 +101,8 @@ def test_step_scalar_rows_leave_out_the_objective_when_nothing_anneals():
     cfg, tc = _tiny()
     state = _big_seed_state(cfg, tc, count=0)
     rows = torch.from_numpy(tstep.step_scalar_rows(state, cfg, tc, 2))
-    assert rows.shape == (2, tstep.StepScalars.width(2, False))
-    sc = tstep.StepScalars.of_row(rows[1], 2, False)
+    assert rows.shape == (2, tstep.StepScalars.width(2, 0))
+    sc = tstep.StepScalars.of_row(rows[1], 2, 0)
     assert sc.objective is None
     assert sc.adam.tolist() == [float(v) for v in tstep.adam_scalars(tc, 1)]
     with pytest.raises(ValueError, match="expected 2 modality seeds"):
@@ -161,7 +161,7 @@ def test_step_on_device_scalars_matches_the_host_step(use_pallas, schedule):
     for s in range(4):
         a, ma = tstep._one_step(a, xs, cfg, tc, opt)
         b, mb = tstep._one_step(b, xs, cfg, tc, opt,
-                                scalars=tstep.StepScalars.of_row(rows[s], 2, schedule))
+                                scalars=tstep.StepScalars.of_row(rows[s], 2, 3 if schedule else 0))
         assert list(ma) == list(mb)
         for k in ma:
             assert torch.equal(ma[k], mb[k]), (s, k)
@@ -178,7 +178,7 @@ def test_step_refuses_device_scalars_with_injected_eps():
     with pytest.raises(ValueError, match="neither eps nor a group"):
         tstep._one_step(state, xs, cfg, tc, tstep.make_optimizer(tc),
                         eps=[torch.zeros(16, 4)] * 2,
-                        scalars=tstep.StepScalars.of_row(row, 2, False))
+                        scalars=tstep.StepScalars.of_row(row, 2, 0))
 
 
 def test_fused_loop_runs_eagerly_off_cuda_and_counts_it():

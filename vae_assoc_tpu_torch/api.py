@@ -186,7 +186,9 @@ class AssocVariationalAutoEncoder:
     @torch.no_grad()
     def cross_generate(self, x, src: Union[int, str], dst: Union[int, str], *, cond=None):
         """Encode with modality ``src``, decode with modality ``dst``.
-        Conditional models: pass ``cond`` (labels [B] or one-hot)."""
+        Conditional models: pass ``cond`` (labels [B] or one-hot). To a
+        sketch modality, the greedy decode: [B, max_seq_len, 5] stroke-5
+        points (models/sketch_rnn.py::greedy_decode)."""
         x = self._tensor(x)
         c = None if cond is None else self._host_cond(cond, int(x.shape[0]))
         return assoc_mod.cross_generate(self.state.params, x, src=src, dst=dst, cond=c,

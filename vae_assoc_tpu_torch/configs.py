@@ -10,6 +10,17 @@ is the JAX package's, field for field, so each package reads the other's
 reason and selects the hand-written CUDA kernels here.
 
 The five build configs are exposed as :func:`baseline_config` milestones 1-5.
+
+One modality kind is the port's own: ``encoder="sketch_rnn"`` with
+``recon="mixture"``, Sketch-RNN's stroke tower (models/sketch_rnn.py), whose
+arch dict holds the published sizes (:data:`SKETCH_ARCH_KEYS`) and whose
+``kl_tolerance``, ``kl_weight``, ``kl_weight_start`` and ``kl_decay_rate``
+are its KL floor and the whole schedule of its KL weight; with it come the
+``TrainConfig`` fields :data:`PORT_TRAIN_FIELDS` (clipping by value and
+Sketch-RNN's exponential learning rate). The JAX package reads neither: a
+``model_config.json`` that holds them is the port's alone. Written at their
+defaults they are left out of the dict, so every other config round-trips
+through both packages as before.
 """
 
 from __future__ import annotations
@@ -74,6 +85,32 @@ ARCH_KEYS = (
     "n_hidden_gener_1",
     "n_hidden_gener_2",
 )
+
+# The sketch tower's arch dict (encoder="sketch_rnn"): the stroke-5 point
+# width (5), the latent, the sequence length every row is padded to, the
+# encoder's width per direction, the decoder's, and the mixture's components.
+SKETCH_ARCH_KEYS = ("n_input", "n_z", "max_seq_len", "enc_rnn_size", "dec_rnn_size",
+                    "num_mixture")
+
+SKETCH_MODALITY_FIELDS = ("kl_tolerance", "kl_weight", "kl_weight_start", "kl_decay_rate")
+"""``ModalityConfig`` fields of a sketch modality alone; a dict holds them
+for a sketch modality only."""
+
+
+def validate_sketch_arch(arch: Mapping[str, int]) -> FrozenDict:
+    """Validate a sketch tower's arch dict (:data:`SKETCH_ARCH_KEYS`, each a
+    positive int, ``n_input`` 5)."""
+    if set(arch) != set(SKETCH_ARCH_KEYS):
+        raise ValueError(f"a sketch_rnn arch dict has exactly the keys {SKETCH_ARCH_KEYS}, "
+                         f"got {sorted(arch)}")
+    out = {k: int(arch[k]) for k in SKETCH_ARCH_KEYS}
+    if out["n_input"] != 5:
+        raise ValueError(f"stroke-5 points are 5 wide, got n_input={out['n_input']}")
+    for k, v in out.items():
+        if v <= 0:
+            raise ValueError(f"architecture dim {k}={v} must be positive")
+    return FrozenDict(out)
+
 
 _HIDDEN_KEY_RE = re.compile(r"^n_hidden_(recog|gener)_([1-9]\d*)$")
 
@@ -197,6 +234,14 @@ class ModalityConfig:
       n_cond: conditional-VAE one-hot width (0 = unconditional). The
         condition is concatenated to the encoder input and to z at the
         call boundary (models/vae.py).
+
+    ``encoder="sketch_rnn"`` (with ``recon="mixture"``) is Sketch-RNN's
+    stroke tower (models/sketch_rnn.py): rows are [max_seq_len + 1, 5]
+    stroke-5 sequences, the arch dict holds :data:`SKETCH_ARCH_KEYS`, and
+    its KL term is max(KL, ``kl_tolerance``)·w(u), where w(u) = kl_weight −
+    (kl_weight − kl_weight_start)·kl_decay_rate^u after u optimizer updates
+    (sketch_rnn_train.py), or ``kl_weight`` where ``kl_decay_rate`` is 0.
+    These four apply to it alone.
     """
 
     name: str
@@ -205,8 +250,29 @@ class ModalityConfig:
     encoder: str = "mlp"
     transfer: str = "softplus"
     n_cond: int = 0
+    kl_tolerance: float = 0.0
+    kl_weight: float = 1.0
+    kl_weight_start: float = 0.0
+    kl_decay_rate: float = 0.0
+
+    @property
+    def is_sketch(self) -> bool:
+        return self.encoder == "sketch_rnn"
 
     def __post_init__(self):
+        if self.is_sketch:
+            object.__setattr__(self, "arch", validate_sketch_arch(self.arch))
+            if self.recon != "mixture" or self.transfer != "softplus" or self.n_cond:
+                raise ValueError("encoder='sketch_rnn' takes recon='mixture', the default "
+                                 "transfer and no condition")
+            if min(self.kl_tolerance, self.kl_weight, self.kl_weight_start) < 0:
+                raise ValueError("kl_tolerance, kl_weight and kl_weight_start must be >= 0")
+            if not 0.0 <= self.kl_decay_rate <= 1.0:
+                raise ValueError(f"kl_decay_rate must be in [0, 1], got {self.kl_decay_rate}")
+            return
+        if any(getattr(self, k) != getattr(ModalityConfig, k) for k in SKETCH_MODALITY_FIELDS):
+            raise ValueError("kl_tolerance, kl_weight, kl_weight_start and kl_decay_rate "
+                             "belong to encoder='sketch_rnn'")
         object.__setattr__(self, "arch", validate_arch(self.arch))
         if self.recon not in ("bernoulli", "gaussian"):
             raise ValueError(f"unknown recon likelihood: {self.recon!r}")
@@ -325,6 +391,13 @@ class TrainConfig:
     False the plain path. The train step (train/step.py) reads every other
     field except ``data_axis``, which is carried so that a
     ``model_config.json`` round-trips unchanged.
+
+    The port's own fields (:data:`PORT_TRAIN_FIELDS`; Sketch-RNN's
+    ``sketch_rnn_train.py``): ``grad_clip_value`` clips every gradient
+    element to ±value before the update (0: off); ``lr_schedule=
+    "exponential"`` is lr(u) = (learning_rate − min_learning_rate)·
+    lr_decay_rate^u + min_learning_rate (u: optimizer updates). A sketch
+    modality's KL weight has its schedule on its ``ModalityConfig``.
     """
 
     learning_rate: float = 1e-3
@@ -349,9 +422,25 @@ class TrainConfig:
     kl_anneal_steps: int = 0
     assoc_warmup_steps: int = 0
     remat: bool = False
+    grad_clip_value: float = 0.0
+    lr_decay_rate: float = 0.0
+    min_learning_rate: float = 0.0
 
     def __post_init__(self):
         object.__setattr__(self, "compute_dtype", dtype_name(self.compute_dtype))
+
+
+PORT_TRAIN_FIELDS = ("grad_clip_value", "lr_decay_rate", "min_learning_rate")
+"""``TrainConfig`` fields the JAX package does not have; a dict leaves each
+out at its default."""
+
+
+def _modality_dict(m: ModalityConfig) -> dict:
+    d = {"name": m.name, "arch": dict(m.arch), "recon": m.recon, "encoder": m.encoder,
+         "transfer": m.transfer, "n_cond": m.n_cond}
+    if m.is_sketch:
+        d.update({k: getattr(m, k) for k in SKETCH_MODALITY_FIELDS})
+    return d
 
 
 def config_to_dict(cfg: AssocConfig, tc: TrainConfig = None) -> dict:
@@ -361,20 +450,12 @@ def config_to_dict(cfg: AssocConfig, tc: TrainConfig = None) -> dict:
         "assoc_form": cfg.assoc_form,
         "assoc_temp": cfg.assoc_temp,
         "assoc_negatives": cfg.assoc_negatives,
-        "modalities": [
-            {
-                "name": m.name,
-                "arch": dict(m.arch),
-                "recon": m.recon,
-                "encoder": m.encoder,
-                "transfer": m.transfer,
-                "n_cond": m.n_cond,
-            }
-            for m in cfg.modalities
-        ],
+        "modalities": [_modality_dict(m) for m in cfg.modalities],
     }
     if tc is not None:
-        out["train"] = dataclasses.asdict(tc)
+        defaults = TrainConfig()
+        out["train"] = {k: v for k, v in dataclasses.asdict(tc).items()
+                        if k not in PORT_TRAIN_FIELDS or v != getattr(defaults, k)}
     return out
 
 
@@ -387,6 +468,7 @@ def config_from_dict(d: Mapping) -> tuple:
                 encoder=m.get("encoder", "mlp"),
                 transfer=m.get("transfer", "softplus"),
                 n_cond=m.get("n_cond", 0),
+                **{k: m[k] for k in SKETCH_MODALITY_FIELDS if k in m},
             )
             for m in d["modalities"]
         ],

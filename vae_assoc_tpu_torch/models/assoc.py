@@ -138,6 +138,8 @@ def mega_fallback_reason(cfg: AssocConfig):
             "modality's tower does not surface its ε draw"
         )
     for m in cfg.modalities:
+        if m.is_sketch:
+            return f"modality {m.name!r} is a sketch_rnn tower"
         if m.transfer != "softplus":
             return f"modality {m.name!r} uses transfer={m.transfer!r}"
         if m.encoder == "mlp" and (
@@ -195,36 +197,45 @@ def joint_objective(outs, xs, cfg: AssocConfig, *, use_pallas=False,
                     parity_mode: bool = False, data_group=None):
     """(total, metrics) of the joint objective from the towers' forward
     outputs ``outs`` on the inputs ``xs``: on the fused loss kernel where
-    ``use_pallas`` (and not ``parity_mode``), else the plain losses."""
-    metrics = {}
-    total = torch.zeros((), dtype=torch.float32, device=xs[0].device)
-    if use_pallas and not parity_mode:
-        # One fused pass over every modality's loss terms (kernels/loss.py).
-        # Its association column is the mean-L2 form; another form couples
+    ``use_pallas`` (and not ``parity_mode``), else the plain losses. A
+    sketch modality adds its L_R and kl_weight·max(KL, kl_tolerance)
+    (models/sketch_rnn.py), computed with its tower."""
+    terms = {}
+    dense = [i for i, m in enumerate(cfg.modalities) if not m.is_sketch]
+    is_mean_l2 = cfg.assoc_form == "mean_l2"
+    fused_assoc = is_mean_l2 and len(dense) == len(cfg.modalities)
+    col_means = None
+    if use_pallas and not parity_mode and dense:
+        # One fused pass over every dense modality's loss terms
+        # (kernels/loss.py). Its association column is the mean-L2 form
+        # over all modalities; another form, or a sketch modality, couples
         # through ops/losses on the tensors already at hand.
         from vae_assoc_tpu_torch.kernels.loss import joint_loss_terms_fused
 
-        k = len(cfg.modalities)
-        is_mean_l2 = cfg.assoc_form == "mean_l2"
-        terms = joint_loss_terms_fused(
-            [m.recon for m in cfg.modalities], xs, [o.recon for o in outs],
-            [o.z_mean for o in outs], [o.z_logvar for o in outs], with_assoc=is_mean_l2,
+        k = len(dense)
+        fused = joint_loss_terms_fused(
+            [cfg.modalities[i].recon for i in dense], [xs[i] for i in dense],
+            [outs[i].recon for i in dense], [outs[i].z_mean for i in dense],
+            [outs[i].z_logvar for i in dense], with_assoc=fused_assoc,
         )
-        col_means = terms.mean(0)
-        for i, m in enumerate(cfg.modalities):
-            metrics[f"recon_{m.name}"] = col_means[i]
-            metrics[f"kl_{m.name}"] = col_means[k + i]
-            total = total + col_means[i] + col_means[k + i]
-        if is_mean_l2:
-            assoc = col_means[2 * k]
-        else:
-            assoc = torch.mean(_assoc_per_sample(outs, cfg, data_group=data_group))
+        col_means = fused.mean(0)
+        for j, i in enumerate(dense):
+            terms[i] = {"recon": col_means[j], "kl": col_means[k + j]}
+    for i, (m, x, out) in enumerate(zip(cfg.modalities, xs, outs)):
+        if i not in terms:
+            terms[i] = vae_mod.vae_loss(out, x, m, parity_mode=parity_mode)
+    metrics = {}
+    total = torch.zeros((), dtype=torch.float32, device=xs[0].device)
+    for i, m in enumerate(cfg.modalities):
+        metrics[f"recon_{m.name}"] = terms[i]["recon"]
+        metrics[f"kl_{m.name}"] = terms[i]["kl"]
+        kl = terms[i]["kl"] * m.kl_weight if m.is_sketch else terms[i]["kl"]
+        total = total + terms[i]["recon"] + kl
+    if col_means is not None and fused_assoc:
+        assoc = col_means[2 * len(dense)]
+    elif use_pallas and not parity_mode:
+        assoc = torch.mean(_assoc_per_sample(outs, cfg, data_group=data_group))
     else:
-        for m, x, out in zip(cfg.modalities, xs, outs):
-            terms = vae_mod.vae_loss(out, x, m, parity_mode=parity_mode)
-            metrics[f"recon_{m.name}"] = terms["recon"]
-            metrics[f"kl_{m.name}"] = terms["kl"]
-            total = total + terms["recon"] + terms["kl"]
         mean = losses.ordered_mean if parity_mode else torch.mean
         assoc = mean(_assoc_per_sample(outs, cfg, ordered=parity_mode,
                                        data_group=data_group))

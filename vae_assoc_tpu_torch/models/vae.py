@@ -5,7 +5,9 @@
 the recognition net to the latent mean and ``generate`` the generator net
 with its output activation (serving). A conditional modality concatenates
 its condition to the encoder input and to z at the call boundary, so the
-fused kernels run unchanged on the widened first layers.
+fused kernels run unchanged on the widened first layers. A sketch modality
+(``encoder="sketch_rnn"``) runs Sketch-RNN's tower (models/sketch_rnn.py)
+behind the same verbs: its ``generate`` is the greedy decode.
 """
 
 from __future__ import annotations
@@ -55,6 +57,10 @@ def _net_fns(cfg: ModalityConfig, use_pallas=False):
 
 def init_vae(generator: torch.Generator | None, cfg: ModalityConfig, *, device):
     """One modality's towers; zeros when ``generator`` is None."""
+    if cfg.is_sketch:
+        from vae_assoc_tpu_torch.models.sketch_rnn import SketchRNN
+
+        return SketchRNN(cfg.arch, device=device, generator=generator)
     init_fn, _, _ = _net_fns(cfg)
     return init_fn(generator, cfg.arch, device=device, n_cond=cfg.n_cond)
 
@@ -102,8 +108,14 @@ def _check_width(t, n: int, name: str, what: str):
 
 def generate(params, z, cfg: ModalityConfig, *, compute_dtype="float32",
              use_pallas=False, cond=None):
-    """z → x̂ in data space (decoder only; sigmoid for Bernoulli modalities)."""
+    """z → x̂ in data space (decoder only; sigmoid for Bernoulli modalities;
+    a sketch modality's greedy decode, [B, max_seq_len, 5])."""
     _check_width(z, cfg.arch["n_z"], cfg.name, "latent")
+    if cfg.is_sketch:
+        from vae_assoc_tpu_torch.models import sketch_rnn
+
+        return sketch_rnn.greedy_decode(params, z, cfg, compute_dtype=compute_dtype,
+                                        use_pallas=use_pallas)
     cond = prepare_cond(cond, cfg, z.shape[0], device=z.device)
     if cond is not None:
         z = torch.cat([z.float(), cond], dim=1)
@@ -119,6 +131,11 @@ def generate(params, z, cfg: ModalityConfig, *, compute_dtype="float32",
 def transform(params, x, cfg: ModalityConfig, *, compute_dtype="float32",
               use_pallas=False, cond=None):
     """x → z_mean (the reference's `transform`: recognition-net mean)."""
+    if cfg.is_sketch:
+        from vae_assoc_tpu_torch.models import sketch_rnn
+
+        return sketch_rnn.transform(params, x, cfg, compute_dtype=compute_dtype,
+                                    use_pallas=use_pallas)
     _check_width(x, cfg.arch["n_input"], cfg.name, "input")
     cond = prepare_cond(cond, cfg, x.shape[0], device=x.device)
     if cond is not None:
@@ -145,7 +162,13 @@ def vae_forward(params, x, cfg: ModalityConfig, *, seed=None, eps=None,
     ``use_pallas`` runs the fused CUDA towers and, for a seed, the fused
     sampler kernel (softplus only, as the reference). ``cond``: the
     condition of a conditional modality, concatenated to the encoder input
-    and to the sampled latent."""
+    and to the sampled latent. A sketch modality's ``recon`` is its scalar
+    reconstruction loss (models/sketch_rnn.py::sketch_forward)."""
+    if cfg.is_sketch:
+        from vae_assoc_tpu_torch.models import sketch_rnn
+
+        return sketch_rnn.sketch_forward(params, x, cfg, seed=seed, eps=eps,
+                                         compute_dtype=compute_dtype, use_pallas=use_pallas)
     _check_width(x, cfg.arch["n_input"], cfg.name, "input")
     cond = prepare_cond(cond, cfg, x.shape[0], device=x.device)
     _, encode, decode = _net_fns(cfg, use_pallas)
@@ -171,7 +194,12 @@ def vae_forward(params, x, cfg: ModalityConfig, *, seed=None, eps=None,
 def vae_loss(out: VAEOutputs, x, cfg: ModalityConfig, *, parity_mode: bool = False):
     """Per-modality loss terms, each a mean-over-batch fp32 scalar:
     dict(recon=..., kl=...). In parity mode every reduction runs in the
-    pinned left-to-right order of the numpy oracle."""
+    pinned left-to-right order of the numpy oracle. A sketch modality's are
+    L_R and max(KL, kl_tolerance)."""
+    if cfg.is_sketch:
+        from vae_assoc_tpu_torch.models import sketch_rnn
+
+        return {"recon": out.recon, "kl": sketch_rnn.kl_term(out, cfg)}
     if cfg.recon == "bernoulli":
         recon = losses.bernoulli_recon(x, logits=out.recon, parity_mode=parity_mode)
     else:

@@ -27,7 +27,7 @@ from vae_assoc_tpu_torch.train.step import (
     init_train_state,
     make_optimizer,
     make_train_step,
-    objective_weights,
+    objective_width,
     step_scalar_rows,
 )
 from vae_assoc_tpu_torch.utils import spans
@@ -167,7 +167,7 @@ class _StepGraph:
         self.key, self.keep = key, keep
         self.xs = [torch.empty((tc.batch_size,) + tuple(d.shape[1:]), dtype=d.dtype, device=dev)
                    for d in dev_data]
-        obj = objective_weights(tc, 0) is not None
+        obj = objective_width(cfg, tc)
         k = len(cfg.modalities)
         self.slot = torch.empty(StepScalars.width(k, obj), dtype=torch.int64, device=dev)
         self.scalars = StepScalars.of_row(self.slot, k, obj)

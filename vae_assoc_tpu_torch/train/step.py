@@ -18,7 +18,10 @@ integers either way.
 vae_assoc_tpu/train/step.py::make_optimizer operation for operation —
 [MultiSteps(accum_steps) ∘] [clip_by_global_norm ∘] Adam (TF defaults) ∘
 learning rate (constant, or cosine, after a linear warmup) [∘ EMA] — so
-both packages agree to fp32 rounding from the same gradients.
+both packages agree to fp32 rounding from the same gradients. The port's
+own stages (configs.PORT_TRAIN_FIELDS, Sketch-RNN's training): clipping by
+value before the chain, an exponential learning rate, and the annealed KL
+weight of a sketch modality (``objective_scalars``).
 """
 
 from __future__ import annotations
@@ -79,11 +82,17 @@ class TrainState(NamedTuple):
 def lr_at(tc: TrainConfig, count: int) -> np.float32:
     """The learning rate of the ``count``-th optimizer update, in fp32 as
     optax's schedules compute it (linear warmup joined to a constant or a
-    cosine decay)."""
+    cosine decay), or Sketch-RNN's exponential decay toward
+    ``min_learning_rate``."""
     f32 = np.float32
-    if tc.lr_schedule not in ("constant", "cosine"):
+    if tc.lr_schedule not in ("constant", "cosine", "exponential"):
         raise ValueError(
-            f"unknown lr_schedule {tc.lr_schedule!r}; expected 'constant' or 'cosine'"
+            f"unknown lr_schedule {tc.lr_schedule!r}; expected 'constant', 'cosine' "
+            "or 'exponential'"
+        )
+    if tc.lr_schedule == "exponential" and not 0.0 < tc.lr_decay_rate <= 1.0:
+        raise ValueError(
+            f"lr_schedule='exponential' needs lr_decay_rate in (0, 1], got {tc.lr_decay_rate}"
         )
     if tc.lr_schedule == "cosine" and tc.decay_steps <= 0:
         raise ValueError(
@@ -94,6 +103,9 @@ def lr_at(tc: TrainConfig, count: int) -> np.float32:
     def main(c):
         if tc.lr_schedule == "constant":
             return f32(tc.learning_rate)
+        if tc.lr_schedule == "exponential":  # in double, as sketch_rnn_train.py
+            lo = tc.min_learning_rate
+            return f32((tc.learning_rate - lo) * tc.lr_decay_rate ** int(c) + lo)
         c = min(f32(c), f32(tc.decay_steps))
         cosine = f32(0.5) * (f32(1) + np.cos(f32(np.pi) * c / f32(tc.decay_steps)))
         return f32(tc.learning_rate) * (f32(1 - tc.lr_end_factor) * cosine
@@ -143,6 +155,8 @@ class Optimizer:
             raise ValueError(f"ema_decay must be in (0, 1), got {tc.ema_decay}")
         if tc.accum_steps < 1:
             raise ValueError(f"accum_steps must be >= 1, got {tc.accum_steps}")
+        if tc.grad_clip_value < 0:
+            raise ValueError(f"grad_clip_value must be >= 0, got {tc.grad_clip_value}")
         lr_at(tc, 0)  # validates the schedule
         self.tc = tc
         self.norm_fn = norm_fn
@@ -196,6 +210,9 @@ class Optimizer:
 
     def _inner(self, grads, state: OptState, params, lr_scale=None, scalars=None) -> None:
         tc = self.tc
+        if tc.grad_clip_value > 0:  # each element to ±value, before the norm
+            grads = torch._foreach_clamp_max(
+                torch._foreach_clamp_min(grads, -tc.grad_clip_value), tc.grad_clip_value)
         if tc.grad_clip_norm > 0:
             norm, clip = self.norm_fn(grads), tc.grad_clip_norm
             if norm.dim() == 0:
@@ -281,16 +298,22 @@ def init_train_state(cfg: AssocConfig, tc: TrainConfig, *, device="cuda",
     return TrainState(0, params, make_optimizer(tc).init(params.parameters()), tc.seed)
 
 
-def _total_with_lambda(metrics: dict, cfg: AssocConfig, lam, kl_w):
-    """Σ_k (recon_k + kl_w·kl_k) + lam·assoc from the logged terms; the
-    gradient is exact, as the total is linear in them. ``lam`` and ``kl_w``
-    are numbers, or tensors (a sweep member's own λ under ``vmap``; a
-    step's weights in device memory)."""
+def _total_with_lambda(metrics: dict, cfg: AssocConfig, lam, kl_w, sketch_w=None):
+    """Σ_k (recon_k + w_k·kl_k) + lam·assoc from the logged terms; the
+    gradient is exact, as the total is linear in them. w_k is ``kl_w``, or
+    for the i-th sketch modality ``sketch_w[i]`` (its ``kl_weight`` where
+    ``sketch_w`` is None). ``lam``, ``kl_w`` and each of ``sketch_w`` are
+    numbers, or tensors (a sweep member's own λ under ``vmap``; a step's
+    weights in device memory)."""
     total = torch.zeros((), dtype=torch.float32, device=metrics["assoc"].device)
     if not isinstance(kl_w, torch.Tensor):
         kl_w = float(kl_w)
+    sketch_w = iter(() if sketch_w is None else sketch_w)
     for m in cfg.modalities:
-        total = total + metrics[f"recon_{m.name}"] + kl_w * metrics[f"kl_{m.name}"]
+        w = next(sketch_w, m.kl_weight) if m.is_sketch else kl_w
+        if not isinstance(w, torch.Tensor):
+            w = float(w)
+        total = total + metrics[f"recon_{m.name}"] + w * metrics[f"kl_{m.name}"]
     if not isinstance(lam, torch.Tensor):
         lam = float(np.float32(lam))
     return total + lam * metrics["assoc"]
@@ -323,15 +346,30 @@ def objective_weights(tc: TrainConfig, step: int):
     return kl_w, scale
 
 
+def sketch_kl_weights(cfg: AssocConfig, tc: TrainConfig, step: int) -> tuple:
+    """Each sketch modality's KL weight at micro-step ``step`` in fp32, in
+    the order of the modalities: w(u) = kl_weight − (kl_weight −
+    kl_weight_start)·kl_decay_rate^u over optimizer updates u = step //
+    accum_steps (sketch_rnn_train.py), or its ``kl_weight`` where its
+    ``kl_decay_rate`` is 0. Computed in double, as sketch_rnn_train.py
+    does, and rounded to fp32."""
+    u = int(step) // tc.accum_steps
+    return tuple(np.float32(m.kl_weight - (m.kl_weight - m.kl_weight_start)
+                            * m.kl_decay_rate ** u if m.kl_decay_rate > 0 else m.kl_weight)
+                 for m in cfg.modalities if m.is_sketch)
+
+
 def objective_scalars(cfg: AssocConfig, tc: TrainConfig, step: int):
-    """(kl_weight, λ·assoc_scale, assoc_scale) in fp32 at micro-step
-    ``step``, the weights ``apply_objective_weights`` puts in the objective,
-    or None where ``objective_weights`` is None."""
+    """(kl_weight, λ·assoc_scale, assoc_scale, *sketch KL weights) in fp32
+    at micro-step ``step``, the weights ``apply_objective_weights`` puts in
+    the objective, or None where ``objective_weights`` is None and the
+    config has no sketch modality."""
     w = objective_weights(tc, step)
-    if w is None:
+    sketch = sketch_kl_weights(cfg, tc, step)
+    if w is None and not sketch:
         return None
-    kl_w, scale = w
-    return kl_w, scale * np.float32(cfg.assoc_lambda), scale
+    kl_w, scale = (np.float32(1), np.float32(1)) if w is None else w
+    return (kl_w, scale * np.float32(cfg.assoc_lambda), scale) + sketch
 
 
 def apply_objective_weights(total, metrics, cfg: AssocConfig, tc: TrainConfig,
@@ -339,7 +377,7 @@ def apply_objective_weights(total, metrics, cfg: AssocConfig, tc: TrainConfig,
     """Rebuild (total, metrics) with the β-VAE and annealing knobs' runtime
     weights and ``assoc_lambda``, a per-model λ in place of the config's
     (an [E] entry of a sweep, a tensor under ``vmap``). ``weights``: the
-    step's ``objective_scalars`` as an fp32 tensor [3] on the device, read
+    step's ``objective_scalars`` as an fp32 tensor on the device, read
     in place of host floats. Returns the inputs untouched when none is
     active."""
     w = objective_scalars(cfg, tc, step)
@@ -351,13 +389,13 @@ def apply_objective_weights(total, metrics, cfg: AssocConfig, tc: TrainConfig,
     if weights is not None:
         if assoc_lambda is not None:
             raise ValueError("device objective weights take the config's assoc_lambda")
-        kl_w, lam, scale = weights.unbind()
+        kl_w, lam, scale, *sketch = weights.unbind()
     else:
-        kl_w, lam, scale = w
+        kl_w, lam, scale, *sketch = w
         if assoc_lambda is not None:
             lam = assoc_lambda * float(scale)
         kl_w, scale = (torch.tensor(float(v), device=total.device) for v in (kl_w, scale))
-    total = _total_with_lambda(metrics, cfg, lam, kl_w)
+    total = _total_with_lambda(metrics, cfg, lam, kl_w, sketch)
     return total, {**metrics, "total": total, "kl_beta_eff": kl_w, "assoc_scale_eff": scale}
 
 
@@ -365,34 +403,44 @@ class StepScalars(NamedTuple):
     """A step's per-step values in device memory, views of one int64 row of
     :func:`step_scalar_rows`: ``seeds`` [k] int64, each modality's ε seed
     (its 64 bits, ``ops.sampling.seed_bits``); ``adam`` [3] fp32,
-    ``adam_scalars``; ``objective`` [3] fp32, ``objective_scalars``, or None
-    where the config anneals nothing."""
+    ``adam_scalars`` (the learning rate's schedule among them); ``objective``
+    [n] fp32, ``objective_scalars`` (n = :func:`objective_width`: 3, and one
+    more for each sketch modality's KL weight), or None where n is 0."""
 
     seeds: torch.Tensor
     adam: torch.Tensor
     objective: torch.Tensor | None
 
     @staticmethod
-    def width(k: int, objective: bool) -> int:
-        """Words of a row: k seeds, then 4 or 6 fp32 values two to a word."""
-        return k + (3 if objective else 2)
+    def width(k: int, objective: int) -> int:
+        """Words of a row: k seeds, then 3 + ``objective`` fp32 values two
+        to a word."""
+        return k + (4 + objective) // 2
 
     @classmethod
-    def of_row(cls, row: torch.Tensor, k: int, objective: bool) -> "StepScalars":
+    def of_row(cls, row: torch.Tensor, k: int, objective: int) -> "StepScalars":
         f = row[k:].view(torch.float32)
-        return cls(row[:k], f[:3], f[3:6] if objective else None)
+        return cls(row[:k], f[:3], f[3:3 + objective] if objective else None)
+
+
+def objective_width(cfg: AssocConfig, tc: TrainConfig) -> int:
+    """The number of objective weights a step's scalars carry: 0 where
+    ``objective_scalars`` is None (at every step or at none), else its
+    length."""
+    w = objective_scalars(cfg, tc, 0)
+    return 0 if w is None else len(w)
 
 
 def step_scalar_rows(state: TrainState, cfg: AssocConfig, tc: TrainConfig,
                      steps: int) -> np.ndarray:
     """[steps, width] int64 rows of :class:`StepScalars` (``of_row(row, k,
-    objective_weights(tc, 0) is not None)``): row s holds those of
+    objective_width(cfg, tc))``): row s holds those of
     micro-step ``state.step + s``, whose update follows
     ``state.opt_state.adam.count + s`` updates (accum_steps 1), computed as
     the step computes them from host values; the fp32 values sit as their
     bits, two to a word."""
     k = len(cfg.modalities)
-    obj = objective_weights(tc, state.step) is not None
+    obj = objective_width(cfg, tc)
     rows = np.empty((steps, StepScalars.width(k, obj)), np.int64)
     floats = np.zeros((steps, 2 * (rows.shape[1] - k)), np.float32)
     for s in range(steps):
@@ -401,7 +449,7 @@ def step_scalar_rows(state: TrainState, cfg: AssocConfig, tc: TrainConfig,
         rows[s, :k] = [seed_bits(x) for x in seeds]
         floats[s, :3] = adam_scalars(tc, state.opt_state.adam.count + s)
         if obj:
-            floats[s, 3:] = objective_scalars(cfg, tc, step)
+            floats[s, 3:3 + obj] = objective_scalars(cfg, tc, step)
     rows[:, k:] = floats.view(np.int64)
     return rows
 
