@@ -267,8 +267,12 @@ Phases, each of which raises on failure (nothing is caught):
    atol 1e-5); the twin with μx and μy swapped must miss it. Each of the
    three timed against its twin, beside its bound. Then the cell's model
    trained through train_loop_fused (composable kernels, bf16) for 4 steps
-   at batch 100: the launch counts, reset just before, are 500 lstm_fwd,
-   501 lstm_bwd and 1 mixture_loss a step, and the losses finite.
+   at batch 100: the launch counts, reset just before, are 2 lstm_fwd,
+   2 lstm_bwd and 1 mixture_loss a step (one persistent launch a layer each
+   way), and the losses finite. Before the checks it prints the split each
+   layer's kernels take (kernels/lstm.py::step_plan; one launch a layer in
+   both precisions) and the step barrier's cost alone (lstm_sync_probe, µs
+   a step).
 
 Phases 3 and 6b also check a stack with no hidden layer (the config-3
 image decoder's output layer alone, TP's column-split layer), forward
@@ -3835,11 +3839,11 @@ def cli_check(card):
 
 # Sketch-RNN's sizes in the cell sk-train-rnn-bf16-b100 (get_default_hparams).
 SKETCH_BATCH, SKETCH_STEPS, SKETCH_ENC, SKETCH_DEC, SKETCH_MIX = 100, 250, 256, 512, 20
-SKETCH_PER_STEP = {"lstm_fwd": 2 * SKETCH_STEPS, "lstm_bwd": 2 * SKETCH_STEPS + 1,
-                   "mixture_loss": 1}
-"""Sketch launches per training step: a launch a step forward for the
-encoder (both directions in one) and the decoder; backward the same, and
-one more for the decoder's initial state, which z gives; one mixture loss."""
+SKETCH_PER_STEP = {"lstm_fwd": 2, "lstm_bwd": 2, "mixture_loss": 1}
+"""Sketch launches per training step: one persistent launch a layer forward
+for the encoder (both directions in one) and the decoder; backward the same
+(the decoder's launch ends with its initial state's step, which z gives);
+one mixture loss."""
 MIX_TOL = {"loss": (1e-5, 1e-5), "dy": (1e-4, 1e-5)}  # (rtol, atol): exp/log ulps, sum order
 
 
@@ -3921,6 +3925,34 @@ def _lstm_work(n_dirs, hidden, fwd):
     return n_dirs * 4 * (hidden * 4 * hidden + moved), flops
 
 
+def _barrier_us(per_group, groups):
+    """The kernels' step barrier alone (csrc/lstm.cu::lstm_sync_probe) over
+    ``groups`` groups of ``per_group`` blocks: µs a step, from the CUDA-event
+    times of 2,000 and 22,000 steps (the launch cancels)."""
+    from vae_assoc_tpu_torch.kernels import _build
+    from vae_assoc_tpu_torch.kernels import lstm as klstm
+
+    lib = _build.load()
+    sync = klstm.sync_counters(torch.device("cuda"))
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def run(steps):
+        err = lib.vae_lstm_sync_probe(sync.data_ptr(), klstm.SYNC_GROUPS, groups, per_group,
+                                      steps, stream)
+        _build.check(lib, err, "lstm_sync_probe launch")
+
+    run(100)
+    ms = {}
+    for steps in (2000, 22000, 2000, 22000):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        run(steps)
+        b.record()
+        torch.cuda.synchronize()
+        ms.setdefault(steps, []).append(a.elapsed_time(b))
+    return 1e3 * (min(ms[22000]) - min(ms[2000])) / 20000
+
+
 def _mixture_work(rows, m=SKETCH_MIX):
     """(bytes, operations) of mixture_loss: the head output and targets read
     once, the gradient and the loss written once; its ≈ 50 operations a
@@ -3938,6 +3970,7 @@ def sketch_kernels_and_check(card):
     """Phase 15; returns the three kernels' rows of the kernel record."""
     from vae_assoc_tpu_torch.configs import AssocConfig, ModalityConfig, TrainConfig
     from vae_assoc_tpu_torch.kernels import launch_counts, reset_launches
+    from vae_assoc_tpu_torch.kernels import lstm as klstm
     from vae_assoc_tpu_torch.kernels import mixture as kmix
     from vae_assoc_tpu_torch.train import init_train_state, train_loop_fused
     from vae_assoc_tpu_torch.train.loop import GRAPH
@@ -3948,6 +3981,19 @@ def sketch_kernels_and_check(card):
     rows["mixture_loss"]["source"] = CSRC + "mixture.cu"
     layers = {"encoder": (2, SKETCH_ENC), "decoder": (1, SKETCH_DEC)}
     failed = []
+    for cd in ("float32", "bfloat16"):
+        for name, (n_dirs, hidden) in layers.items():
+            for kernel in ("lstm_fwd", "lstm_bwd"):
+                split = klstm.step_plan(kernel == "lstm_fwd", SKETCH_BATCH, hidden, n_dirs, cd,
+                                        torch.device("cuda"))
+                print(f"{kernel} {name} ({n_dirs} x {hidden} units) {cd} split: {split}",
+                      flush=True)
+                if split["launches"] != 1:
+                    failed.append(f"{kernel} {name} {cd}: {split['launches']} launches a call")
+    barrier = {f"{groups} x {per}": _barrier_us(per, groups)
+               for groups, per in ((4, 32), (1, 32), (8, 16))}
+    print(f"lstm step barrier alone (groups x blocks): "
+          + ", ".join(f"{k} {v:.3f} us a step" for k, v in barrier.items()), flush=True)
     for cd in ("float32", "bfloat16"):
         tol = TOL[cd]
         errs = {"lstm_fwd": 0.0, "lstm_bwd": 0.0}
@@ -4006,6 +4052,7 @@ def sketch_kernels_and_check(card):
             bound_ms = sum(times[(kernel, n)][1][0] for n in layers)
             out = {"max_abs_err": errs[kernel], "ms": ms["kernel"], "plain_ms": ms["plain"],
                    "bound_ms": bound_ms, "bound_by": times[(kernel, "encoder")][1][1],
+                   "layer_ms": {n: times[(kernel, n)][0]["call"]["kernel"] for n in layers},
                    "shape": "a training step's encoder and decoder layers, CUDA events"}
             if cd == "float32":
                 rows[kernel].update(out)
@@ -4078,6 +4125,7 @@ def sketch_kernels_and_check(card):
         failed.append(f"sketch training: {state.step} steps, {hist}, graph {graph}")
     for k in rows:
         rows[k]["launches"] = launches[k]
+    rows["lstm_fwd"]["barrier_us"] = barrier
     assert not failed, "; ".join(failed)
     return list(rows.values())
 

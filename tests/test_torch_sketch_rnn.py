@@ -11,9 +11,11 @@ bf16-rounded operands fail the tolerances, another that the benchmark's
 copy of the reference (portbench/reference/sketch_rnn.py) gives the same
 loss bit for bit.
 
-On the card (the ``card`` marker; these skip without one): ``lstm_fwd``,
-``lstm_bwd`` and ``mixture_loss`` against their twins, and the replayed
-sketch step against the eager one, bit for bit. This file imports no JAX:
+On the card (the ``card`` marker; these skip without one): ``lstm_fwd``
+and ``lstm_bwd`` against their twins at the cell's shapes, on a ragged
+batch and in one step, twice to the same bits, one launch a layer;
+``mixture_loss`` against its twin, and the replayed sketch step against the
+eager one, bit for bit. This file imports no JAX:
 
     python -m pytest --noconftest -m card tests/test_torch_sketch_rnn.py
 """
@@ -354,26 +356,80 @@ def _run(dirs, xrow, lengths, cd, on_cpu):
     return [h.detach().cpu() for h in hs], [x.cpu() for x in grads]
 
 
+LSTM_CASES = {
+    # The cell's shapes: B 100, T 250, lengths 64..250 on the encoder.
+    "cell": (100, 250, 256, 512, (64, 251)),
+    # B 37 fills no row tile, H 48 no 64-unit tile of the backward, lengths
+    # 0 and 1 hold a row's state from the first steps.
+    "ragged": (37, 9, 32, 48, (0, 3)),
+    # One step, as the greedy decode calls the forward.
+    "one_step": (100, 1, 256, 512, (0, 2)),
+}
+
+
+def _lstm_case(card, case):
+    """The encoder (two directions, lengths) and the decoder (one direction,
+    a per-row addend) of a case, as (dirs, xrow, lengths) pairs."""
+    batch, steps, enc, dec, (lo, hi) = LSTM_CASES[case]
+    g = torch.Generator().manual_seed(0)
+    lens = torch.randint(lo, hi, (batch,), generator=g).int()
+    if case == "ragged":
+        lens[:2] = torch.tensor([0, 1], dtype=torch.int32)
+    xrow = torch.randn(batch, 4 * dec, generator=g) * 0.3
+    return [(_directions(card, 2, batch, steps, enc, 1), None, lens.to(card)),
+            (_directions(card, 1, batch, steps, dec, 2), xrow.to(card), None)]
+
+
 @pytest.mark.card
+@pytest.mark.parametrize("case", list(LSTM_CASES))
 @pytest.mark.parametrize("cd", ["float32", "bfloat16"])
-def test_lstm_kernels_match_their_twins(cd, card):
+def test_lstm_kernels_match_their_twins(cd, case, card):
     # fp32: the same products summed in another order, ~1e-6 after 24 steps.
     # bf16: an fp32 sum in another order can move one bf16 rounding of h,
     # which later steps carry: a few bf16 ulps (2^-8) of the largest value.
     tol = 1e-4 if cd == "float32" else 2e-2
     before = _launches.snapshot()
-    lens = torch.randint(1, 25, (100,), generator=torch.Generator().manual_seed(0))
-    cases = [(_directions(card, 2, 100, 24, 256, 1), None, lens.int().to(card)),
-             (_directions(card, 1, 100, 24, 512, 2),
-              torch.randn(100, 2048, device=card) * 0.3, None)]
-    for dirs, xrow, lengths in cases:
+    planned = {"lstm_fwd": 0, "lstm_bwd": 0}
+    for dirs, xrow, lengths in _lstm_case(card, case):
         got, ggot = _run(dirs, xrow, lengths, cd, on_cpu=False)
         want, gwant = _run(dirs, xrow, lengths, cd, on_cpu=True)
         for a, b in zip(got + ggot, want + gwant):
             assert (a - b).abs().max() <= tol * b.abs().max()
+        _, batch, width = dirs[0][0].shape
+        for kernel in planned:
+            planned[kernel] += klstm.step_plan(kernel == "lstm_fwd", batch, width // 4,
+                                               len(dirs), cd, card)["launches"]
     after = _launches.snapshot()
-    assert after["lstm_fwd"] - before["lstm_fwd"] == 48
-    assert after["lstm_bwd"] - before["lstm_bwd"] == 2 * 25  # h0 and c0 need step −1
+    assert {k: after[k] - before[k] for k in planned} == planned
+    # One launch a layer each way on an H100, in both precisions (h0 and c0
+    # need step −1 in that launch; fp32's decoder backward stages its
+    # operand in four chunks to fit 48-row tiles).
+    assert planned == {"lstm_fwd": 2, "lstm_bwd": 2}
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("case", list(LSTM_CASES))
+@pytest.mark.parametrize("cd", ["float32", "bfloat16"])
+def test_lstm_kernels_repeat_their_bits(cd, case, card):
+    for dirs, xrow, lengths in _lstm_case(card, case):
+        got, ggot = _run(dirs, xrow, lengths, cd, on_cpu=False)
+        again, gagain = _run(dirs, xrow, lengths, cd, on_cpu=False)
+        for a, b in zip(got + ggot, again + gagain):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("cd", ["float32", "bfloat16"])
+def test_the_cells_layers_take_one_launch_of_resident_blocks(cd, card):
+    for fwd in (True, False):
+        for n_dirs, hidden in ((2, 256), (1, 512)):
+            plan = klstm.step_plan(fwd, 100, hidden, n_dirs, cd, card)
+            groups = -(-plan["chunk"] // plan["rows"])
+            assert plan["rows"] <= plan["tile_rows"] and groups * plan["per_group"] <= plan[
+                "resident"] <= torch.cuda.get_device_properties(card).multi_processor_count
+            assert plan["launches"] == -(-100 // plan["chunk"])
+            assert plan["launches"] == 1 and plan["chunk"] == 100, plan
+            assert plan["k_chunks"] == (4 if (cd, fwd, hidden) == ("float32", False, 512) else 2)
 
 
 @pytest.mark.card
@@ -433,7 +489,7 @@ def test_replayed_sketch_step_is_the_eager_step_bit_for_bit(cd, card):
     assert {k: g1[k] - g0[k] for k in g1} == {"captures": 1, "replays": 5, "eager_steps": 1}
     replayed = {k: l1[k] - l0[k] for k in l1}
     assert replayed == {k: l2[k] - l1[k] for k in l2}  # a replay counts its launches
-    assert replayed["lstm_fwd"] == 6 * 2 * 20 and replayed["lstm_bwd"] == 6 * (2 * 20 + 1)
+    assert replayed["lstm_fwd"] == 6 * 2 and replayed["lstm_bwd"] == 6 * 2  # one a layer
     assert replayed["mixture_loss"] == 6
 
 
@@ -446,7 +502,7 @@ def test_image_to_sketch_on_the_card_runs_lstm_fwd_and_matches_the_twins(card):
     before = _launches.snapshot()["lstm_fwd"]
     got = tassoc.cross_generate(model.to(card), x.to(card), cfg, "image", "sketch",
                                 use_pallas=True).cpu()
-    assert _launches.snapshot()["lstm_fwd"] - before == 20  # one launch a decoded point
+    assert _launches.snapshot()["lstm_fwd"] - before == 20  # a one-step launch a point
     # fp32 kernels against their twins: the same argmax choices, offsets to
     # the sums' order.
     assert torch.equal(got[..., 2:], want[..., 2:])

@@ -188,16 +188,20 @@ def load() -> ctypes.CDLL:
                 ptr, i32, i32, ptr,
             ]
             lib.vae_lstm_fwd.argtypes = [
-                ptr, i32, ptr, ptr, i32, i32, i32, i32, i32, i32, i32, ptr,
+                ptr, i32, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, i32, ptr, ptr,
             ]
-            lib.vae_lstm_bwd.argtypes = [ptr, i32, ptr, i32, i32, i32, i32, i32, i32, i32, ptr]
+            lib.vae_lstm_bwd.argtypes = [
+                ptr, i32, ptr, ptr, i32, i32, i32, i32, i32, i32, i32, ptr, ptr,
+            ]
+            lib.vae_lstm_plan.argtypes = [i32, i32, i32, i32, i32, ptr]
+            lib.vae_lstm_sync_probe.argtypes = [ptr, i32, i32, i32, i32, ptr]
             lib.vae_mixture_loss.argtypes = [ptr, ptr, i32, i32, ptr, ptr, ptr]
             for fn in (lib.vae_mega_fwd, lib.vae_mega_dec_loss_bwd,
                        lib.vae_mlp_enc_bwd, lib.vae_mlp_dec_bwd, lib.vae_wgrad,
                        lib.vae_reparam, lib.vae_empty, lib.vae_loss_fwd, lib.vae_loss_bwd,
                        lib.vae_conv_fwd, lib.vae_conv_dw, lib.vae_conv_enc,
                        lib.vae_conv_dec, lib.vae_lstm_fwd, lib.vae_lstm_bwd,
-                       lib.vae_mixture_loss):
+                       lib.vae_lstm_plan, lib.vae_lstm_sync_probe, lib.vae_mixture_loss):
                 fn.restype = i32
             lib.vae_cuda_error_string.argtypes = [i32]
             lib.vae_cuda_error_string.restype = ctypes.c_char_p

@@ -9,20 +9,24 @@ the dense kernels (:func:`linear`), and an optional per-row addend ``xrow``
 holds its state from step ``lengths[b]`` on (``bidirectional_dynamic_rnn``'s
 ``sequence_length``); the encoder's two directions share each launch.
 
-``lstm_fwd`` runs one time step a launch: the recurrent product h_t·W_h on
-``csrc/dense_tile.cuh`` with the gates, the c/h update and the length mask
-after it, keeping the gate pre-activations for the backward. ``lstm_bwd``
-runs one step a launch backward: dgates_{t+1}·W_hᵀ split by gate over the
-four blocks of a cluster, its partials added in gate order, then the gate
-gradients of step t and the carried dc; a last launch (t = −1) gives dh of
-the initial state. W_h's gradient is one ``wgrad`` over all T·B rows afterwards
-(kernels/mlp.py::weight_grads). The bf16 policy is the other kernels':
-products' operands rounded to bf16 and summed in fp32; c, h and every other
-value in fp32.
+Both kernels are persistent over time: one launch runs a range of steps of
+a layer, every direction in it, each block keeping its share of W_h in
+shared memory across the steps and one barrier ending each step.
+``lstm_fwd`` walks [t0, t1) forward: the recurrent product h_t·W_h, then the
+gates, the c/h update and the length mask, keeping the gate pre-activations
+for the backward; a layer's forward is one launch, the greedy decode's step
+a one-step range. ``lstm_bwd`` walks t1 − 1 down to t0: dgates_{t+1}·W_hᵀ
+split by gate over the four blocks of a cluster, its partials added in gate
+order, then the gate gradients of step t and the carried dc; t0 = −1 ends
+with dh of the initial state. W_h's gradient is one ``wgrad`` over all T·B
+rows afterwards (kernels/mlp.py::weight_grads). The bf16 policy is the
+other kernels': products' operands rounded to bf16 and summed in fp32; c, h
+and every other value in fp32.
 
 Dispatch is by the device of the input: the plain twins on the CPU, the
 kernels on CUDA (or raise). Each launch adds one to its counter in
-``_launches.TRAINING``.
+``_launches.TRAINING``: one a layer call, more only where the batch needs
+more row groups than the device holds at once (:func:`step_plan`).
 """
 
 from __future__ import annotations
@@ -35,44 +39,65 @@ from vae_assoc_tpu_torch.kernels import _build, _launches
 from vae_assoc_tpu_torch.kernels import mlp as kmlp
 from vae_assoc_tpu_torch.models import networks
 
-UNITS = kmlp.DENSE_N // 4
-"""Units per column tile of the forward kernel: a tile holds all four gates
-of each (``interleave``); the hidden width must be a multiple of it."""
+UNITS = 16
+"""Units a forward block owns (all four gates of each): the hidden width
+must be a multiple of it."""
+
+SYNC_GROUPS = 512
+"""Barrier counters kept per device and stream (csrc/lstm.cu): one per row
+group and direction of a launch."""
+
+SYNC_STRIDE = 32
+"""Words between two counters (csrc/lstm.cu's kSyncStride): one 128-byte
+line each."""
 
 
 class _Dir(ctypes.Structure):
     """``LstmDir`` of csrc/lstm.cu: one direction's device pointers."""
 
     _fields_ = [(n, ctypes.c_void_p) for n in (
-        "xproj", "w", "hs", "cs", "gates", "dgates", "dh_seq", "dh_acc", "dc_acc", "dh0")]
+        "xproj", "w", "hs", "cs", "gates", "dgates", "dh_seq", "dh_acc", "dc_acc", "dh0",
+        "stage")]
 
 
-def interleave(w_h: torch.Tensor) -> torch.Tensor:
-    """W_h [H, 4H] with its columns reordered for the forward kernel: column
-    128·c + 4·u + g is gate g of unit 32·c + u."""
-    h = w_h.shape[0]
-    return w_h.view(h, 4, h // UNITS, UNITS).permute(0, 2, 3, 1).reshape(h, 4 * h)
+def step_plan(fwd: bool, batch: int, hidden: int, n_dirs: int, compute_dtype, device) -> dict:
+    """The split the kernels take on the card for a layer (csrc/lstm.cu's
+    ``lstm_plan``): ``tile_rows`` (16, 32, 48 or 64), ``rows`` a row group,
+    ``chunk`` rows a launch, ``per_group`` blocks a row group (every
+    direction's; a step's barrier spans one direction's), ``k_chunks`` the
+    step's operand is staged in, ``smem`` bytes a block, ``resident`` blocks
+    the device holds at once, and ``launches``."""
+    lib = _build.load()
+    out = (ctypes.c_int * 8)()
+    bf16 = int(networks.dtype_name(compute_dtype) == "bfloat16")
+    with torch.cuda.device(device):
+        err = lib.vae_lstm_plan(int(fwd), n_dirs, batch, hidden, bf16, out)
+    _build.check(lib, err, "lstm plan")
+    return dict(zip(("tile_rows", "rows", "chunk", "per_group", "k_chunks", "smem", "resident",
+                     "launches"), out))
 
 
-def split_gates(w_h: torch.Tensor) -> torch.Tensor:
-    """W_h [H, 4H] split by gate for the backward kernel: [4, H, H], block g
-    holding W_h[:, g·H:(g + 1)·H]."""
-    h = w_h.shape[0]
-    return w_h.view(h, 4, h).permute(1, 0, 2).contiguous()
+_syncs: dict = {}
 
 
-def step_plan(fwd: bool, batch: int, hidden: int, n_dirs: int, n_sm: int, compute_dtype):
-    """(rows per block, dynamic shared memory in bytes) of a step kernel:
-    the fewest rows (16, 32, 64) that keep the row tiles × column tiles (×
-    four gates backward) × directions within the SMs, and the product's
-    ring and the [rows, 128] tile each block parks its product in;
-    csrc/lstm.cu computes the same bytes and refuses a launch that
-    disagrees."""
-    cols = 4 * hidden if fwd else hidden
-    tiles = -(-cols // kmlp.DENSE_N) * n_dirs * (1 if fwd else 4)
-    rows = kmlp.dense_tile_rows(batch, max(1, n_sm // tiles))
-    bf16 = networks.dtype_name(compute_dtype) == "bfloat16"
-    return rows, kmlp.dense_ring_bytes(rows, not fwd, True, bf16) + 4 * rows * kmlp.DENSE_N
+def sync_counters(device) -> torch.Tensor:
+    """The barrier counters of ``device``, zero when made; each barrier
+    leaves them as it found them, so they are made once and a replayed graph
+    needs no reset. One set a device: the LSTM kernels of a device run one
+    at a time, on one stream (eager steps and graph replays alike), since
+    two launches at once would share a barrier. They are made eagerly, so
+    never inside a CUDA graph's capture, where the zero fill would be
+    recorded and not run: a capture must follow an eager call."""
+    device = torch.device(device)
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    t = _syncs.get(index)
+    if t is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("the LSTM kernels' barrier counters are made by an eager call; "
+                               "run the step once before capturing it")
+        t = _syncs[index] = torch.zeros(SYNC_GROUPS * SYNC_STRIDE, dtype=torch.int32,
+                                        device=device)
+    return t
 
 
 class Direction:
@@ -89,7 +114,7 @@ class Direction:
 
 
 def lstm_fwd_plain(dirs, xrow, lengths, t: int, compute_dtype) -> None:
-    """Plain twin of one ``lstm_fwd`` launch: step t of every direction,
+    """Plain twin of one step of ``lstm_fwd``: step t of every direction,
     written into its ``gates[t]``, ``hs[t + 1]``, ``cs[t + 1]``."""
     cd = networks.dtype_name(compute_dtype)
     for k, d in enumerate(dirs):
@@ -109,7 +134,7 @@ def lstm_fwd_plain(dirs, xrow, lengths, t: int, compute_dtype) -> None:
 
 
 def lstm_bwd_plain(dirs, lengths, t: int, steps: int, compute_dtype) -> None:
-    """Plain twin of one ``lstm_bwd`` launch: step t (or, at t = −1, dh of
+    """Plain twin of one step of ``lstm_bwd``: step t (or, at t = −1, dh of
     the initial state) of every direction, from dgates_{t+1}·W_hᵀ summed by
     gate in the kernel's order."""
     cd = networks.dtype_name(compute_dtype)
@@ -150,11 +175,11 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def _table(dirs, weights) -> ctypes.Array:
+def _table(dirs, stages) -> ctypes.Array:
     return (_Dir * len(dirs))(*[
-        _Dir(_ptr(d.xproj), w.data_ptr(), _ptr(d.hs), _ptr(d.cs), _ptr(d.gates), _ptr(d.dgates),
-             _ptr(d.dh_seq), _ptr(d.dh_acc), _ptr(d.dc_acc), _ptr(d.dh0))
-        for d, w in zip(dirs, weights)])
+        _Dir(_ptr(d.xproj), _ptr(d.w_h), _ptr(d.hs), _ptr(d.cs), _ptr(d.gates), _ptr(d.dgates),
+             _ptr(d.dh_seq), _ptr(d.dh_acc), _ptr(d.dc_acc), _ptr(d.dh0), _ptr(st))
+        for d, st in zip(dirs, stages)])
 
 
 def _check_dirs(dirs, xrow, lengths):
@@ -175,34 +200,52 @@ def _check_dirs(dirs, xrow, lengths):
     return dev, steps, batch, h
 
 
+def _launch(fwd: bool, dirs, xrow, lengths, t0: int, t1: int, cd: str) -> None:
+    """One kernel call over steps [t0, t1), its launches counted. In bf16
+    each direction gets a two-slot stage for the next step's operand."""
+    dev, steps, batch, h = _check_dirs(dirs, xrow, lengths)
+    lib = _build.load()
+    bf16 = cd == "bfloat16"
+    width = h if fwd else 4 * h
+    stages = [torch.empty(2, batch, width, dtype=torch.bfloat16, device=dev) if bf16 else None
+              for _ in dirs]
+    table = _table(dirs, stages)
+    launches = ctypes.c_int(0)
+    stream = kmlp._stream(dirs[0].xproj)
+    with torch.cuda.device(dev):
+        sync = sync_counters(dev).data_ptr()
+        if fwd:
+            err = lib.vae_lstm_fwd(table, len(dirs), _ptr(xrow), _ptr(lengths), sync,
+                                   SYNC_GROUPS, t0, t1, steps, batch, h, int(bf16), stream,
+                                   ctypes.byref(launches))
+        else:
+            err = lib.vae_lstm_bwd(table, len(dirs), _ptr(lengths), sync, SYNC_GROUPS, t0, t1,
+                                   steps, batch, h, int(bf16), stream, ctypes.byref(launches))
+    name = "lstm_fwd" if fwd else "lstm_bwd"
+    _build.check(lib, err, f"{name} kernel launch")
+    for _ in range(launches.value):
+        _launches.count(_launches.TRAINING, name)
+
+
 def run_forward(dirs, xrow, lengths, compute_dtype) -> None:
-    """Every step of every direction: ``lstm_fwd`` once a step on CUDA, the
-    twin on the CPU. Fills each direction's ``hs``, ``cs`` and ``gates``."""
+    """Every step of every direction: one ``lstm_fwd`` call on CUDA (the
+    greedy decode's step is a one-step layer), the twin a step at a time on
+    the CPU. Fills each direction's ``hs``, ``cs`` and ``gates``."""
     cd = networks.dtype_name(compute_dtype)
     steps = dirs[0].xproj.shape[0]
     if dirs[0].xproj.device.type == "cpu":
         for t in range(steps):
             lstm_fwd_plain(dirs, xrow, lengths, t, cd)
         return
-    dev, steps, batch, h = _check_dirs(dirs, xrow, lengths)
-    lib = _build.load()
-    weights = [interleave(d.w_h).contiguous() for d in dirs]
-    table = _table(dirs, weights)
-    rows, smem = step_plan(True, batch, h, len(dirs), kmlp.sm_count(dev), cd)
-    bf16, stream = int(cd == "bfloat16"), kmlp._stream(dirs[0].xproj)
-    with torch.cuda.device(dev):
-        for t in range(steps):
-            err = lib.vae_lstm_fwd(table, len(dirs), _ptr(xrow), _ptr(lengths), t, steps, batch,
-                                   h, rows, smem, bf16, stream)
-            _build.check(lib, err, "lstm_fwd kernel launch")
-            _launches.count(_launches.TRAINING, "lstm_fwd")
+    _launch(True, dirs, xrow, lengths, 0, steps, cd)
 
 
 def run_backward(dirs, lengths, compute_dtype, initial: bool) -> None:
     """Every step of every direction backward, T − 1 down to 0, and with
-    ``initial`` the launch that gives dh of the initial state: ``lstm_bwd``
-    on CUDA, the twin on the CPU. Each direction's ``dgates``, ``dh_acc``,
-    ``dc_acc`` (zeros, and slot T of ``dgates``) and ``dh0`` are given."""
+    ``initial`` the step that gives dh of the initial state: one
+    ``lstm_bwd`` call on CUDA, the twin a step at a time on the CPU. Each
+    direction's ``dgates``, ``dh_acc``, ``dc_acc`` (zeros, and slot T of
+    ``dgates``) and ``dh0`` are given."""
     cd = networks.dtype_name(compute_dtype)
     steps = dirs[0].xproj.shape[0]
     last = -1 if initial else 0
@@ -210,18 +253,7 @@ def run_backward(dirs, lengths, compute_dtype, initial: bool) -> None:
         for t in range(steps - 1, last - 1, -1):
             lstm_bwd_plain(dirs, lengths, t, steps, cd)
         return
-    dev, steps, batch, h = _check_dirs(dirs, None, lengths)
-    lib = _build.load()
-    weights = [split_gates(d.w_h) for d in dirs]
-    table = _table(dirs, weights)
-    rows, smem = step_plan(False, batch, h, len(dirs), kmlp.sm_count(dev), cd)
-    bf16, stream = int(cd == "bfloat16"), kmlp._stream(dirs[0].xproj)
-    with torch.cuda.device(dev):
-        for t in range(steps - 1, last - 1, -1):
-            err = lib.vae_lstm_bwd(table, len(dirs), _ptr(lengths), t, steps, batch, h, rows,
-                                   smem, bf16, stream)
-            _build.check(lib, err, "lstm_bwd kernel launch")
-            _launches.count(_launches.TRAINING, "lstm_bwd")
+    _launch(False, dirs, None, lengths, last, steps, cd)
 
 
 def forward_states(xprojs, w_hs, h0s, c0s, xrow=None, lengths=None, compute_dtype="float32"):

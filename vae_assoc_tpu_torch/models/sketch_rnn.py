@@ -37,8 +37,9 @@ width); ``mu``, ``sigma``, ``init`` (W_z) and ``out`` (W_y) hold ``w``
 
 ``use_pallas`` truthy runs the tower on the hand-written kernels: each
 LSTM's input product hoisted over all steps into one product on the dense
-kernels, one ``lstm_fwd`` launch a step (both encoder directions in one),
-``lstm_bwd`` backward, the head over all steps in one product and
+kernels, one persistent ``lstm_fwd`` launch a layer (both encoder
+directions in one; the greedy decode's a one-step range), ``lstm_bwd``
+backward, the head over all steps in one product and
 ``mixture_loss`` (kernels/lstm.py, kernels/mixture.py; their plain twins on
 the CPU). False is the plain torch path, autograd through the equations as
 written. Spans ``sketch.encode``, ``sketch.decode``, ``sketch.mixture_loss``.
